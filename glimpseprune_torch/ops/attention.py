@@ -1,0 +1,81 @@
+"""Attention entry points of the model: ViT segment and window attention,
+the LLM's causal prefill, and decode over a KV cache.
+
+Counterparts of glimpseprune_tpu/ops/attention.py. Prefill attention goes
+through the two CUDA kernels (ops/cuda/), which take their plain PyTorch
+versions on CPU tensors. Both follow the kernel's semantics on every
+device: a query row with no allowed key outputs 0, where the JAX package's
+XLA paths let such padding rows attend to themselves. Padding rows never
+reach a valid output, so the two agree on every valid row.
+Decode attention has no kernel in the JAX package either; it is plain
+PyTorch here.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from glimpseprune_torch.ops.cuda.flash_attention import flash_attention
+from glimpseprune_torch.ops.cuda.window_attention import window_attention_fused
+
+NEG_INF = -1e30
+
+
+def segment_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      segment_ids: torch.Tensor, dense: bool = False) -> torch.Tensor:
+    """Bidirectional block-diagonal attention over the packed ViT sequence.
+
+    q/k/v [S, H, D]; segment_ids [S] (attend iff equal; < 0 is padding).
+    dense=True promises one valid segment (a single unpadded image), so no
+    mask is applied. Returns [S, H, D]."""
+    seg = None if dense else segment_ids[None]
+    out = flash_attention(q.transpose(0, 1)[None], k.transpose(0, 1)[None],
+                          v.transpose(0, 1)[None], seg, seg, dense=dense)
+    return out[0].transpose(0, 1)
+
+
+def fused_window_attention(qkv: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+                           valid: torch.Tensor, wp: int) -> torch.Tensor:
+    """Rope + attention inside each window of wp patches: qkv [P, 3, H, D]
+    pre-rope, cos/sin [P, D], valid [P] -> [P, H, D]."""
+    return window_attention_fused(qkv, cos, sin, valid, wp)
+
+
+def causal_segment_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             valid: torch.Tensor) -> torch.Tensor:
+    """Causal GQA self-attention over a left-padded batch.
+
+    q [B, S, Hq, D], k/v [B, S, Hkv, D], valid [B, S] -> [B, S, Hq, D]."""
+    seg = torch.where(valid, 0, -1).to(torch.int32)
+    out = flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                          seg, seg, causal=True)
+    return out.transpose(1, 2)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                     kv_valid: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
+                     write_idx: int) -> torch.Tensor:
+    """New queries over a cached prefix plus the new tokens' own keys.
+
+    q [B, S_new, Hq, D]; caches [B, T, Hkv, D] of which slots >= write_idx
+    are stale and masked; kv_valid [B, T]; k_new/v_new [B, S_new, Hkv, D]
+    attend causally among themselves. The cache is read before the layer
+    writes the new tokens into it (language._layer_decode), as in the JAX
+    package. Grouped GQA: the cache is never expanded to Hq heads.
+    Returns [B, S_new, Hq, D]."""
+    b, s_new, hq, d = q.shape
+    t, hkv = k_cache.shape[1], k_cache.shape[2]
+    g = hq // hkv
+    scale = 1.0 / d ** 0.5
+    qg = q.reshape(b, s_new, hkv, g, d).float()
+    allowed = kv_valid[:, None, None, None, :] & (
+        torch.arange(t, device=q.device) < write_idx)
+    logits = torch.einsum("bskgd,btkd->bkgst", qg, k_cache.float()) * scale
+    logits = logits.masked_fill(~allowed, NEG_INF)
+    logits_n = torch.einsum("bskgd,bukd->bkgsu", qg, k_new.float()) * scale
+    causal_n = torch.ones((s_new, s_new), dtype=torch.bool, device=q.device).tril()
+    logits_n = logits_n.masked_fill(~causal_n, NEG_INF)
+    probs = torch.softmax(torch.cat([logits, logits_n], dim=-1), dim=-1)
+    out = torch.einsum("bkgst,btkd->bskgd", probs[..., :t], v_cache.float())
+    out = out + torch.einsum("bkgsu,bukd->bskgd", probs[..., t:], v_new.float())
+    return out.reshape(b, s_new, hq, d).to(q.dtype)

@@ -1,0 +1,94 @@
+"""K1: fused rope + window attention for the ViT's windowed blocks.
+
+Replaces the Pallas kernel ``window_attention_fused``
+(glimpseprune_tpu/ops/pallas/window_attention.py:133, body ``_fused_kernel``
+:55). The CUDA source is ``glimpseprune_torch/csrc/window_attention.cu``;
+its header says what bounds it on the H100 and how the design answers.
+
+The Pallas version merges W=2 windows per grid step, which was TPU tuning;
+here one block handles one (window, head) pair, so the grouping question
+does not arise.
+
+Dispatch is by device: a CPU tensor takes the plain PyTorch version below,
+a CUDA tensor launches the kernel (or raises).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from glimpseprune_torch.ops.cuda.build import check_launch, load_library
+from glimpseprune_torch.ops.rope import rotate_half
+
+NEG_INF = -1e30
+MAX_WP = 64
+MAX_DIM = 128
+
+
+def window_attention_fused_reference(qkv: torch.Tensor, cos: torch.Tensor,
+                                     sin: torch.Tensor, valid: torch.Tensor,
+                                     wp: int) -> torch.Tensor:
+    """Plain version: fp32 math from the given inputs, output in qkv's dtype.
+
+    qkv [P, 3, H, D] pre-rope; cos/sin [P, D]; valid [P] bool; P = n_win*wp.
+    Keys are masked to valid keys plus the diagonal (pad rows attend to
+    themselves, so every row is defined)."""
+    p, _, h, d = qkv.shape
+    nw = p // wp
+    x = qkv.float()
+    c = cos.float()[:, None, :]
+    s = sin.float()[:, None, :]
+    q = x[:, 0] * c + rotate_half(x[:, 0]) * s
+    k = x[:, 1] * c + rotate_half(x[:, 1]) * s
+    v = x[:, 2]
+
+    def windows(t):
+        return t.reshape(nw, wp, h, d).transpose(1, 2)  # [nw, H, wp, D]
+
+    scores = windows(q) @ windows(k).transpose(-1, -2) * (1.0 / d ** 0.5)
+    eye = torch.eye(wp, dtype=torch.bool, device=qkv.device)
+    allowed = valid.reshape(nw, 1, 1, wp) | eye
+    probs = torch.softmax(scores.masked_fill(~allowed, NEG_INF), dim=-1)
+    out = probs @ windows(v)
+    return out.transpose(1, 2).reshape(p, h, d).to(qkv.dtype)
+
+
+def window_attention_fused(qkv: torch.Tensor, cos: torch.Tensor,
+                           sin: torch.Tensor, valid: torch.Tensor,
+                           wp: int) -> torch.Tensor:
+    """Rope + attention inside each window of ``wp`` patches -> [P, H, D].
+
+    ``window_attention_fused.launches`` counts kernel launches."""
+    if qkv.device.type == "cpu":
+        return window_attention_fused_reference(qkv, cos, sin, valid, wp)
+    if qkv.device.type != "cuda":
+        raise ValueError(f"window_attention_fused: unsupported device {qkv.device}")
+    p, three, h, d = qkv.shape
+    if three != 3 or qkv.dtype != torch.bfloat16 or not qkv.is_contiguous():
+        raise ValueError("window_attention_fused: qkv must be contiguous bf16 [P, 3, H, D]")
+    if not 0 < wp <= MAX_WP or p % wp or d % 2 or d > MAX_DIM:
+        raise ValueError(f"window_attention_fused: unsupported wp={wp}, P={p}, D={d}")
+    for name, t in (("cos", cos), ("sin", sin)):
+        if t.shape != (p, d) or t.dtype != torch.bfloat16 or not t.is_contiguous() \
+                or t.device != qkv.device:
+            raise ValueError(f"window_attention_fused: {name} must be contiguous bf16 [P, D]")
+    if valid.shape != (p,) or valid.dtype != torch.bool or not valid.is_contiguous() \
+            or valid.device != qkv.device:
+        raise ValueError("window_attention_fused: valid must be contiguous bool [P]")
+    out = torch.empty((p, h, d), dtype=qkv.dtype, device=qkv.device)
+    if p == 0:
+        return out
+    fn = load_library("window_attention").window_attention_fused_bf16
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream(qkv.device).cuda_stream
+    rc = fn(qkv.data_ptr(), cos.data_ptr(), sin.data_ptr(), valid.data_ptr(),
+            out.data_ptr(), p, h, d, wp, stream)
+    check_launch(rc, "window_attention_fused")
+    window_attention_fused.launches += 1
+    return out
+
+
+window_attention_fused.launches = 0
