@@ -2,6 +2,7 @@
 
 The PyTorch port of ``glimpseprune_tpu`` (the JAX reference package). It
 keeps the JAX package's module layout so each counterpart is easy to find,
-and reuses only the reference's numpy-only modules (``config`` and
-``preprocessing``). Kernels are hand-written CUDA C++ under ``csrc/``.
+and imports nothing of it: the numpy-only modules it needs (``config``,
+``registry``, ``preprocessing``) are copies. Kernels are hand-written CUDA
+C++ under ``csrc/``.
 """

@@ -21,7 +21,7 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
-from glimpseprune_tpu.config import ModelConfig
+from glimpseprune_torch.config import ModelConfig
 from glimpseprune_torch.models.qwen2_5_vl.gp_model import Qwen2_5_VL_GP
 
 _STACKED = ("visual.blocks.", "text.layers.")
@@ -91,9 +91,10 @@ def init_random(cfg: ModelConfig, seed: int, device, dtype=torch.bfloat16) -> Qw
     return model.requires_grad_(False).eval()
 
 
-def load_from_jax(params: Mapping, cfg: ModelConfig, device="cpu",
+def load_from_jax(params: Mapping, cfg: ModelConfig, device="cuda",
                   dtype=torch.float32) -> Qwen2_5_VL_GP:
-    """A Qwen2_5_VL_GP holding the JAX params' weights."""
+    """A Qwen2_5_VL_GP holding the JAX params' weights, on the card unless
+    the caller asks for another device."""
     with torch.device("meta"):
         model = Qwen2_5_VL_GP(cfg)
     model.load_state_dict(params_from_jax(params, cfg), strict=True, assign=True)

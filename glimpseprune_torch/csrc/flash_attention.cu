@@ -2,7 +2,12 @@
 //
 // Replaces the forward of the Pallas kernel `flash_attention`
 // (glimpseprune_tpu/ops/pallas/flash_attention.py:400 -> `_flash_attention_impl`
-// :490, bodies `_kernel` :32 and `_dense_kernel_adapter` :639).
+// :490, bodies `_kernel` :32 and `_dense_kernel_adapter` :639), and with a
+// non-null `lse` its training flavour K2-lse (`_lse_kernel_adapter` :208,
+// `_dense_lse_kernel_adapter` :224): the per-row log-sum-exp [B, Hq, Sq] f32
+// in the log2 domain, m2 + log2(l) with scores pre-scaled by log2(e) (as the
+// Pallas kernel's :54, :170), or -1e30 for a row with no allowed key. The
+// backward (csrc/flash_attention_bwd.cu) reads it in the same convention.
 //
 // Semantics, as in the Pallas kernel: q head h reads kv head h / group
 // (GQA). Unless `dense`, key t is allowed for query s iff
@@ -50,6 +55,7 @@ struct Args {
   const __nv_bfloat16* k;
   const __nv_bfloat16* v;
   __nv_bfloat16* o;
+  float* lse;       // [B, Hq, Sq] or null
   const int* qseg;  // [B, Sq] or null when dense
   const int* kseg;  // [B, Skv] or null when dense
   int group, sq, skv, dqk, dv;
@@ -239,13 +245,16 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(Args a) {
       const int c = tx + 16 * n;
       if (c < a.dv) og[(long)s * a.o_ss + c] = __float2bfloat16(seen ? acc[r][n] * inv : 0.f);
     }
+    if (a.lse != nullptr && tx == 0)
+      a.lse[((long)b * gridDim.y + h) * a.sq + s] =
+          seen ? m + log2f(fmaxf(l_s[i], 1e-30f)) : kNegInf;
   }
 }
 
 }  // namespace
 
 extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v, void* o,
-                                    const void* qseg, const void* kseg, int batch,
+                                    void* lse, const void* qseg, const void* kseg, int batch,
                                     int heads_q, int heads_kv, int sq, int skv, int dqk,
                                     int dv, int q_sb, int q_sh, int q_ss, int k_sb,
                                     int k_sh, int k_ss, int v_sb, int v_sh, int v_ss,
@@ -259,6 +268,7 @@ extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v,
   a.k = (const __nv_bfloat16*)k;
   a.v = (const __nv_bfloat16*)v;
   a.o = (__nv_bfloat16*)o;
+  a.lse = (float*)lse;
   a.qseg = (const int*)qseg;
   a.kseg = (const int*)kseg;
   a.group = heads_q / heads_kv;

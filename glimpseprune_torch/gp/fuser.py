@@ -17,8 +17,8 @@ from typing import List, Optional, Sequence
 import torch
 from torch import nn
 
-from glimpseprune_tpu.config import ModelConfig
-from glimpseprune_torch.models.layers import GatedMLP, RMSNorm
+from glimpseprune_torch.config import ModelConfig
+from glimpseprune_torch.models.layers import GatedMLP, Linear, RMSNorm
 from glimpseprune_torch.ops.cuda.flash_attention import flash_attention
 from glimpseprune_torch.ops.rope import apply_rotary, vision_rope_cos_sin
 
@@ -66,10 +66,10 @@ class CondSdpaAttention(nn.Module):
         super().__init__()
         qk_size = hidden_size + cond_size
         self.num_heads = num_heads
-        self.q_proj = nn.Linear(qk_size, qk_size, bias=False)
-        self.k_proj = nn.Linear(qk_size, qk_size, bias=False)
-        self.v_proj = nn.Linear(hidden_size, hidden_size, bias=False)
-        self.o_proj = nn.Linear(hidden_size, hidden_size, bias=False)
+        self.q_proj = Linear(qk_size, qk_size, bias=False)
+        self.k_proj = Linear(qk_size, qk_size, bias=False)
+        self.v_proj = Linear(hidden_size, hidden_size, bias=False)
+        self.o_proj = Linear(hidden_size, hidden_size, bias=False)
 
     def forward(self, x, cond, segment_ids, cos, sin):
         b, n, hidden = x.shape
@@ -105,7 +105,7 @@ class AttnFuserDummy(nn.Module):
         self.gp = cfg.gp
 
     def forward(self, attn_map, taps, window_index, reverse_index, segment_ids, pos_ids,
-                valid, group_ids=None):
+                valid, group_ids=None, training: bool = False, dtype=None):
         return _normalized_mean_attention(attn_map, valid, self.gp.use_attention_logits,
                                           group_ids)[None]
 
@@ -115,8 +115,12 @@ class AttnFuserV1(nn.Module):
 
     attn_map [B, N, n_sel_layers * n_heads] and taps (list of
     [B, N, vit_hidden]) in natural order -> logits [n_out, B, N] in natural
-    order; the last row decides, the one before it (at inference) is the
-    normalized raw attention."""
+    order; the last row decides. At inference the row before it is the
+    normalized raw attention; in training (``training=True``) the rows are
+    every fuser layer's logits under deep supervision, as the JAX fuser's
+    (fuser.py:283-319). ``dtype`` is the compute dtype (default: the
+    weights'); the model passes its own, so fp32 trainable weights run in
+    the bf16 of the frozen model."""
 
     with_condition = True
 
@@ -128,27 +132,28 @@ class AttnFuserV1(nn.Module):
         cond_size = gp.visual_cond_size if (self.with_condition and n_layers > 0) else 0
         n_in = len(gp.selected_layers) * cfg.text.num_attention_heads
         self.qk_head_dim = (gp.attn_fuse_size + cond_size) // gp.attn_fuse_num_heads
-        self.attn_in_proj = nn.Linear(n_in, gp.attn_fuse_size)
+        self.attn_in_proj = Linear(n_in, gp.attn_fuse_size)
         if self.with_condition:
             self.cond_in_projs = nn.ModuleList(
-                nn.Linear(cfg.vision.hidden_size, cond_size) for _ in range(n_layers))
+                Linear(cfg.vision.hidden_size, cond_size) for _ in range(n_layers))
         self.layers = nn.ModuleList(
             AttnFuserLayer(gp.attn_fuse_size, cond_size, gp.attn_fuse_num_heads,
                            gp.attn_fuse_hidden_act) for _ in range(n_layers))
         # the output heads that exist in the JAX checkpoint: every layer's
         # under deep supervision, else the last one's
         self.attn_out_projs = nn.ModuleDict({
-            str(i): nn.Linear(gp.attn_fuse_size, 1) for i in range(n_layers)
+            str(i): Linear(gp.attn_fuse_size, 1) for i in range(n_layers)
             if gp.deep_supervision or i == n_layers - 1})
 
     def forward(self, attn_map, taps: Sequence[torch.Tensor], window_index, reverse_index,
-                segment_ids, pos_ids, valid, group_ids=None):
+                segment_ids, pos_ids, valid, group_ids=None, training: bool = False,
+                dtype=None):
         gp = self.gp
         outs: List[torch.Tensor] = []
-        if gp.ori_attn_supervision:
+        if gp.ori_attn_supervision and not training:
             outs.append(_normalized_mean_attention(attn_map, valid, gp.use_attention_logits,
                                                    group_ids))
-        dtype = self.attn_in_proj.weight.dtype
+        dtype = self.attn_in_proj.weight.dtype if dtype is None else dtype
         x = _permute(self.attn_in_proj(attn_map.to(dtype)), window_index)
         b, n, _ = x.shape
         cos, sin = vision_rope_cos_sin(pos_ids.reshape(-1, 2), self.qk_head_dim)
@@ -159,9 +164,10 @@ class AttnFuserV1(nn.Module):
             if self.with_condition:
                 cond = self.cond_in_projs[i](_permute(taps[i].to(dtype), window_index))
             x = layer(x, cond, segment_ids, cos, sin)
-        if len(self.layers):
-            logit = self.attn_out_projs[str(len(self.layers) - 1)](x)[..., 0]
-            outs.append(_permute(logit, reverse_index).float())
+            last = i == len(self.layers) - 1
+            if last or (training and str(i) in self.attn_out_projs):
+                logit = self.attn_out_projs[str(i)](x)[..., 0]
+                outs.append(_permute(logit, reverse_index).float())
         return torch.stack(outs)
 
 

@@ -3,10 +3,11 @@ compaction, the remaining layers, and the unpruned comparator.
 
 Counterpart of glimpseprune_tpu/models/qwen2_5_vl/gp_model.py:
 ``vision_encode``, ``_le_vectors_all`` :166, ``_le_geometry`` :181,
-``glimpse_encode`` :191, ``reduce_and_resume`` :341, ``glimpse_prefill``
-:417, ``vanilla_prefill`` :516 and ``embed_with_images`` :704. The row
-scatters and gathers (:88-115) are index operations here, not the JAX
-package's one-hot matmuls.
+``glimpse_encode`` :191 (with its training outputs: every fuser layer's
+logits and the answer loss ``le_loss``, :269-285), ``reduce_and_resume``
+:341, ``glimpse_prefill`` :417, ``vanilla_prefill`` :516 and
+``embed_with_images`` :704. The row scatters and gathers (:88-115) are index
+operations here, not the JAX package's one-hot matmuls.
 """
 
 from __future__ import annotations
@@ -16,9 +17,9 @@ from typing import NamedTuple, Optional, Sequence
 import torch
 from torch import nn
 
-from glimpseprune_tpu.config import ModelConfig
+from glimpseprune_torch.config import ModelConfig
 from glimpseprune_torch.gp.fuser import make_fuser
-from glimpseprune_torch.models.layers import RMSNorm
+from glimpseprune_torch.models.layers import Linear, RMSNorm
 from glimpseprune_torch.models.qwen2_5_vl.language import TextDecoder
 from glimpseprune_torch.models.qwen2_5_vl.vision import VisionTransformer
 from glimpseprune_torch.ops.compaction import (
@@ -94,7 +95,7 @@ class Qwen2_5_VL_GP(nn.Module):
                 raise ValueError(f"le_norm_type {c.gp.le_norm_type!r} is not ported")
             self.learnable_embeddings = nn.Parameter(
                 torch.zeros(len(c.gp.le_layers), c.gp.le_length, c.text.hidden_size))
-            self.le_proj = nn.Linear(c.text.hidden_size, c.text.hidden_size)
+            self.le_proj = Linear(c.text.hidden_size, c.text.hidden_size)
             self.le_norm = RMSNorm(c.text.hidden_size, c.text.rms_norm_eps)
 
     @property
@@ -114,15 +115,22 @@ class Qwen2_5_VL_GP(nn.Module):
 
     # ---- glimpse embeddings
 
-    def _le_vectors_all(self) -> torch.Tensor:
+    def _le_vectors_all(self, training: bool = False,
+                        generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Projected glimpse embeddings at their layers -> [L, le_len, H],
-        zeros at layers without one."""
+        zeros at layers without one. In training, dropout with
+        ``gp.le_dropout_prob`` draws its mask from ``generator`` (flax
+        ``nn.Dropout``: keep with 1 - p, scale kept values by 1 / (1 - p))."""
         gp = self.cfg.gp
         le = self.le_norm(self.le_proj(self.learnable_embeddings.to(self.dtype)))
-        out = torch.zeros((self.cfg.text.num_hidden_layers,) + le.shape[1:],
-                          dtype=le.dtype, device=le.device)
-        out[list(gp.le_layers)] = le
-        return out
+        p = gp.le_dropout_prob
+        if training and p > 0.0:
+            keep = torch.rand(le.shape, generator=generator, device=le.device) >= p
+            le = torch.where(keep, le / (1.0 - p), torch.zeros((), dtype=le.dtype,
+                                                                device=le.device))
+        zeros = torch.zeros((self.cfg.text.num_hidden_layers,) + le.shape[1:],
+                            dtype=le.dtype, device=le.device)
+        return zeros.index_copy(0, torch.as_tensor(gp.le_layers, device=le.device), le)
 
     @staticmethod
     def _le_geometry(le_start: torch.Tensor, s: int, le_length: int):
@@ -132,20 +140,31 @@ class Qwen2_5_VL_GP(nn.Module):
         return offset.clamp(0, le_length - 1), inside
 
     def embed_with_images(self, input_ids, image_embeds, packed_idx, img_slots, img_valid):
-        """Token embeddings with the image rows scattered in."""
-        embeds = self.text.embed(input_ids)
-        rows = _gather_packed(image_embeds, packed_idx, img_valid)
-        return _scatter_rows(embeds, img_slots, rows, img_valid)
+        """Token embeddings with the image rows scattered in. Nothing here
+        is trained, so autograd records none of it."""
+        with torch.no_grad():
+            embeds = self.text.embed(input_ids)
+            rows = _gather_packed(image_embeds, packed_idx, img_valid)
+            return _scatter_rows(embeds, img_slots, rows, img_valid)
 
     # ---- glimpse prefill, phase 1: encode + predict mask logits
 
     def glimpse_encode(self, input_ids, valid, position_ids, image_embeds, taps: Sequence,
                        packed_idx, img_slots, img_valid, fuser_window_index,
                        fuser_reverse_index, fuser_segment_ids, fuser_pos_ids,
-                       le_start: Optional[torch.Tensor], img_group=None):
+                       le_start: Optional[torch.Tensor], img_group=None,
+                       labels: Optional[torch.Tensor] = None, training: bool = False,
+                       generator: Optional[torch.Generator] = None):
         """Layers 0..reduce_layer with the glimpse embeddings injected, the
         glimpse query's harvest at selected_layers, and the fuser's mask
-        logits -> (mask_logits [n_out, B, N], GlimpseState)."""
+        logits -> (mask_logits [n_out, B, N], GlimpseState, le_loss).
+
+        With ``labels`` [B, S] (-100 where unlabelled), training runs the
+        remaining layers too, still with the glimpse embeddings, and
+        le_loss is the answer's mean next-token NLL (``chunked_nll``);
+        otherwise le_loss is None. ``training`` selects the fuser's training
+        outputs and the glimpse-embedding dropout, whose mask comes from
+        ``generator``."""
         c, gp = self.cfg, self.cfg.gp
         b, s = input_ids.shape
         embeds = self.embed_with_images(input_ids, image_embeds, packed_idx, img_slots,
@@ -153,7 +172,7 @@ class Qwen2_5_VL_GP(nn.Module):
         le_mask = torch.zeros((b, s), dtype=torch.bool, device=input_ids.device)
         le_vecs = le_offset = le_inside = None
         if gp.has_le and le_start is not None:
-            le_vecs = self._le_vectors_all()
+            le_vecs = self._le_vectors_all(training, generator)
             le_offset, le_inside = self._le_geometry(le_start, s, gp.le_length)
             le_mask = le_inside
             if 0 in gp.le_layers:  # layer-0 splice: overwrite the placeholder slots
@@ -171,6 +190,14 @@ class Qwen2_5_VL_GP(nn.Module):
             harvest_layers=tuple(gp.selected_layers), q_index=q_index,
             use_attention_logits=gp.use_attention_logits,
         )
+        le_loss = None
+        if labels is not None:  # training runs every layer for the answer loss
+            h = x
+            if reduce_layer < c.text.num_hidden_layers - 1:
+                h, _, _ = self.text.run_layers(
+                    h, cos, sin, valid, layer_start=reduce_layer + 1, le_vecs=le_vecs,
+                    le_offset=le_offset, le_inside=le_inside, collect_kv=False)
+            le_loss = self.text.chunked_nll(self.text.final_norm(h), labels)
         attn_map = torch.stack([harvests[l] for l in gp.selected_layers], dim=2)
         # log-softmax rows hold -inf at masked slots; the gathered image slots
         # are finite, the clamp keeps the gather free of -inf (gp_model.py:302)
@@ -179,12 +206,13 @@ class Qwen2_5_VL_GP(nn.Module):
         taps_rows = [_gather_packed(t, packed_idx, img_valid) for t in taps]
         mask_logits = self.attn_fuser(attn_map, taps_rows, fuser_window_index,
                                       fuser_reverse_index, fuser_segment_ids,
-                                      fuser_pos_ids, img_valid, group_ids=img_group)
+                                      fuser_pos_ids, img_valid, group_ids=img_group,
+                                      training=training, dtype=self.dtype)
         state = GlimpseState(input_ids=input_ids, hidden=x, kv_k=kv_k, kv_v=kv_v,
                              position_ids=position_ids,
                              keep_base=valid & ~le_mask, img_slots=img_slots,
                              img_valid=img_valid)
-        return mask_logits, state
+        return mask_logits, state, le_loss
 
     # ---- phase 2: keep policy + compaction + remaining layers
 
@@ -215,7 +243,7 @@ class Qwen2_5_VL_GP(nn.Module):
                               mask_logits=mask_logits, keep_img=keep_img)
 
     def glimpse_prefill(self, out_len: int, anchor_mask=None, **encode_kwargs) -> GlimpseOutputs:
-        mask_logits, state = self.glimpse_encode(**encode_kwargs)
+        mask_logits, state, _ = self.glimpse_encode(**encode_kwargs)
         return self.reduce_and_resume(state, mask_logits, out_len, anchor_mask)
 
     # ---- the unpruned comparator

@@ -7,7 +7,7 @@ A numpy copy of the JAX package's host prep: ``PreparedInputs`` and
 copy, not an import, because both of those modules import jax at module
 top and the port never loads jax. tests/test_torch_inputs.py holds the copy
 equal to the original, field by field. The numpy-only modules the prep
-calls (``config``, ``preprocessing``) are imported from the JAX package.
+calls (``config``, ``preprocessing``) are the port's own copies.
 """
 
 from __future__ import annotations
@@ -17,8 +17,8 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 
-from glimpseprune_tpu.config import ModelConfig
-from glimpseprune_tpu.preprocessing import build_vision_geometry, get_rope_index
+from glimpseprune_torch.config import ModelConfig
+from glimpseprune_torch.preprocessing import build_vision_geometry, get_rope_index
 
 
 def _round_up(x: int, m: int) -> int:
@@ -56,7 +56,7 @@ def build_fuser_geometry(
     """Per-row fuser geometry; multi-image rows concatenate their images'
     token spans (the reference fuser runs the packed multi-image sequence
     with cu_seqlens boundaries; here per-image segment-id offsets)."""
-    from glimpseprune_tpu.preprocessing.geometry import (
+    from glimpseprune_torch.preprocessing.geometry import (
         get_window_index,
         segment_ids_from_cu_seqlens,
         vision_pos_ids,
@@ -153,13 +153,13 @@ def prepare_inputs(
     lists. answer_ids: training targets; when given, the glimpse slots are
     spliced in front of the answer and labels are emitted.
     """
-    from glimpseprune_tpu.preprocessing.image import (
+    from glimpseprune_torch.preprocessing.image import (
         DEFAULT_MAX_PIXELS,
         DEFAULT_MIN_PIXELS,
         preprocess_image,
         preprocess_video,
     )
-    from glimpseprune_tpu.preprocessing.ref_masks import ref_token_mask_from_bboxes
+    from glimpseprune_torch.preprocessing.ref_masks import ref_token_mask_from_bboxes
 
     v = cfg.vision
     mu = v.spatial_merge_unit

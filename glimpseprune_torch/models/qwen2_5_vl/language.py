@@ -3,9 +3,11 @@ glimpse harvest, decode against a KV cache, final norm and LM head.
 
 Counterpart of glimpseprune_tpu/models/qwen2_5_vl/language.py
 (``TextDecoder`` :238, ``_layer_prefill`` :113, ``_layer_decode`` :135,
-``harvest_postprocess`` :169, ``run_layers`` :393). The JAX package scans
-one stacked parameter tree; here the layers are a ModuleList run by a
-Python loop, and a layer range is a slice of that loop.
+``harvest_postprocess`` :169, ``chunked_nll`` :293, ``run_layers`` :393).
+The JAX package scans one stacked parameter tree; here the layers are a
+ModuleList run by a Python loop, and a layer range is a slice of that loop.
+``cfg.remat`` (the JAX ``jax.checkpoint`` of the scan body, :462) becomes
+``torch.utils.checkpoint`` around each layer while autograd records.
 """
 
 from __future__ import annotations
@@ -15,8 +17,9 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from glimpseprune_tpu.config import TextConfig
+from glimpseprune_torch.config import TextConfig
 from glimpseprune_torch.models.layers import GatedMLP, RMSNorm
 from glimpseprune_torch.ops.attention import causal_segment_attention, decode_attention
 from glimpseprune_torch.ops.kv_cache import cache_append, cache_layer
@@ -113,6 +116,35 @@ class TextDecoder(nn.Module):
             return F.linear(x, self.embed_tokens.weight)
         return self.lm_head(x)
 
+    def _chunk_nll_sum(self, xc: torch.Tensor, yc: torch.Tensor) -> torch.Tensor:
+        """Sum of -log p(yc) over the labelled positions of one chunk."""
+        lg = self.logits(xc).float()
+        lse = torch.logsumexp(lg, dim=-1)
+        m = yc != -100
+        tgt = torch.gather(lg, -1, torch.where(m, yc, 0)[..., None])[..., 0]
+        return ((lse - tgt) * m).sum()
+
+    def chunked_nll(self, x: torch.Tensor, labels: torch.Tensor,
+                    chunk: int = 512) -> torch.Tensor:
+        """Shifted next-token mean NLL without materializing [B, S, V] logits.
+
+        x [B, S, H] after the final norm, labels [B, S] with -100 where
+        unlabelled. The head, log-sum-exp and label gather run per chunk of
+        C positions, each under ``torch.utils.checkpoint`` while autograd
+        records, so the peak is one [B, C, V] fp32 chunk, recomputed in the
+        backward (the JAX package's scan of ``jax.checkpoint``-ed chunks).
+        Equal to log_softmax + one-hot over the whole sequence (token mean,
+        ignore index -100)."""
+        xs, ys = x[:, :-1], labels[:, 1:].long()
+        total = torch.zeros((), dtype=torch.float32, device=x.device)
+        for start in range(0, xs.shape[1], chunk):
+            xc, yc = xs[:, start:start + chunk], ys[:, start:start + chunk]
+            if torch.is_grad_enabled():
+                total = total + checkpoint(self._chunk_nll_sum, xc, yc, use_reentrant=False)
+            else:
+                total = total + self._chunk_nll_sum(xc, yc)
+        return total / (ys != -100).sum().clamp(min=1).float()
+
     def run_layers(
         self,
         x: torch.Tensor,
@@ -127,35 +159,49 @@ class TextDecoder(nn.Module):
         harvest_layers: Sequence[int] = (),
         q_index: Optional[torch.Tensor] = None,
         use_attention_logits: bool = False,
-    ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor], Dict[int, torch.Tensor]]:
+        collect_kv: bool = True,
+    ) -> Tuple[torch.Tensor, Optional[Tuple[torch.Tensor, torch.Tensor]],
+               Dict[int, torch.Tensor]]:
         """Run layers [layer_start, layer_end] (inclusive).
 
         le_vecs, when given, are added at each layer's entry at the glimpse
         slots (le_inside), except at layer 0, whose glimpse splice happened
-        at the embedding. Returns (x, (kv_k, kv_v) each
-        [n, B, S, Hkv, D], {layer: [B, S, Hq] harvested rows})."""
+        at the embedding. Returns (x, (kv_k, kv_v) each [n, B, S, Hkv, D],
+        or None unless collect_kv, {layer: [B, S, Hq] harvested rows}). With
+        ``cfg.remat`` and autograd recording, each layer runs under
+        ``torch.utils.checkpoint``: its activations are recomputed in the
+        backward instead of kept for the whole depth."""
         cfg = self.cfg
         if layer_end is None:
             layer_end = cfg.num_hidden_layers - 1
         b, s, _ = x.shape
         if q_index is None:
             q_index = torch.full((b,), s - 1, dtype=torch.long, device=x.device)
-        ks, vs, sel_qs = [], [], {}
+        remat = cfg.remat and torch.is_grad_enabled()
+        ks, vs, sel_qs = {}, {}, {}
         for lid in range(layer_start, layer_end + 1):
             if le_vecs is not None and lid > 0:
                 le_rows = le_vecs[lid][le_offset]
                 x = x + torch.where(le_inside[..., None], le_rows.to(x.dtype),
                                     torch.zeros((), dtype=x.dtype, device=x.device))
-            x, k, v, sel_q = self.layers[lid].prefill(x, cos, sin, valid, q_index)
-            ks.append(k)
-            vs.append(v)
+            layer = self.layers[lid]
+            if remat:
+                x, k, v, sel_q = checkpoint(layer.prefill, x, cos, sin, valid, q_index,
+                                            use_reentrant=False)
+            else:
+                x, k, v, sel_q = layer.prefill(x, cos, sin, valid, q_index)
+            if collect_kv or lid in harvest_layers:
+                ks[lid], vs[lid] = k, v
             if lid in harvest_layers:
                 sel_qs[lid] = sel_q
         harvests = {}
         g = cfg.num_attention_heads // cfg.num_key_value_heads
         for lid in harvest_layers:
-            k_exp = ks[lid - layer_start].float().repeat_interleave(g, dim=2)  # [B, S, Hq, D]
+            k_exp = ks[lid].float().repeat_interleave(g, dim=2)  # [B, S, Hq, D]
             raw = torch.einsum("bhd,bthd->bth", sel_qs[lid].float(), k_exp)
             raw = raw / cfg.head_dim ** 0.5
             harvests[lid] = harvest_postprocess(raw, valid, use_attention_logits)
-        return x, (torch.stack(ks), torch.stack(vs)), harvests
+        kv = None
+        if collect_kv:
+            kv = (torch.stack(list(ks.values())), torch.stack(list(vs.values())))
+        return x, kv, harvests

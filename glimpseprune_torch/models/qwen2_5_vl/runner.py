@@ -17,7 +17,7 @@ from typing import NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
-from glimpseprune_tpu.config import ModelConfig
+from glimpseprune_torch.config import ModelConfig
 from glimpseprune_torch.models.qwen2_5_vl.gp_model import GlimpseOutputs, Qwen2_5_VL_GP
 from glimpseprune_torch.models.qwen2_5_vl.inputs import PreparedInputs, _vis_dense_hint
 from glimpseprune_torch.ops.kv_cache import alloc_cache, cache_set_prefix

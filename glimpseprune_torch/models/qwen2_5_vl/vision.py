@@ -17,7 +17,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from glimpseprune_tpu.config import VisionConfig
+from glimpseprune_torch.config import VisionConfig
 from glimpseprune_torch.models.layers import GatedMLP, RMSNorm
 from glimpseprune_torch.ops.attention import fused_window_attention, segment_attention
 from glimpseprune_torch.ops.rope import apply_rotary, vision_rope_cos_sin

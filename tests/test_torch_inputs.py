@@ -87,7 +87,7 @@ def make_setup(seed: int = 0):
     prep_t = torch_inputs.prepare_inputs(cfg, prompts, images, **kwargs)
     jmodel = Qwen2_5_VL_GP(cfg)
     params = random_params(jmodel, prep_j, seed)
-    tmodel = load_from_jax(params, cfg)
+    tmodel = load_from_jax(params, cfg, device="cpu")
     return SimpleNamespace(cfg=cfg, jmodel=jmodel, params=params, prep_j=prep_j,
                            prep_t=prep_t, tmodel=tmodel)
 

@@ -1,7 +1,9 @@
 """The card's machine has no jax: every glimpseprune_torch module imports
-without loading jax (or flax), in a fresh interpreter; and chip_smoke.py
+without loading the JAX package or jax, jaxlib, flax or optax, in a fresh
+interpreter; chip_smoke.py imports none of them either; and chip_smoke.py
 refuses to report a result where there is no card."""
 
+import ast
 import json
 import os
 import subprocess
@@ -17,7 +19,8 @@ names = ["glimpseprune_torch"] + [
     m.name for m in pkgutil.walk_packages(glimpseprune_torch.__path__, "glimpseprune_torch.")]
 for name in names:
     importlib.import_module(name)
-loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax"))
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in
+                ("glimpseprune_tpu", "jax", "jaxlib", "flax", "optax"))
 print(json.dumps({"modules": names, "jax": loaded}))
 """
 
@@ -30,7 +33,24 @@ def test_port_imports_no_jax():
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert "glimpseprune_torch.models.qwen2_5_vl.runner" in out["modules"]
     assert "glimpseprune_torch.ops.cuda.flash_attention" in out["modules"]
+    assert "glimpseprune_torch.training.trainer" in out["modules"]
+    assert "glimpseprune_torch.persistence" in out["modules"]
     assert out["jax"] == []
+
+
+def test_chip_smoke_imports_no_jax_package():
+    """Every import statement in chip_smoke.py, at any depth, names neither
+    the JAX package nor jax, jaxlib, flax or optax."""
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names.append(node.module or "")
+    assert "glimpseprune_torch.config" in names
+    banned = ("glimpseprune_tpu", "jax", "jaxlib", "flax", "optax")
+    assert [n for n in names if n.split(".")[0] in banned] == []
 
 
 def test_chip_smoke_refuses_without_card():
