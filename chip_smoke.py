@@ -21,15 +21,32 @@ Phases, each of which raises on failure (the script then exits non-zero):
   7. the training path: ``GPTrainer.train(max_steps=4)`` at batch 2 on the
      same 7B model over a synthetic jsonl dataset, with the kernels' launch
      counts, finite losses, changed trainable and bit-identical frozen
-     weights; then one tiny-config train step on the card against the CPU.
+     weights; then one tiny-config train step on the card against the CPU;
+  8. K4 (int4 decode product) at the 7B decode shapes, K5 and K6 (int4
+     prefill products, W4A16 and W4A8) at the 7B decoder shapes with
+     M = 1664, and K7 (int8 flash attention) dense, segmented and causal,
+     with and without the int8 PV product, each against its plain version
+     (K7 also against the other PV flavour and bf16 attention, which it
+     must not pass: the check tells the int8 tiers apart);
+  9. the quantized serving path: a fresh random 7B (``init_random``, seed
+     0), quantized on the card with ``quantize_model``, in two tiers: (q8)
+     int8 weights with W8A8 prefill and an int8 KV cache, pruned and
+     unpruned ``generate`` on batch (a); (q4) int4 weights with W4A8
+     prefill, int8 ViT attention and an int8 KV cache, pruned and unpruned
+     on batches (a) and (b). Each run prints its times, peak memory, weight
+     and KV-cache bytes and the first logits' distance from the bf16
+     model's; each tier ends with its tiny config on the card against the
+     CPU.
 Every kernel row carries its time, its plain version's time, one PyTorch
 call's time where one computes the same function (``library_ms``: SDPA
 with the same boolean mask, or its autograd backward; a yardstick the port
-never calls) and ``bound_ms``: the larger of its bytes
-over the card's memory rate and its operations over the bf16 tensor peak,
-counted from this run's inputs. The line before the last is a JSON object
-with one entry per kernel flavour; the last line is {"ok": true,
-"device": {...}}.
+never calls; for the int4 products, where no PyTorch call computes the
+function, null with ``bf16_matmul_ms`` beside it: the bf16 matmul of the
+same shape that the unquantized path pays) and ``bound_ms``: the larger of
+its bytes over the card's memory rate and its operations over the tensor
+peak of their type (bf16, or int8 for the int8 products), counted from this
+run's inputs. The line before the last is a JSON object with one entry per
+kernel flavour; the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -54,7 +71,13 @@ K2_REPLACES = "glimpseprune_tpu/ops/pallas/flash_attention.py:400"
 K2_LSE_REPLACES = "glimpseprune_tpu/ops/pallas/flash_attention.py:208"
 K3_SRC = "glimpseprune_torch/csrc/flash_attention_bwd.cu"
 K3_REPLACES = "glimpseprune_tpu/ops/pallas/flash_attention.py:808"
-KERNEL_LIBS = ("window_attention", "flash_attention", "flash_attention_bwd")
+INT4_SRC = "glimpseprune_torch/csrc/int4_matmul.cu"
+K4_REPLACES = "glimpseprune_tpu/ops/pallas/int4_matmul.py:103"
+K56_REPLACES = "glimpseprune_tpu/ops/pallas/int4_matmul.py:283"
+K7_REPLACES = {"dense": "glimpseprune_tpu/ops/pallas/flash_attention.py:200",
+               "segmented": "glimpseprune_tpu/ops/pallas/flash_attention.py:175",
+               "causal": "glimpseprune_tpu/ops/pallas/flash_attention.py:175"}
+KERNEL_LIBS = ("window_attention", "flash_attention", "flash_attention_bwd", "int4_matmul")
 # Kernels run in bf16 and their plain versions in fp32 from the same bf16
 # inputs, so the two differ by the kernel's bf16 output rounding (half an
 # ulp: |x| * 2**-9, under 0.016 for the |x| < 8 these attention outputs
@@ -67,9 +90,30 @@ KERNEL_ATOL = 2e-2
 # summation order of its row sums.
 GRAD_RTOL = 1e-2
 LSE_RTOL = 1e-4
-# H100 SXM published peaks (NVIDIA data sheet, dense): the bf16 tensor
-# rate and HBM bandwidth; bound_ms is stated against them.
+# K4-K6 write bf16 from fp32 (K4, K5) or exact int32 (K6) sums: the output
+# rounding is at most 2**-8 (bf16's unit roundoff, 3.9e-3) of the largest
+# |ref|, the fp32 summation order adds ~1e-6 of it; K6's rescale is the
+# plain version's, operation for operation. 4e-3 of max |ref| bounds both,
+# with ~2% over the worst-case rounding (measured 2.1e-3 to 3.4e-3).
+INT4_RTOL = 4e-3
+# K7 and its plain version run the same int8 arithmetic (exact integer
+# QK^T and, with pv_int8, PV sums) and differ by the kernel's bf16 output
+# rounding and the order of fp32 operations (exp2, the softmax sums, a
+# rint(p * 127) that falls on the other side of a half step). Its outputs
+# are small (~0.03 at the ViT shapes), so it is held relative to their
+# size in two measures: the largest error over max |ref| (bf16 rounding up
+# to 2**-8 of it, plus the fp32 order: 2**-7 bounds both) and the RMS error
+# over the RMS of ref (bf16 rounding ~2**-7 / sqrt(12) = 2.3e-3 at most:
+# 2**-8 bounds it with the fp32 order). The int8 tiers move the output by
+# more (int8 QK^T against bf16 ~8e-3 RMS, the int8 PV product 1.3e-2 to
+# 3e-2), so a kernel that dropped either fails; check_flash_int8 shows it
+# on every run by holding each kernel output against the other references.
+K7_MAX_RTOL = 2 ** -7
+K7_RMS_RTOL = 2 ** -8
+# H100 SXM published peaks (NVIDIA data sheet, dense): the bf16 and int8
+# tensor rates and HBM bandwidth; bound_ms is stated against them.
 PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
 PEAK_HBM_BYTES = 3.35e12
 MAX_NEW_TOKENS = 32
 TRAIN_STEPS = 4
@@ -117,9 +161,10 @@ def cuda_ms(fn, warmup: int = 2, iters: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(flops: float, nbytes: float):
-    """(least ms, what bounds it) from operations and bytes."""
-    ops_ms = flops / PEAK_BF16_FLOPS * 1e3
+def bound(flops: float, nbytes: float, int8_ops: float = 0.0):
+    """(least ms, what bounds it) from bf16 operations, int8 operations and
+    bytes."""
+    ops_ms = (flops / PEAK_BF16_FLOPS + int8_ops / PEAK_INT8_OPS) * 1e3
     bytes_ms = nbytes / PEAK_HBM_BYTES * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
@@ -413,33 +458,51 @@ def check_outputs(cfg, prep, pre, res, do_selection):
 
 
 def reset_launches():
+    from collections import Counter
+
     from glimpseprune_torch.ops.cuda.flash_attention import (
         FLAVOURS,
+        INT8_FLAVOURS,
         flash_attention,
         flash_attention_backward,
+        flash_attention_int8,
         flash_attention_lse,
     )
+    from glimpseprune_torch.ops.cuda.int4_matmul import matmul_int4, matmul_int4_prefill
     from glimpseprune_torch.ops.cuda.window_attention import window_attention_fused
 
     window_attention_fused.launches = 0
     for fn in (flash_attention, flash_attention_lse, flash_attention_backward):
         fn.launches = dict.fromkeys(FLAVOURS, 0)
+    flash_attention_int8.launches = dict.fromkeys(INT8_FLAVOURS, 0)
+    matmul_int4.launches = Counter()
+    matmul_int4_prefill.launches = Counter()
 
 
 def read_launches(required):
     """{row name: launches} since reset_launches(); raises if a kernel that
-    the path must run was never launched."""
+    the path must run was never launched. An entry of ``required`` that
+    ends in "*]" asks for any launch of the rows it starts."""
     from glimpseprune_torch.ops.cuda.flash_attention import (
         flash_attention,
         flash_attention_backward,
+        flash_attention_int8,
         flash_attention_lse,
     )
+    from glimpseprune_torch.ops.cuda.int4_matmul import matmul_int4, matmul_int4_prefill
     from glimpseprune_torch.ops.cuda.window_attention import window_attention_fused
 
     launches = {"window_attention_fused": window_attention_fused.launches}
-    for fn in (flash_attention, flash_attention_lse, flash_attention_backward):
+    for fn in (flash_attention, flash_attention_lse, flash_attention_backward,
+               flash_attention_int8, matmul_int4, matmul_int4_prefill):
         launches.update({f"{fn.__name__}[{k}]": v for k, v in fn.launches.items()})
-    missing = [k for k in required if launches[k] == 0]
+
+    def count(name):
+        if name.endswith("*]"):
+            return sum(v for k, v in launches.items() if k.startswith(name[:-2]))
+        return launches.get(name, 0)
+
+    missing = [k for k in required if count(k) == 0]
     if missing:
         raise AssertionError(f"the path never launched {missing}")
     return launches
@@ -659,6 +722,335 @@ def check_small_train_step():
                              f"{worst} {errs[worst]}, loss {loss_err}")
     return {"loss_rel_err": loss_err, "grad_rel_err": errs[worst]}
 
+def int4_weight(k, n, gen):
+    """A random [k, n] weight at the init's scale, int4-quantized on the card."""
+    import torch
+
+    from glimpseprune_torch.quantization import quantize_int4
+
+    w = torch.randn((k, n), generator=gen, device="cuda") * k ** -0.5
+    q = quantize_int4(w)
+    return q["kernel_q4"], q["kernel_scale4"]
+
+
+def decoder_shapes(cfg):
+    """{name: (K, N)} of the 7B decoder's linears and the head."""
+    t = cfg.text
+    kv = t.num_key_value_heads * t.head_dim
+    return {"q_o": (t.hidden_size, t.hidden_size), "k_v": (t.hidden_size, kv),
+            "gate_up": (t.hidden_size, t.intermediate_size),
+            "down": (t.intermediate_size, t.hidden_size), "head": (t.hidden_size, t.vocab_size)}
+
+
+def int4_row(name, key, replaces, x, packed, scales, got, ref, ms, plain_ms, out_bytes,
+             flops=0.0, int8_ops=0.0, extra=()):
+    """One K4-K6 row: error against the plain version, bound, and the bf16
+    matmul of the same shape."""
+    import torch
+
+    from glimpseprune_torch.quantization import dequant_int4
+
+    err = rel_err(got, ref)
+    if not err <= INT4_RTOL:
+        raise AssertionError(f"{name}[{key}] disagrees with its plain version: {err}")
+    wb = dequant_int4(packed, scales, torch.bfloat16)
+    bf16_ms = cuda_ms(lambda: x @ wb)
+    del wb
+    bound_ms, bound_by = bound(flops, nbytes(packed, scales, *extra) + out_bytes, int8_ops)
+    m, k = x.shape
+    shape = f"x[{m},{k}] w4[{k // 2},{packed.shape[1]}] g={k // scales.shape[0]}"
+    print(f"{name}[{key}] {shape}: rel_err={err:.3e} kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bf16 matmul {bf16_ms:.4f} ms, bound {bound_ms:.4f} ms "
+          f"({bound_by})")
+    # no single PyTorch call multiplies by int4 weights: library_ms is null
+    return {"name": f"{name}[{key}]", "route": "cuda", "source": INT4_SRC,
+            "replaces": replaces, "max_abs_err": (got.float() - ref.float()).abs().max().item(),
+            "rel_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None, "bf16_matmul_ms": bf16_ms,
+            "shape": shape}
+
+
+def check_int4_kernels(cfg, gen, decode_m: int, prefill_m: int):
+    """K4 at the decode shapes (M = decode_m), K5 and K6 at the decoder
+    shapes with M = prefill_m, each against its plain version."""
+    import torch
+
+    from glimpseprune_torch.ops.cuda.int4_matmul import (
+        int4_prefill_a8_reference,
+        int4_prefill_a16_reference,
+        launch_key,
+        matmul_int4,
+        matmul_int4_prefill,
+        matmul_int4_reference,
+        requant_ratios,
+    )
+    from glimpseprune_torch.ops.kv_cache import quantize_kv
+
+    rows = []
+    for name, (k, n) in decoder_shapes(cfg).items():
+        packed, scales = int4_weight(k, n, gen)
+        x = torch.randn((decode_m, k), generator=gen, device="cuda").bfloat16()
+        got = matmul_int4(x, packed, scales)
+        torch.cuda.synchronize()
+        ref = matmul_int4_reference(x, packed, scales, torch.float32)
+        ms = cuda_ms(lambda: matmul_int4(x, packed, scales))
+        plain_ms = cuda_ms(lambda: matmul_int4_reference(x, packed, scales, torch.bfloat16))
+        rows.append(int4_row("matmul_int4", launch_key(k, n), K4_REPLACES, x, packed, scales,
+                             got, ref, ms, plain_ms, 2 * decode_m * n,
+                             flops=2.0 * decode_m * k * n, extra=(x,)))
+        if name == "head":
+            continue
+        x = torch.randn((prefill_m, k), generator=gen, device="cuda").bfloat16()
+        # K5 (W4A16): fp32 products of bf16-rounded scaled weights
+        got = matmul_int4_prefill(x, packed, scales, a8=False)
+        torch.cuda.synchronize()
+        ref = int4_prefill_a16_reference(x, packed, scales, torch.float32)
+        ms = cuda_ms(lambda: matmul_int4_prefill(x, packed, scales, a8=False))
+        plain_ms = cuda_ms(lambda: int4_prefill_a16_reference(x, packed, scales, torch.bfloat16))
+        rows.append(int4_row("matmul_int4_prefill", launch_key(k, n, False), K56_REPLACES, x,
+                             packed, scales, got, ref, ms, plain_ms, 2 * prefill_m * n,
+                             flops=2.0 * prefill_m * k * n, extra=(x,)))
+        # K6 (W4A8): the same int8 operands as the plain version, exact sums
+        got = matmul_int4_prefill(x, packed, scales, a8=True)
+        torch.cuda.synchronize()
+        xq, xs = quantize_kv(x)
+        xs = xs[:, None]
+        s8, r = requant_ratios(scales)
+        ref = int4_prefill_a8_reference(xq, xs, packed, r, s8, torch.float32)
+        ms = cuda_ms(lambda: matmul_int4_prefill(x, packed, scales, a8=True))
+        plain_ms = cuda_ms(lambda: int4_prefill_a8_reference(xq, xs, packed, r, s8,
+                                                             torch.bfloat16))
+        rows.append(int4_row("matmul_int4_prefill", launch_key(k, n, True), K56_REPLACES, x,
+                             packed, r, got, ref, ms, plain_ms, 2 * prefill_m * n,
+                             int8_ops=2.0 * prefill_m * k * n, extra=(xq, xs, s8)))
+        del packed, scales, x, xq, ref, got
+    torch.cuda.empty_cache()
+    return rows
+
+
+def k7_errors(got, ref):
+    """(max error / max |ref|, RMS error / RMS of ref)."""
+    d = got.float() - ref.float()
+    return ((d.abs().max() / ref.float().abs().max().clamp(min=1e-30)).item(),
+            (d.norm() / ref.float().norm().clamp(min=1e-30)).item())
+
+
+def k7_within(errs) -> bool:
+    return errs[0] <= K7_MAX_RTOL and errs[1] <= K7_RMS_RTOL
+
+
+def check_flash_int8(cfg, prep_a, prep_b, gen):
+    """K7 dense, segmented (the ViT's full attention on batches (b) and (a))
+    and causal (the LLM's prefill on batch (a)), each with and without the
+    int8 PV product, against the plain version at the kernel's kv tile.
+    Controls: each output must fail the same check against the plain
+    version of the other PV flavour and against bf16 attention (K2's plain
+    version), or the check could not tell the int8 tiers apart."""
+    import torch
+
+    from glimpseprune_torch.ops.cuda.flash_attention import (
+        KERNEL_BLOCK_K,
+        flash_attention_int8,
+        flash_attention_int8_reference,
+        flash_attention_reference,
+    )
+    from glimpseprune_torch.ops.kv_cache import quantize_kv
+
+    v, t = cfg.vision, cfg.text
+
+    def seg(a):
+        return torch.as_tensor(np.asarray(a), dtype=torch.int32, device="cuda")
+
+    cases = [
+        ("vit_dense", "dense", 1, v.num_heads, v.num_heads, prep_b.patches.shape[0],
+         v.head_dim, None, False),
+        ("vit_segmented", "segmented", 1, v.num_heads, v.num_heads, prep_a.patches.shape[0],
+         v.head_dim, seg(prep_a.full_seg[None]), False),
+        ("llm_causal", "causal", prep_a.valid.shape[0], t.num_attention_heads,
+         t.num_key_value_heads, prep_a.valid.shape[1], t.head_dim,
+         seg(np.where(prep_a.valid, 0, -1)), True),
+    ]
+    rows = []
+    for name, fl, b, hq, hkv, s, d, segs, causal in cases:
+        q, k, vv, pairs, mask = attention_case(gen, b, hq, hkv, s, d, d, segs, causal)
+        dense = segs is None
+        q8, qsc = quantize_kv(q)
+        k8, ksc = quantize_kv(k)
+        lib_ms = cuda_ms(lambda: sdpa(q, k, vv, mask))
+        refs = {pv: flash_attention_int8_reference(q8, k8, vv, qsc, ksc, segs, segs, causal,
+                                                   dense, pv, KERNEL_BLOCK_K, torch.float32)
+                for pv in (False, True)}
+        refs["bf16"] = flash_attention_reference(q.float(), k.float(), vv.float(), segs, segs,
+                                                 causal=causal, dense=dense)
+        for pv in (False, True):
+            got = flash_attention_int8(q, k, vv, segs, segs, causal=causal, dense=dense,
+                                       pv_int8=pv)
+            torch.cuda.synchronize()
+            ref = refs[pv]
+            err = (got.float() - ref).abs().max().item()
+            errs = k7_errors(got, ref)
+            controls = {other: k7_errors(got, refs[other]) for other in (not pv, "bf16")}
+            ms = cuda_ms(lambda: flash_attention_int8(q, k, vv, segs, segs, causal=causal,
+                                                      dense=dense, pv_int8=pv))
+            plain_ms = cuda_ms(lambda: flash_attention_int8_reference(
+                q8, k8, vv, qsc, ksc, segs, segs, causal, dense, pv, KERNEL_BLOCK_K,
+                torch.bfloat16))
+            qk_ops, pv_ops = 2.0 * pairs * hq * d, 2.0 * pairs * hq * d
+            bound_ms, bound_by = bound(0.0 if pv else pv_ops,
+                                       nbytes(q8, k8, vv, qsc, ksc, got)
+                                       + (0 if dense else 2 * segs.nbytes),
+                                       qk_ops + (pv_ops if pv else 0.0))
+            key = fl + ("+pv8" if pv else "")
+            shape = f"{name} q[{b},{hq},{s},{d}] kv[{b},{hkv},{s},{d}]"
+            names = {False: "int8 QK^T", True: "int8 QK^T + int8 PV", "bf16": "bf16"}
+            print(f"K7 flash_attention_int8[{key}] {shape}: max_abs_err={err:.3e} "
+                  f"rel_err={errs[0]:.3e} rms_rel_err={errs[1]:.3e}; against "
+                  + ", ".join(f"{names[o]} (max/rms rel) {e[0]:.3e}/{e[1]:.3e}"
+                              for o, e in controls.items())
+                  + f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, "
+                  f"bound {bound_ms:.4f} ms ({bound_by})")
+            if not k7_within(errs):
+                raise AssertionError(f"K7 {key} disagrees with its plain version: {errs}")
+            passed = [names[o] for o, e in controls.items() if k7_within(e)]
+            if passed:
+                raise AssertionError(f"K7 {key}: the check cannot tell the kernel from "
+                                     f"{passed} attention")
+            rows.append({"name": f"flash_attention_int8[{key}]", "route": "cuda",
+                         "source": K2_SRC, "replaces": K7_REPLACES[fl], "max_abs_err": err,
+                         "rel_err": errs[0], "rms_rel_err": errs[1],
+                         "control_rms_rel_err": min(e[1] for e in controls.values()),
+                         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                         "bound_by": bound_by, "library_ms": lib_ms, "shape": shape})
+        del q, k, vv, q8, k8, got, ref, refs
+    torch.cuda.empty_cache()
+    return rows
+
+
+QUANT_TIERS = {
+    # name: (weight mode, quantized_config keywords, batches)
+    "q8": ("int8", dict(act_quant="prefill"), ("a",)),
+    "q4": ("int4", dict(act_quant="prefill", attn_qk_int8="vision", attn_pv_int8="vision"),
+           ("a", "b")),
+}
+
+
+def quant_config(cfg, tier: str):
+    import dataclasses
+
+    from glimpseprune_torch.quantization import quantized_config
+
+    mode, kw, _ = QUANT_TIERS[tier]
+    q = quantized_config(cfg, mode, **kw)
+    return dataclasses.replace(q, text=dataclasses.replace(q.text, kv_cache_quant="int8"))
+
+
+def run_quant_tier(cfg, tier: str, cases):
+    """One quantized tier on a fresh random 7B: bf16 first logits, then
+    quantize_model on the card and pruned + unpruned generate on each
+    batch -> (per-run records, launch counts)."""
+    import torch
+
+    from glimpseprune_torch.convert import init_random
+    from glimpseprune_torch.models.qwen2_5_vl.runner import GlimpsePruneRunner
+    from glimpseprune_torch.ops.kv_cache import cache_nbytes
+    from glimpseprune_torch.quantization import quantize_model, quantized_bytes
+
+    mode, _, batches = QUANT_TIERS[tier]
+    qcfg = quant_config(cfg, tier)
+    cases = [(n, p) for n, p in cases if n in batches]
+    model = init_random(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
+    bf16_bytes = quantized_bytes(model)
+    runner = GlimpsePruneRunner(cfg, model)
+    ref_logits = {(n, sel): runner.prefill(p, sel).logits.float().cpu()
+                  for n, p in cases for sel in (True, False)}
+    t0 = time.perf_counter()
+    quantize_model(model, mode, cfg=qcfg)
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t0
+    weight_bytes = quantized_bytes(model)
+    print(f"{tier}: quantize_model({mode!r}) on the card in {quant_s:.1f} s: weights "
+          f"{bf16_bytes / 1e9:.3f} GB bf16 -> {weight_bytes / 1e9:.3f} GB, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    runner = GlimpsePruneRunner(qcfg, model)
+    reset_launches()
+    runs = []
+    for name, prep in cases:
+        for do_sel in (True, False):
+            runner.generate(prep, max_new_tokens=2, do_selection=do_sel)  # warm-up
+            torch.cuda.reset_peak_memory_stats()
+            prefill_ms, pre = timed_ms(lambda: runner.prefill(prep, do_sel))
+            decode_ms, _ = timed_ms(lambda: runner._decode_loop(
+                pre.logits, pre.valid, pre.position_ids, pre.kv_k, pre.kv_v,
+                MAX_NEW_TOKENS, cfg.eos_token_id))
+            generate_ms, res = timed_ms(lambda: runner.generate(
+                prep, max_new_tokens=MAX_NEW_TOKENS, do_selection=do_sel))
+            peak = torch.cuda.max_memory_allocated()
+            check_outputs(qcfg, prep, pre, res, do_sel)
+            t_cache = pre.valid.shape[1] + MAX_NEW_TOKENS
+            kv_bytes = sum(cache_nbytes(runner.decode_cache(kv, t_cache))
+                           for kv in (pre.kv_k, pre.kv_v))
+            run = {"tier": tier, "batch": name, "mode": "pruned" if do_sel else "unpruned",
+                   "B": int(prep.input_ids.shape[0]), "S": int(prep.input_ids.shape[1]),
+                   "prefill_ms": prefill_ms, "decode_ms_per_token": decode_ms / MAX_NEW_TOKENS,
+                   "generate_ms": generate_ms, "peak_mem_gib": peak / 2**30,
+                   "weight_bytes": weight_bytes, "kv_cache_bytes": kv_bytes,
+                   "kv_len": int(pre.valid.shape[1]),
+                   "first_logits_rel_dist_from_bf16": rel_err(
+                       pre.logits.float().cpu(), ref_logits[(name, do_sel)])}
+            if do_sel:
+                run["kept_img_tokens"] = res.keep_img.sum(1).tolist()
+            print("quantized path " + json.dumps(run))
+            runs.append(run)
+    torch.cuda.synchronize()
+    required = ["window_attention_fused", "flash_attention[causal]",
+                "flash_attention[dqk_ne_dv]"]
+    if tier == "q4":
+        required += ["matmul_int4[*]", "matmul_int4_prefill[a8,*]"] + [
+            f"flash_attention_int8[{fl}+pv8]" for fl in ("dense", "segmented")]
+    else:
+        required += ["flash_attention[segmented]"]
+    launches = read_launches(required)
+    print(f"{tier} quantized-path launches " + json.dumps(launches))
+    del runner, model
+    torch.cuda.empty_cache()
+    return runs, launches
+
+
+def check_small_quant(cfg_tier: str):
+    """The tiny config in one quantized tier on the card (bf16 activations,
+    the kernels, _int_mm) against the same quantized weights on the CPU
+    (fp32, the plain versions), as check_small_reference does for bf16."""
+    import torch
+
+    from glimpseprune_torch.config import tiny_test_config
+    from glimpseprune_torch.convert import init_random
+    from glimpseprune_torch.models.qwen2_5_vl.inputs import prepare_inputs
+    from glimpseprune_torch.models.qwen2_5_vl.runner import GlimpsePruneRunner
+
+    cfg = quant_config(tiny_test_config(), cfg_tier)
+    rng = np.random.default_rng(1)
+    images = [rng.integers(0, 255, (64, 96, 3), dtype=np.uint8),
+              rng.integers(0, 255, (56, 56, 3), dtype=np.uint8)]
+    prep = prepare_inputs(cfg, make_prompts(cfg, rng, 2, 5, 400, (3, 6)), images,
+                          seq_multiple=8, patch_multiple=16)
+    cpu_model = init_random(cfg, seed=1, device="cpu", dtype=torch.float32)
+    gpu_model = copy.deepcopy(cpu_model).to(device="cuda", dtype=torch.bfloat16)
+    ref_run, got_run = GlimpsePruneRunner(cfg, cpu_model), GlimpsePruneRunner(cfg, gpu_model)
+    errs = {}
+    for do_sel, field in ((False, "logits"), (True, "mask_logits")):
+        ref = getattr(ref_run.prefill(prep, do_sel), field).float()
+        got = getattr(got_run.prefill(prep, do_sel), field).float().cpu()
+        if do_sel:
+            img_valid = torch.as_tensor(prep.img_valid)
+            ref, got = ref[:, img_valid], got[:, img_valid]
+        errs[field] = ((got - ref).abs().max() / ref.abs().max()).item()
+    print(f"tiny config {cfg_tier}, card bf16 vs CPU fp32, max error / max |ref|: "
+          + json.dumps(errs))
+    bad = {k: v for k, v in errs.items() if not v <= 0.1}
+    if bad:
+        raise AssertionError(f"the card disagrees with the CPU reference in {cfg_tier}: {bad}")
+    return errs
+
 
 def main() -> int:
     smi = find_card()
@@ -706,16 +1098,43 @@ def main() -> int:
     train_s = time.perf_counter() - t_train
     small_train = check_small_train_step()
     shutil.rmtree(work, ignore_errors=True)
+    del trainer, model, first
+    torch.cuda.empty_cache()
+
+    # phase 8: the quantized tiers' kernels at the main path's shapes
+    quant_kernels = check_int4_kernels(cfg, gen, decode_m=prep_a.input_ids.shape[0],
+                                       prefill_m=int(prep_a.valid.size))
+    quant_kernels += check_flash_int8(cfg, prep_a, prep_b, gen)
+    # phase 9: the quantized serving path
+    t_quant = time.perf_counter()
+    quant_runs, quant_launches, small_quant = [], {}, {}
+    for tier in QUANT_TIERS:
+        tier_runs, quant_launches[tier] = run_quant_tier(cfg, tier, [("a", prep_a),
+                                                                     ("b", prep_b)])
+        quant_runs += tier_runs
+        small_quant[tier] = check_small_quant(tier)
+    quant_s = time.perf_counter() - t_quant
 
     for k in kernels:
         path = train_launches if k["name"].startswith(("flash_attention_lse",
                                                        "flash_attention_backward")) else \
             serve_launches
         k["launches"] = path[k["name"]]
+    off_path = {  # why a checked flavour has no launch on the (q4) path
+        "matmul_int4_prefill[a16": "no shape routes W4A16 (JAX int4_matmul.py:268)",
+        "flash_attention_int8[causal": "q4 runs int8 attention in the ViT only",
+        "flash_attention_int8[": "q4 runs the ViT's int8 attention with int8 PV"}
+    for k in quant_kernels:  # launches on the (q4) quantized serving path
+        k["launches"] = quant_launches["q4"].get(k["name"], 0)
+        if not k["launches"]:
+            k["note"] = next(v for p, v in off_path.items() if k["name"].startswith(p))
+    kernels += quant_kernels
     print(json.dumps({"card": smi, "build_s": build_s, "runs": runs,
                       "tiny_reference_err": small, "train_steps": steps,
                       "train_path_s": train_s, "tiny_train_err": small_train,
-                      "training_launches": train_launches,
+                      "training_launches": train_launches, "quantized_runs": quant_runs,
+                      "quantized_launches": quant_launches, "quantized_path_s": quant_s,
+                      "tiny_quantized_err": small_quant,
                       "total_s": time.perf_counter() - t_start}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

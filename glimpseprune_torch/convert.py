@@ -5,12 +5,19 @@ arrays) into a state dict for ``Qwen2_5_VL_GP``: Flax ``Dense`` kernels are
 [in, out] and become ``Linear.weight`` [out, in]; ``Embed.embedding``
 becomes ``Embedding.weight``; the layer-stacked ``[L, ...]`` arrays of the
 ViT blocks and decoder layers are split per layer; the fuser's numbered
-Flax names (``layers_0``) become ModuleList indices (``layers.0``).
+Flax names (``layers_0``) become ModuleList indices (``layers.0``). A
+quantized JAX tree (quantization.quantize_int8 / quantize_int4) carries
+``kernel_q``/``kernel_scale`` or ``kernel_q4``/``kernel_scale4`` leaves in
+place of ``kernel``; they become the buffers of the port's QuantLinear as
+they are (same layout, int8 and f32), stacked ones split per layer.
 
 ``init_random`` builds full-width random weights directly on a device with
 the JAX init's scales: matrices normal / sqrt(fan_in) (lecun normal,
 language.py:203-205, vision.py:145-148), embeddings normal / sqrt(hidden),
 glimpse embeddings normal(0.02) (gp_model.py:136), biases 0, norms 1.
+Under a config with quantized weights both functions return the model with
+its Linears swapped for QuantLinears in each tower's tier (``init_random``
+quantizes its random weights on the device, one layer at a time).
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ import torch
 
 from glimpseprune_torch.config import ModelConfig
 from glimpseprune_torch.models.qwen2_5_vl.gp_model import Qwen2_5_VL_GP
+from glimpseprune_torch.quantization import DEFAULT_INCLUDE, quantize_model
 
 _STACKED = ("visual.blocks.", "text.layers.")
 
@@ -66,8 +74,19 @@ def params_from_jax(params: Mapping, cfg: ModelConfig) -> Dict[str, torch.Tensor
             items = [(f"{stacked}{l}.{rest}", arr[l]) for l in range(arr.shape[0])]
         for n, a in items:
             n, a = _leaf(n, a)
-            state[n] = torch.tensor(np.asarray(a), dtype=torch.float32)
+            a = np.asarray(a)
+            state[n] = torch.tensor(a, dtype=torch.int8 if a.dtype == np.int8 else torch.float32)
     return state
+
+
+def quantize_towers(model: Qwen2_5_VL_GP, cfg: ModelConfig) -> Qwen2_5_VL_GP:
+    """quantize_model on each tower whose config declares quantized weights,
+    over that tower's part of DEFAULT_INCLUDE."""
+    for tower, prefix in ((cfg.text, "text/"), (cfg.vision, "visual/")):
+        if tower.weight_quant != "none":
+            quantize_model(model, tower.weight_quant,
+                           [p for p in DEFAULT_INCLUDE if p.startswith(prefix)])
+    return model
 
 
 def init_random(cfg: ModelConfig, seed: int, device, dtype=torch.bfloat16) -> Qwen2_5_VL_GP:
@@ -88,7 +107,7 @@ def init_random(cfg: ModelConfig, seed: int, device, dtype=torch.bfloat16) -> Qw
                 p.fill_(1.0)
             else:  # Linear.weight [out, in]
                 p.normal_(0.0, p.shape[1] ** -0.5, generator=gen)
-    return model.requires_grad_(False).eval()
+    return quantize_towers(model, cfg).requires_grad_(False).eval()
 
 
 def load_from_jax(params: Mapping, cfg: ModelConfig, device="cuda",
@@ -96,6 +115,6 @@ def load_from_jax(params: Mapping, cfg: ModelConfig, device="cuda",
     """A Qwen2_5_VL_GP holding the JAX params' weights, on the card unless
     the caller asks for another device."""
     with torch.device("meta"):
-        model = Qwen2_5_VL_GP(cfg)
+        model = quantize_towers(Qwen2_5_VL_GP(cfg), cfg)
     model.load_state_dict(params_from_jax(params, cfg), strict=True, assign=True)
     return model.to(device=device, dtype=dtype).requires_grad_(False).eval()

@@ -102,6 +102,23 @@ class Qwen2_5_VL_GP(nn.Module):
     def dtype(self) -> torch.dtype:
         return self.text.embed_tokens.weight.dtype
 
+    def set_config(self, cfg: ModelConfig) -> "Qwen2_5_VL_GP":
+        """Bind the model and every submodule that holds a part of its
+        config to cfg, so that the knobs read at run time (the W8A8 and
+        int8-attention tiers, remat, the GlimpsePrune knobs) are cfg's.
+        The model's config has this one owner: ``quantize_model(...,
+        cfg=...)`` calls it once, and a runner refuses a model bound to a
+        config other than its own. The weights must already fit cfg."""
+        self.cfg = cfg
+        self.visual.cfg = cfg.vision
+        for block in self.visual.blocks:
+            block.cfg = cfg.vision
+        self.text.cfg = cfg.text
+        for layer in self.text.layers:
+            layer.cfg = cfg.text
+        self.attn_fuser.gp = cfg.gp
+        return self
+
     def _cos_sin(self, position_ids):
         t = self.cfg.text
         cos, sin = mrope_cos_sin(position_ids, t.head_dim, t.rope_theta, t.mrope_section)

@@ -8,6 +8,10 @@ The JAX package scans one stacked parameter tree; here the layers are a
 ModuleList run by a Python loop, and a layer range is a slice of that loop.
 ``cfg.remat`` (the JAX ``jax.checkpoint`` of the scan body, :462) becomes
 ``torch.utils.checkpoint`` around each layer while autograd records.
+The quantized tiers follow the JAX package: W8A8 (``a8``) in the prefill
+layers, in decode only under ``act_quant="int8"`` (``_act_quant_on`` :85),
+int8 flash attention in prefill when the tower's flags ask for it
+(:122-127), and the head's a8 only under ``"int8"`` (:290).
 """
 
 from __future__ import annotations
@@ -20,10 +24,18 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from glimpseprune_torch.config import TextConfig
-from glimpseprune_torch.models.layers import GatedMLP, RMSNorm
+from glimpseprune_torch.models.layers import GatedMLP, Linear, RMSNorm
 from glimpseprune_torch.ops.attention import causal_segment_attention, decode_attention
 from glimpseprune_torch.ops.kv_cache import cache_append, cache_layer
 from glimpseprune_torch.ops.rope import apply_rotary
+
+
+def _act_quant_on(cfg: TextConfig, decoding: bool) -> bool:
+    """W8A8 where the products are compute-bound: everywhere under "int8",
+    in the prefill layers only under "prefill" (decode reads weights)."""
+    if cfg.act_quant == "int8":
+        return True
+    return cfg.act_quant == "prefill" and not decoding
 
 
 class SelfAttention(nn.Module):
@@ -31,10 +43,10 @@ class SelfAttention(nn.Module):
         super().__init__()
         dq = cfg.num_attention_heads * cfg.head_dim
         dkv = cfg.num_key_value_heads * cfg.head_dim
-        self.q_proj = nn.Linear(cfg.hidden_size, dq, bias=cfg.attention_bias)
-        self.k_proj = nn.Linear(cfg.hidden_size, dkv, bias=cfg.attention_bias)
-        self.v_proj = nn.Linear(cfg.hidden_size, dkv, bias=cfg.attention_bias)
-        self.o_proj = nn.Linear(dq, cfg.hidden_size, bias=False)
+        self.q_proj = Linear(cfg.hidden_size, dq, bias=cfg.attention_bias)
+        self.k_proj = Linear(cfg.hidden_size, dkv, bias=cfg.attention_bias)
+        self.v_proj = Linear(cfg.hidden_size, dkv, bias=cfg.attention_bias)
+        self.o_proj = Linear(dq, cfg.hidden_size, bias=False)
 
 
 class DecoderLayer(nn.Module):
@@ -46,40 +58,45 @@ class DecoderLayer(nn.Module):
         self.self_attn = SelfAttention(cfg)
         self.mlp = GatedMLP(cfg.hidden_size, cfg.intermediate_size, cfg.hidden_act)
 
-    def qkv(self, x, cos, sin):
+    def qkv(self, x, cos, sin, a8: bool = False):
         c = self.cfg
         b, s, _ = x.shape
         h = self.input_layernorm(x)
         a = self.self_attn
-        q = a.q_proj(h).reshape(b, s, c.num_attention_heads, c.head_dim)
-        k = a.k_proj(h).reshape(b, s, c.num_key_value_heads, c.head_dim)
-        v = a.v_proj(h).reshape(b, s, c.num_key_value_heads, c.head_dim)
+        q = a.q_proj(h, a8).reshape(b, s, c.num_attention_heads, c.head_dim)
+        k = a.k_proj(h, a8).reshape(b, s, c.num_key_value_heads, c.head_dim)
+        v = a.v_proj(h, a8).reshape(b, s, c.num_key_value_heads, c.head_dim)
         return apply_rotary(q, cos, sin), apply_rotary(k, cos, sin), v
 
-    def finish(self, x, attn):
+    def finish(self, x, attn, a8: bool = False):
         """Output projection, residual, MLP block."""
         b, s = x.shape[:2]
-        x = x + self.self_attn.o_proj(attn.reshape(b, s, -1))
-        return x + self.mlp(self.post_attention_layernorm(x))
+        x = x + self.self_attn.o_proj(attn.reshape(b, s, -1), a8)
+        return x + self.mlp(self.post_attention_layernorm(x), a8)
 
     def prefill(self, x, cos, sin, valid, q_index):
         """-> (x, k, v, sel_q): sel_q is the glimpse query's post-rope q
         [B, Hq, D] at q_index, the only per-layer harvest state."""
-        q, k, v = self.qkv(x, cos, sin)
-        x = self.finish(x, causal_segment_attention(q, k, v, valid))
+        c = self.cfg
+        a8 = _act_quant_on(c, decoding=False)
+        q, k, v = self.qkv(x, cos, sin, a8)
+        attn = causal_segment_attention(q, k, v, valid, int8_qk=a8 and c.attn_qk_int8,
+                                        int8_pv=a8 and c.attn_pv_int8)
+        x = self.finish(x, attn, a8)
         sel_q = q[torch.arange(q.shape[0], device=q.device), q_index]
         return x, k, v, sel_q
 
     def decode(self, layer: int, x, cos, sin, k_cache, v_cache, kv_valid, write_idx: int):
-        """One decode layer against the stacked cache [L, B, T, Hkv, D]:
-        the layer's slice is read, then the new tokens' k/v are written in
-        place at write_idx."""
-        q, k, v = self.qkv(x, cos, sin)
+        """One decode layer against the stacked cache [L, B, T, Hkv, D]
+        (either tier of ops/kv_cache.py): the layer's slice is read, then
+        the new tokens' k/v are written in place at write_idx."""
+        a8 = _act_quant_on(self.cfg, decoding=True)
+        q, k, v = self.qkv(x, cos, sin, a8)
         attn = decode_attention(q, cache_layer(k_cache, layer), cache_layer(v_cache, layer),
                                 kv_valid, k, v, write_idx)
         cache_append(k_cache, k, layer, write_idx)
         cache_append(v_cache, v, layer, write_idx)
-        return self.finish(x, attn)
+        return self.finish(x, attn, a8)
 
 
 def harvest_postprocess(raw_row: torch.Tensor, valid: torch.Tensor,
@@ -103,7 +120,7 @@ class TextDecoder(nn.Module):
         self.layers = nn.ModuleList(DecoderLayer(cfg) for _ in range(cfg.num_hidden_layers))
         self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps)
         if not cfg.tie_word_embeddings:
-            self.lm_head = nn.Linear(cfg.hidden_size, cfg.vocab_size, bias=False)
+            self.lm_head = Linear(cfg.hidden_size, cfg.vocab_size, bias=False)
 
     def embed(self, input_ids: torch.Tensor) -> torch.Tensor:
         return self.embed_tokens(input_ids)
@@ -114,7 +131,7 @@ class TextDecoder(nn.Module):
     def logits(self, x: torch.Tensor) -> torch.Tensor:
         if self.cfg.tie_word_embeddings:  # flax nn.Embed.attend
             return F.linear(x, self.embed_tokens.weight)
-        return self.lm_head(x)
+        return self.lm_head(x, self.cfg.act_quant == "int8")
 
     def _chunk_nll_sum(self, xc: torch.Tensor, yc: torch.Tensor) -> torch.Tensor:
         """Sum of -log p(yc) over the labelled positions of one chunk."""

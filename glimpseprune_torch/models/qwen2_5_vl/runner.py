@@ -7,10 +7,25 @@ Counterpart of glimpseprune_tpu/models/qwen2_5_vl/runner.py
 (``gp_model.decode_chunk``); here the decode is a plain Python loop over
 steps and layers, with the early-exit check between chunks of steps so the
 host syncs once per chunk.
+
+The runner's config must be the model's, as the JAX runner builds its
+model from its config: the model is bound to a config once (built from it,
+or ``quantize_model(..., cfg=...)`` / ``Qwen2_5_VL_GP.set_config``), and
+the runner refuses a model bound to a config that differs from its own in
+a knob the model reads. The quantized serving tiers ride on both: the
+model's Linears are swapped for QuantLinears (``quantization.quantize_model``)
+in the config's ``weight_quant`` tier, the config's ``act_quant`` and
+attention flags select W8A8 and int8 attention, and under
+``kv_cache_quant="int8"`` the decode cache is built int8 from the prefill's
+KV, quantized once (JAX ``_build_decode_cache`` :424, used at :1134-1137).
+The runner refuses a config knob that the port does not implement, and a
+model whose weights are not in the config's tier, rather than run something
+else.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import NamedTuple, Optional, Sequence
 
@@ -20,6 +35,7 @@ import torch
 from glimpseprune_torch.config import ModelConfig
 from glimpseprune_torch.models.qwen2_5_vl.gp_model import GlimpseOutputs, Qwen2_5_VL_GP
 from glimpseprune_torch.models.qwen2_5_vl.inputs import PreparedInputs, _vis_dense_hint
+from glimpseprune_torch.models.layers import QuantLinear
 from glimpseprune_torch.ops.kv_cache import alloc_cache, cache_set_prefix
 
 DECODE_CHUNK = 32  # decode steps between host-side eos / stop-sequence checks
@@ -44,19 +60,85 @@ class PrefillResult(NamedTuple):
     mask_logits: Optional[torch.Tensor]  # [n_out, B, N], pruned prefill only
 
 
+def _weight_tier(module: torch.nn.Module) -> str:
+    """The weight tier a tower's modules are in: "none" without
+    QuantLinears, "int4" if any is int4 (the int4 tier keeps int8 where no
+    group splits a contraction dim), else "int8"."""
+    modes = {m.mode for m in module.modules() if isinstance(m, QuantLinear)}
+    return "int4" if "int4" in modes else ("int8" if modes else "none")
+
+
+def check_config(cfg: ModelConfig, model: Qwen2_5_VL_GP) -> None:
+    """Raise ValueError, naming the knob, for a config knob the port does
+    not implement, or for a model whose weights are not in the tier the
+    config declares."""
+    if cfg.model_family != "qwen2_5_vl":
+        raise ValueError(f"model_family {cfg.model_family!r} is not ported to the torch runner")
+    for knob in ("use_ref_masks", "use_zero_masks", "per_image_policy"):
+        if getattr(cfg.gp, knob):
+            raise ValueError(f"gp.{knob} is not ported to the torch runner yet")
+    if cfg.text.lora_rank > 0:
+        raise ValueError("text.lora_rank > 0 (in-layer LoRA) is not ported to the torch runner")
+    if cfg.text.kv_cache_quant not in ("none", "int8"):
+        raise ValueError(f"text.kv_cache_quant must be none or int8, "
+                         f"got {cfg.text.kv_cache_quant!r}")
+    for name, tower, mod in (("vision", cfg.vision, model.visual), ("text", cfg.text, model.text)):
+        if tower.weight_quant not in ("none", "int8", "int4"):
+            raise ValueError(f"{name}.weight_quant must be none, int8 or int4, "
+                             f"got {tower.weight_quant!r}")
+        if tower.act_quant not in ("none", "int8", "prefill"):
+            raise ValueError(f"{name}.act_quant must be none, int8 or prefill, "
+                             f"got {tower.act_quant!r}")
+        have = _weight_tier(mod)
+        if have != tower.weight_quant:
+            raise ValueError(f"{name}.weight_quant is {tower.weight_quant!r} but the model's "
+                             f"{name} weights are {have!r}: quantize the model with "
+                             "quantization.quantize_model")
+    check_binding(cfg, model)
+
+
+# knobs the model never reads: the decode cache's tier is the runner's, and
+# remat acts only under autograd (GPTrainer turns it on in the model's config)
+_RUNNER_ONLY = ("text.kv_cache_quant", "text.remat")
+
+
+def _fields(cfg) -> dict:
+    """{"part.knob": value} of a config, its sub-configs flattened."""
+    out = {}
+    for key, val in dataclasses.asdict(cfg).items():
+        if isinstance(val, dict):
+            out.update({f"{key}.{k}": v for k, v in val.items()})
+        else:
+            out[key] = val
+    return out
+
+
+def check_binding(cfg: ModelConfig, model: Qwen2_5_VL_GP) -> None:
+    """Raise ValueError, naming the knobs, unless the config the model is
+    bound to agrees with cfg in every knob the model reads."""
+    want, have = _fields(cfg), _fields(model.cfg)
+    diff = [f"{k}: {have.get(k)!r}, not {v!r}" for k, v in want.items()
+            if k not in _RUNNER_ONLY and have.get(k) != v]
+    if diff:
+        raise ValueError("the model is bound to another config (" + "; ".join(diff)
+                         + "): bind it once with quantize_model(..., cfg=cfg) or "
+                         "model.set_config(cfg)")
+
+
 class GlimpsePruneRunner:
-    """Owns the model (weights on their device) and runs generate()."""
+    """Owns the model (weights on their device) and runs generate(). The
+    model's config is checked against the runner's at construction and
+    again at each prefill and decode, so that a model re-bound since (to
+    another tier) is refused, not run in it."""
 
     def __init__(self, cfg: ModelConfig, model: Qwen2_5_VL_GP):
         self.cfg = cfg.validate()
-        gp = self.cfg.gp
-        for knob in ("use_ref_masks", "use_zero_masks", "per_image_policy"):
-            if getattr(gp, knob):
-                raise ValueError(f"gp.{knob} is not ported to the torch runner yet")
+        check_config(self.cfg, model)
         self.model = model.eval()
         self.device = model.text.embed_tokens.weight.device
 
     def _device_inputs(self, prep: PreparedInputs) -> dict:
+        check_binding(self.cfg, self.model)
         def t(a, dtype=torch.long):
             return torch.as_tensor(np.asarray(a), device=self.device).to(dtype)
 
@@ -181,18 +263,25 @@ class GlimpsePruneRunner:
             seqs[b, end:] = eos
         return seqs, n_gen
 
+    def decode_cache(self, kv: torch.Tensor, t: int):
+        """The decode cache [L, B, t, Hkv, D] with the prefill's kv [L, B, R,
+        Hkv, D] in its first R slots, in the config's ``kv_cache_quant``
+        tier (int8: quantized here, once)."""
+        shape = kv.shape[:2] + (t,) + kv.shape[3:]
+        cache = alloc_cache(shape, kv.dtype, self.device, self.cfg.text.kv_cache_quant)
+        return cache_set_prefix(cache, kv)
+
     def _run_decode(self, logits, r_valid, r_pos, kv_k, kv_v, max_new_tokens, eos,
                     stop_sequences=None) -> np.ndarray:
         """Greedy decode over the prefill's KV -> seqs [B, n_chunks * chunk]
         (token emitted at each step; eos once a row is done)."""
         model, text = self.model, self.model.text
+        check_binding(self.cfg, self.model)
         b, r = r_valid.shape
         chunk = max(1, min(DECODE_CHUNK, max_new_tokens))
         n_steps = -(-max_new_tokens // chunk) * chunk
-        t = r + n_steps
-        shape = (kv_k.shape[0], b, t) + tuple(kv_k.shape[3:])
-        k_cache = cache_set_prefix(alloc_cache(shape, kv_k.dtype, self.device), kv_k)
-        v_cache = cache_set_prefix(alloc_cache(shape, kv_v.dtype, self.device), kv_v)
+        k_cache = self.decode_cache(kv_k, r + n_steps)
+        v_cache = self.decode_cache(kv_v, r + n_steps)
         kv_valid = torch.cat([r_valid, torch.zeros((b, n_steps), dtype=torch.bool,
                                                    device=self.device)], dim=1)
         last_pos = r_pos[:, :, -1]  # [3, B]

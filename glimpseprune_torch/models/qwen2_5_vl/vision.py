@@ -6,7 +6,10 @@ window-padded packed patch layout that ``prepare_inputs`` builds: windowed
 blocks go through the fused rope + window-attention kernel (K1) on the qkv
 projection's natural layout, the full-attention blocks through the flash
 kernel (K2) with per-image segment ids. Taps are merge-unit means of the
-hidden state after the tap blocks, in slot order.
+hidden state after the tap blocks, in slot order. The ViT is prefill-only
+compute, so either ``act_quant`` tier turns W8A8 on in every block, and
+the full-attention blocks run the int8 flash tier (K7) when the tower's
+``attn_qk_int8`` / ``attn_pv_int8`` ask for it (JAX :98, :110-114).
 """
 
 from __future__ import annotations
@@ -18,7 +21,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from glimpseprune_torch.config import VisionConfig
-from glimpseprune_torch.models.layers import GatedMLP, RMSNorm
+from glimpseprune_torch.models.layers import GatedMLP, Linear, RMSNorm
 from glimpseprune_torch.ops.attention import fused_window_attention, segment_attention
 from glimpseprune_torch.ops.rope import apply_rotary, vision_rope_cos_sin
 
@@ -26,8 +29,8 @@ from glimpseprune_torch.ops.rope import apply_rotary, vision_rope_cos_sin
 class VisionAttention(nn.Module):
     def __init__(self, hidden_size: int):
         super().__init__()
-        self.qkv = nn.Linear(hidden_size, 3 * hidden_size)
-        self.proj = nn.Linear(hidden_size, hidden_size)
+        self.qkv = Linear(hidden_size, 3 * hidden_size)
+        self.proj = Linear(hidden_size, hidden_size)
 
 
 class VisionBlock(nn.Module):
@@ -44,15 +47,18 @@ class VisionBlock(nn.Module):
         segment_ids (dense_attn: one unpadded image, no mask)."""
         c = self.cfg
         p = x.shape[0]
-        qkv = self.attn.qkv(self.norm1(x)).reshape(p, 3, c.num_heads, c.head_dim)
+        a8 = c.act_quant in ("int8", "prefill")
+        qkv = self.attn.qkv(self.norm1(x), a8).reshape(p, 3, c.num_heads, c.head_dim)
         if wp > 0:
             attn = fused_window_attention(qkv, cos, sin, valid, wp)
         else:
             q = apply_rotary(qkv[:, 0][None], cos[None], sin[None])[0]
             k = apply_rotary(qkv[:, 1][None], cos[None], sin[None])[0]
-            attn = segment_attention(q, k, qkv[:, 2], segment_ids, dense=dense_attn)
-        x = x + self.attn.proj(attn.reshape(p, c.hidden_size))
-        return x + self.mlp(self.norm2(x))
+            attn = segment_attention(q, k, qkv[:, 2], segment_ids, dense=dense_attn,
+                                     int8_qk=a8 and c.attn_qk_int8,
+                                     int8_pv=a8 and c.attn_pv_int8)
+        x = x + self.attn.proj(attn.reshape(p, c.hidden_size), a8)
+        return x + self.mlp(self.norm2(x), a8)
 
 
 class VisionTransformer(nn.Module):

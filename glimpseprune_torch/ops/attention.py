@@ -7,8 +7,10 @@ versions on CPU tensors. Both follow the kernel's semantics on every
 device: a query row with no allowed key outputs 0, where the JAX package's
 XLA paths let such padding rows attend to themselves. Padding rows never
 reach a valid output, so the two agree on every valid row.
-Decode attention has no kernel in the JAX package either; it is plain
-PyTorch here.
+The int8 serving tier (``int8_qk``, ``int8_pv``) goes through K7, the
+int8 flavour of the flash kernel. Decode attention has no kernel in the JAX
+package either; it is plain PyTorch here, over a cache in the model dtype
+or in the int8 tier of ops/kv_cache.py.
 """
 
 from __future__ import annotations
@@ -17,20 +19,24 @@ import torch
 
 from glimpseprune_torch.ops.cuda.flash_attention import flash_attention
 from glimpseprune_torch.ops.cuda.window_attention import window_attention_fused
+from glimpseprune_torch.ops.kv_cache import Cache, is_quantized
 
 NEG_INF = -1e30
 
 
 def segment_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                      segment_ids: torch.Tensor, dense: bool = False) -> torch.Tensor:
+                      segment_ids: torch.Tensor, dense: bool = False,
+                      int8_qk: bool = False, int8_pv: bool = False) -> torch.Tensor:
     """Bidirectional block-diagonal attention over the packed ViT sequence.
 
     q/k/v [S, H, D]; segment_ids [S] (attend iff equal; < 0 is padding).
     dense=True promises one valid segment (a single unpadded image), so no
-    mask is applied. Returns [S, H, D]."""
+    mask is applied. int8_qk runs QK^T in int8 (per-row q/k), int8_pv also
+    the PV product (the JAX package's :216-256). Returns [S, H, D]."""
     seg = None if dense else segment_ids[None]
     out = flash_attention(q.transpose(0, 1)[None], k.transpose(0, 1)[None],
-                          v.transpose(0, 1)[None], seg, seg, dense=dense)
+                          v.transpose(0, 1)[None], seg, seg, dense=dense,
+                          qkv_int8=int8_qk, pv_int8=int8_qk and int8_pv)
     return out[0].transpose(0, 1)
 
 
@@ -42,17 +48,20 @@ def fused_window_attention(qkv: torch.Tensor, cos: torch.Tensor, sin: torch.Tens
 
 
 def causal_segment_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                             valid: torch.Tensor) -> torch.Tensor:
+                             valid: torch.Tensor, int8_qk: bool = False,
+                             int8_pv: bool = False) -> torch.Tensor:
     """Causal GQA self-attention over a left-padded batch.
 
-    q [B, S, Hq, D], k/v [B, S, Hkv, D], valid [B, S] -> [B, S, Hq, D]."""
+    q [B, S, Hq, D], k/v [B, S, Hkv, D], valid [B, S] -> [B, S, Hq, D].
+    int8_qk / int8_pv: as in segment_attention."""
     seg = torch.where(valid, 0, -1).to(torch.int32)
     out = flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                          seg, seg, causal=True)
+                          seg, seg, causal=True, qkv_int8=int8_qk,
+                          pv_int8=int8_qk and int8_pv)
     return out.transpose(1, 2)
 
 
-def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+def decode_attention(q: torch.Tensor, k_cache: Cache, v_cache: Cache,
                      kv_valid: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
                      write_idx: int) -> torch.Tensor:
     """New queries over a cached prefix plus the new tokens' own keys.
@@ -62,20 +71,32 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     attend causally among themselves. The cache is read before the layer
     writes the new tokens into it (language._layer_decode), as in the JAX
     package. Grouped GQA: the cache is never expanded to Hq heads.
-    Returns [B, S_new, Hq, D]."""
+
+    An int8 cache ({"q": int8 [B, T, Hkv, D], "s": f32 [B, T, Hkv]}) is
+    read as its integer values: the key scale multiplies the logits and the
+    value scale is folded into the probabilities (JAX :433-489), so the
+    cache is never dequantized. Returns [B, S_new, Hq, D]."""
     b, s_new, hq, d = q.shape
-    t, hkv = k_cache.shape[1], k_cache.shape[2]
+    quant = is_quantized(k_cache)
+    k_vals = k_cache["q"] if quant else k_cache
+    v_vals = v_cache["q"] if quant else v_cache
+    t, hkv = k_vals.shape[1], k_vals.shape[2]
     g = hq // hkv
     scale = 1.0 / d ** 0.5
     qg = q.reshape(b, s_new, hkv, g, d).float()
     allowed = kv_valid[:, None, None, None, :] & (
         torch.arange(t, device=q.device) < write_idx)
-    logits = torch.einsum("bskgd,btkd->bkgst", qg, k_cache.float()) * scale
+    logits = torch.einsum("bskgd,btkd->bkgst", qg, k_vals.float()) * scale
+    if quant:
+        logits = logits * k_cache["s"].transpose(1, 2)[:, :, None, None, :]
     logits = logits.masked_fill(~allowed, NEG_INF)
     logits_n = torch.einsum("bskgd,bukd->bkgsu", qg, k_new.float()) * scale
     causal_n = torch.ones((s_new, s_new), dtype=torch.bool, device=q.device).tril()
     logits_n = logits_n.masked_fill(~causal_n, NEG_INF)
     probs = torch.softmax(torch.cat([logits, logits_n], dim=-1), dim=-1)
-    out = torch.einsum("bkgst,btkd->bskgd", probs[..., :t], v_cache.float())
+    pc = probs[..., :t]
+    if quant:
+        pc = pc * v_cache["s"].transpose(1, 2)[:, :, None, None, :]
+    out = torch.einsum("bkgst,btkd->bskgd", pc, v_vals.float())
     out = out + torch.einsum("bkgsu,bukd->bskgd", probs[..., t:], v_new.float())
     return out.reshape(b, s_new, hq, d).to(q.dtype)

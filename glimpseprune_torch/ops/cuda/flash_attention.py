@@ -8,11 +8,16 @@ Replaces the Pallas kernels of glimpseprune_tpu/ops/pallas/flash_attention.py:
   ``_dense_lse_kernel_adapter`` :224), which also writes the per-row
   log-sum-exp [B, Hq, Sq] f32 in the log2 domain, as the Pallas kernel does;
 - K3, the backward ``_flash_bwd_impl`` :808 (``_bwd_dq_kernel`` :697,
-  ``_bwd_dkv_kernel`` :739), which recomputes the probabilities from that LSE.
-The CUDA sources are ``glimpseprune_torch/csrc/flash_attention.cu`` (K2 and
-K2-lse, one kernel with an optional LSE output) and ``flash_attention_bwd.cu``
-(K3); their headers say what bounds them on the H100 and how the design
-answers.
+  ``_bwd_dkv_kernel`` :739), which recomputes the probabilities from that LSE;
+- K7, the int8 serving flavour (``_i8_kernel_adapter`` :175,
+  ``_i8_dense_kernel_adapter`` :200, with ``_quant_rows_i8`` :232 done here
+  in plain PyTorch as JAX does it outside its kernel): per-row int8 q and k,
+  an int32 QK^T with a rank-1 rescale, and with ``pv_int8`` an int8 PV
+  product per kv tile. Inference only, as in JAX.
+The CUDA sources are ``glimpseprune_torch/csrc/flash_attention.cu`` (K2,
+K2-lse and K7, one kernel with template flavours) and
+``flash_attention_bwd.cu`` (K3); their headers say what bounds them on the
+H100 and how the design answers.
 
 The TPU tuning does not carry over: there are no 1024x1024 blocks and no
 head-dim padding to 128. The qk head dim and the v head dim are separate
@@ -34,12 +39,17 @@ from typing import Optional, Tuple
 import torch
 
 from glimpseprune_torch.ops.cuda.build import check_launch, load_library
+from glimpseprune_torch.ops.kv_cache import quantize_kv
 
 NEG_INF = -1e30
 LOG2E = math.log2(math.e)
 MAX_DQK = 256
 MAX_DV = 128
 FLAVOURS = ("causal", "dense", "dqk_ne_dv", "segmented")
+# K7's launch-count buckets: the flavour, with "+pv8" under pv_int8
+INT8_FLAVOURS = tuple(f + pv for f in FLAVOURS for pv in ("", "+pv8"))
+# the kv tile of csrc/flash_attention.cu, over which K7's pv_int8 quantizes v
+KERNEL_BLOCK_K = 64
 
 
 def flavour(causal: bool, dense: bool, dqk: int, dv: int) -> str:
@@ -283,10 +293,110 @@ class FlashAttentionFunction(torch.autograd.Function):
         return dq, dk, dv, None, None, None, None
 
 
+# ---------------------------------------------------------------- K7
+
+def default_block_k(skv: int) -> int:
+    """The JAX package's kv tile for the int8 tier (flash_attention.py:457)."""
+    return 2048 if skv % 2048 == 0 else 1024
+
+
+def flash_attention_int8_reference(
+        q_i8: torch.Tensor, k_i8: torch.Tensor, v: torch.Tensor, q_scale: torch.Tensor,
+        k_scale: torch.Tensor, q_segment_ids: Optional[torch.Tensor],
+        kv_segment_ids: Optional[torch.Tensor], causal: bool = False, dense: bool = False,
+        pv_int8: bool = False, block_k: int = KERNEL_BLOCK_K,
+        out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """Plain version of K7: the online softmax over kv tiles of ``block_k``
+    keys, in fp32, as the kernel runs it. Scores are the exact integer
+    q_i8 . k_i8 times (q_scale * sm_scale * log2 e) * k_scale; with pv_int8
+    each tile's probabilities are rounded to p * 127 and its v quantized
+    per column (amax / 127 over the tile's rows), and the tile's product is
+    an exact integer sum times v_scale / 127. Rows with no allowed key
+    output 0. Returns [B, Hq, Sq, Dv] in out_dtype."""
+    b, hq, sq, d = q_i8.shape
+    skv = k_i8.shape[2]
+    g = hq // k_i8.shape[1]
+    scale2 = (1.0 / d ** 0.5) * LOG2E
+    allowed = allowed_mask(q_segment_ids, kv_segment_ids, b, sq, skv, causal, dense,
+                           q_i8.device)[:, None]
+    qf = q_i8.float()
+    kf = k_i8.float().repeat_interleave(g, dim=1)
+    ksc = k_scale.float().repeat_interleave(g, dim=1)
+    vf = v.float().repeat_interleave(g, dim=1)
+    qsc = q_scale.float()[..., None] * scale2
+    m = torch.full((b, hq, sq, 1), NEG_INF, device=q_i8.device)
+    l = torch.zeros((b, hq, sq, 1), device=q_i8.device)
+    acc = torch.zeros((b, hq, sq, v.shape[-1]), device=q_i8.device)
+    for j0 in range(0, skv, block_k):
+        sl = slice(j0, j0 + block_k)
+        ok = allowed[..., sl]
+        s = (qf @ kf[:, :, sl].transpose(-1, -2)) * qsc * ksc[:, :, None, sl]
+        s = s.masked_fill(~ok, NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        p = torch.exp2(s - m_new).masked_fill(~ok, 0.0)
+        alpha = torch.exp2(m - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        vt = vf[:, :, sl]
+        if pv_int8:
+            vsc = vt.abs().amax(-2, keepdim=True).clamp(min=1e-8) / 127.0
+            v_i8 = torch.clamp(torch.round(vt / vsc), -127, 127)
+            pv = (torch.round(p * 127.0).double() @ v_i8.double()).float()
+            acc = acc * alpha + pv * (vsc * (1.0 / 127.0))
+        else:
+            acc = acc * alpha + p @ vt
+        m = m_new
+    out = acc / l.clamp(min=1e-30)
+    return out.masked_fill(~(m > NEG_INF / 2), 0.0).to(out_dtype)
+
+
+def flash_attention_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         q_segment_ids: Optional[torch.Tensor] = None,
+                         kv_segment_ids: Optional[torch.Tensor] = None,
+                         causal: bool = False, dense: bool = False, pv_int8: bool = False,
+                         block_k: Optional[int] = None) -> torch.Tensor:
+    """K7: attention with per-row int8 q and k (and, with pv_int8, an int8
+    PV product) -> [B, Hq, Sq, Dv] in q's dtype; layouts as
+    ``flash_attention``. q and k are quantized here (plain PyTorch, as JAX
+    does outside its kernel). block_k is the kv tile over which pv_int8
+    quantizes v: on the CPU it defaults to the JAX package's tile; on the
+    card it is the kernel's, ``KERNEL_BLOCK_K``, and another value raises.
+    ``flash_attention_int8.launches[flavour(+pv8)]`` counts kernel
+    launches."""
+    device = _device_of(q, dense, q_segment_ids, kv_segment_ids)
+    q8, qsc = quantize_kv(q)  # per-row int8, JAX's _quant_rows_i8 (:232)
+    k8, ksc = quantize_kv(k)
+    if device == "cpu":
+        return flash_attention_int8_reference(
+            q8, k8, v, qsc, ksc, q_segment_ids, kv_segment_ids, causal, dense, pv_int8,
+            block_k or default_block_k(k.shape[2]), q.dtype)
+    if block_k not in (None, KERNEL_BLOCK_K):
+        raise ValueError(f"flash_attention_int8: the kernel's kv tile is {KERNEL_BLOCK_K}")
+    b, hq, sq, dqk = q.shape
+    _, hkv, skv, dv = v.shape
+    seg_ptrs, _keep = _check(q, k, v, q_segment_ids, kv_segment_ids, causal, dense)
+    out = torch.empty((b, sq, hq, dv), dtype=q.dtype, device=q.device).transpose(1, 2)
+    if out.numel() == 0:
+        return out
+    strides = _strides(q8, "q") + _strides(k8, "k") + _strides(v, "v")
+    qsc, ksc = qsc.contiguous(), ksc.contiguous()  # indexed as [B, H, S]
+    fn = load_library("flash_attention").flash_attention_i8
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 21 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    rc = fn(q8.data_ptr(), k8.data_ptr(), v.data_ptr(), out.data_ptr(), qsc.data_ptr(),
+            ksc.data_ptr(), *seg_ptrs, b, hq, hkv, sq, skv, dqk, dv, *strides,
+            *out.stride()[:3], int(causal), int(pv_int8),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    check_launch(rc, "flash_attention_int8")
+    fl = flavour(causal, dense, dqk, dv) + ("+pv8" if pv_int8 else "")
+    flash_attention_int8.launches[fl] += 1
+    return out
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     q_segment_ids: Optional[torch.Tensor] = None,
                     kv_segment_ids: Optional[torch.Tensor] = None,
-                    causal: bool = False, dense: bool = False) -> torch.Tensor:
+                    causal: bool = False, dense: bool = False, qkv_int8: bool = False,
+                    pv_int8: bool = False, block_k: Optional[int] = None) -> torch.Tensor:
     """Attention of q [B, Hq, Sq, Dqk] over k [B, Hkv, Skv, Dqk] and
     v [B, Hkv, Skv, Dv] -> [B, Hq, Sq, Dv].
 
@@ -295,7 +405,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     buffer, so ``out.transpose(1, 2)`` is contiguous. When autograd records
     a graph through q, k or v, the call goes through
     ``FlashAttentionFunction`` (K2-lse, then K3 in the backward); otherwise
-    it is one K2 launch, counted in ``flash_attention.launches[flavour]``."""
+    it is one K2 launch, counted in ``flash_attention.launches[flavour]``.
+
+    qkv_int8 (with pv_int8, block_k) selects K7, ``flash_attention_int8``:
+    the int8 serving tier, inference only, so it raises while autograd
+    records, as the JAX tier has no VJP."""
+    if pv_int8 and not qkv_int8:
+        raise ValueError("flash_attention: pv_int8 rides the qkv_int8 tier")
+    if qkv_int8:
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+            raise ValueError("flash_attention: the int8 tier is inference only (no backward)")
+        return flash_attention_int8(q, k, v, q_segment_ids, kv_segment_ids, causal, dense,
+                                    pv_int8, block_k)
     device = _device_of(q, dense, q_segment_ids, kv_segment_ids)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         return FlashAttentionFunction.apply(q, k, v, q_segment_ids, kv_segment_ids,
@@ -311,3 +432,4 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_attention.launches = dict.fromkeys(FLAVOURS, 0)
 flash_attention_lse.launches = dict.fromkeys(FLAVOURS, 0)
 flash_attention_backward.launches = dict.fromkeys(FLAVOURS, 0)
+flash_attention_int8.launches = dict.fromkeys(INT8_FLAVOURS, 0)

@@ -180,7 +180,7 @@ class GPTrainer:
                  collate: Optional[Callable] = None, resume_from: Optional[str] = None):
         if not cfg.text.remat:
             cfg = dataclasses.replace(cfg, text=dataclasses.replace(cfg.text, remat=True))
-        model.cfg, model.text.cfg = cfg, cfg.text
+        model.set_config(cfg)
         self.cfg, self.model, self.dataset, self.tokenize = cfg, model, dataset, tokenize
         self.tcfg = tcfg or TrainerConfig()
         self.load_image = load_image or _load_rgb

@@ -35,6 +35,8 @@ def test_port_imports_no_jax():
     assert "glimpseprune_torch.ops.cuda.flash_attention" in out["modules"]
     assert "glimpseprune_torch.training.trainer" in out["modules"]
     assert "glimpseprune_torch.persistence" in out["modules"]
+    assert "glimpseprune_torch.quantization" in out["modules"]
+    assert "glimpseprune_torch.ops.cuda.int4_matmul" in out["modules"]
     assert out["jax"] == []
 
 
