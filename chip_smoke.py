@@ -7,8 +7,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
   1. find the card and print its name and power limit;
   2. build the CUDA kernels from glimpseprune_torch/csrc/, one nvcc per
      source, all at once (timed);
-  3. K1, the fused window attention, against its plain version at the 7B
-     ViT shape;
+  3. K1, the fused window attention, and K8, window attention on roped
+     q, k, v, each against its plain version at the 7B ViT's windowed shape
+     (K8 also against K1 run on the same q, k, v, which ropes them a second
+     time and must fail the check);
   4. K2, flash attention, against its plain version at each serving call
      site: ViT dense and segmented, LLM causal GQA, fuser Dqk != Dv;
   5. K2-lse (flash attention with the per-row LSE) and K3 (its backward)
@@ -36,7 +38,18 @@ Phases, each of which raises on failure (the script then exits non-zero):
      on batches (a) and (b). Each run prints its times, peak memory, weight
      and KV-cache bytes and the first logits' distance from the bf16
      model's; each tier ends with its tiny config on the card against the
-     CPU.
+     CPU;
+ 10. the compressed serving path (run after phase 6, before training
+     changes the model): ``generate_compressed`` with each baseline
+     compressor (visionzip, divprune, cdpruner, vscan, pdrop) on batches
+     (a) and (b), with keep counts, prune ratios, times and launch counts
+     (K8 must not launch: no config in configs/ has a windowed block that
+     emits importance); then K8 on the importance path of the same 7B bound
+     to a vision config that is not in configs/, whose last block is
+     windowed (full attention at blocks 7, 15, 23): one launch per ViT
+     call; a two-block tower of that kind on the card against the CPU; and
+     the tiny config's compressed prefill (visionzip, pdrop) on the card
+     against the CPU.
 Every kernel row carries its time, its plain version's time, one PyTorch
 call's time where one computes the same function (``library_ms``: SDPA
 with the same boolean mask, or its autograd backward; a yardstick the port
@@ -66,6 +79,7 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 K1_SRC = "glimpseprune_torch/csrc/window_attention.cu"
 K1_REPLACES = "glimpseprune_tpu/ops/pallas/window_attention.py:133"
+K8_REPLACES = "glimpseprune_tpu/ops/pallas/window_attention.py:198"
 K2_SRC = "glimpseprune_torch/csrc/flash_attention.cu"
 K2_REPLACES = "glimpseprune_tpu/ops/pallas/flash_attention.py:400"
 K2_LSE_REPLACES = "glimpseprune_tpu/ops/pallas/flash_attention.py:208"
@@ -117,6 +131,14 @@ PEAK_INT8_OPS = 1979e12
 PEAK_HBM_BYTES = 3.35e12
 MAX_NEW_TOKENS = 32
 TRAIN_STEPS = 4
+COMPRESSORS = ("visionzip", "divprune", "cdpruner", "vscan", "pdrop")
+COMPRESSED_NEW_TOKENS = 8
+# the image-token budget of divprune, cdpruner and vscan (the papers' 128
+# setting): under every row's image-token count, so each row really prunes
+VISUAL_TOKEN_NUM = 128
+# full attention at three of the 7B's four blocks: the last one is windowed,
+# so its importance goes through K8 (a config that is not in configs/)
+WINDOWED_LAST_FULLATT = (7, 15, 23)
 
 
 def find_card():
@@ -209,6 +231,66 @@ def check_window_attention(cfg, prep, gen):
     return {"name": "window_attention_fused", "route": "cuda", "source": K1_SRC,
             "replaces": K1_REPLACES, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None, "shape": shape}
+
+
+def check_window_attention_unfused(cfg, prep, gen):
+    """K8 at the 7B ViT's windowed shape (q, k, v [P, 16, 80], wp=64) with
+    the batch's padded windows, held relative to its outputs' size as K7 is
+    (bf16 output rounding; K7_MAX_RTOL, K7_RMS_RTOL). Control: K1 on the
+    same q, k, v stacked as its qkv input ropes q and k a second time, and
+    must fail the same check."""
+    import torch
+
+    from glimpseprune_torch.ops.cuda.window_attention import (
+        window_attention,
+        window_attention_fused,
+        window_attention_reference,
+    )
+    from glimpseprune_torch.ops.rope import vision_rope_cos_sin
+
+    v = cfg.vision
+    wp = (v.window_size // v.spatial_merge_size // v.patch_size) ** 2 * v.spatial_merge_unit
+    p = prep.patches.shape[0]
+    q, k, vv = (torch.randn((p, v.num_heads, v.head_dim), generator=gen, device="cuda")
+                .bfloat16() for _ in range(3))
+    valid = torch.as_tensor(prep.vis_valid, device="cuda")
+    got = window_attention(q, k, vv, valid, wp)
+    torch.cuda.synchronize()
+    ref = window_attention_reference(q.float(), k.float(), vv.float(), valid, wp)
+    errs = k7_errors(got, ref)
+    cos, sin = vision_rope_cos_sin(torch.as_tensor(prep.vis_pos_ids, device="cuda"), v.head_dim)
+    control = window_attention_fused(torch.stack([q, k, vv], 1).contiguous(), cos.bfloat16(),
+                                     sin.bfloat16(), valid, wp)
+    control_errs = k7_errors(control, ref)
+    ms = cuda_ms(lambda: window_attention(q, k, vv, valid, wp))
+    plain_ms = cuda_ms(lambda: window_attention_reference(q, k, vv, valid, wp))
+    nw = p // wp
+
+    def windows(t):
+        return t.reshape(nw, wp, v.num_heads, v.head_dim).transpose(1, 2)
+
+    # one SDPA call over the windows with the same mask computes K8's function
+    mask = valid.reshape(nw, 1, 1, wp) | torch.eye(wp, dtype=torch.bool, device="cuda")
+    qw, kw, vw = windows(q), windows(k), windows(vv)
+    lib_ms = cuda_ms(lambda: sdpa(qw, kw, vw, mask))
+    per_window = valid.reshape(-1, wp).sum(1).double()
+    flops = 4.0 * float((per_window ** 2).sum()) * v.num_heads * v.head_dim
+    bound_ms, bound_by = bound(flops, nbytes(q, k, vv, valid, got))
+    shape = f"q/k/v[{p},{v.num_heads},{v.head_dim}] wp={wp} valid={int(valid.sum())}"
+    err = (got.float() - ref).abs().max().item()
+    print(f"K8 window_attention {shape}: max_abs_err={err:.3e} rel_err={errs[0]:.3e} "
+          f"rms_rel_err={errs[1]:.3e}; K1 control (roped twice, max/rms rel) "
+          f"{control_errs[0]:.3e}/{control_errs[1]:.3e}; kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    if not k7_within(errs):
+        raise AssertionError(f"K8 disagrees with its plain version: {errs}")
+    if k7_within(control_errs):
+        raise AssertionError("K8: the check cannot tell roped from twice-roped q and k")
+    return {"name": "window_attention", "route": "cuda", "source": K1_SRC,
+            "replaces": K8_REPLACES, "max_abs_err": err, "rel_err": errs[0],
+            "rms_rel_err": errs[1], "control_rms_rel_err": control_errs[1], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": lib_ms, "shape": shape}
 
 
 def attention_case(gen, b, hq, hkv, s, d_qk, d_v, segs, causal):
@@ -469,9 +551,13 @@ def reset_launches():
         flash_attention_lse,
     )
     from glimpseprune_torch.ops.cuda.int4_matmul import matmul_int4, matmul_int4_prefill
-    from glimpseprune_torch.ops.cuda.window_attention import window_attention_fused
+    from glimpseprune_torch.ops.cuda.window_attention import (
+        window_attention,
+        window_attention_fused,
+    )
 
     window_attention_fused.launches = 0
+    window_attention.launches = 0
     for fn in (flash_attention, flash_attention_lse, flash_attention_backward):
         fn.launches = dict.fromkeys(FLAVOURS, 0)
     flash_attention_int8.launches = dict.fromkeys(INT8_FLAVOURS, 0)
@@ -490,9 +576,13 @@ def read_launches(required):
         flash_attention_lse,
     )
     from glimpseprune_torch.ops.cuda.int4_matmul import matmul_int4, matmul_int4_prefill
-    from glimpseprune_torch.ops.cuda.window_attention import window_attention_fused
+    from glimpseprune_torch.ops.cuda.window_attention import (
+        window_attention,
+        window_attention_fused,
+    )
 
-    launches = {"window_attention_fused": window_attention_fused.launches}
+    launches = {"window_attention_fused": window_attention_fused.launches,
+                "window_attention": window_attention.launches}
     for fn in (flash_attention, flash_attention_lse, flash_attention_backward,
                flash_attention_int8, matmul_int4, matmul_int4_prefill):
         launches.update({f"{fn.__name__}[{k}]": v for k, v in fn.launches.items()})
@@ -583,6 +673,236 @@ def check_small_reference():
     bad = {k: v for k, v in errs.items() if not v <= 0.1}
     if bad:
         raise AssertionError(f"the card disagrees with the CPU reference: {bad}")
+    return errs
+
+
+def compressor_kwargs(method):
+    if method in ("divprune", "cdpruner", "vscan"):
+        return {"visual_token_num": VISUAL_TOKEN_NUM}
+    return {}
+
+
+def expected_kept(method, n_img):
+    """Image tokens each row keeps, from the selectors' static budgets (the
+    ratios multiply in fp32, as in the port and the JAX package)."""
+    f32 = np.float32
+    n = n_img.astype(np.int64)
+    if method == "visionzip":  # dominant top-k plus min(contextual k, the rest)
+        dom = np.maximum((f32(0.65) * n.astype(f32)).astype(np.int64), 1)
+        ctx = np.maximum((f32(0.05) * n.astype(f32)).astype(np.int64), 1)
+        return dom + np.minimum(ctx, n - dom)
+    if method == "pdrop":  # the last stage's ratio
+        return np.maximum((f32(0.125) * n.astype(f32)).astype(np.int64), 1)
+    return np.minimum(VISUAL_TOKEN_NUM, n)
+
+
+def check_compressed(cfg, prep, method, pre, res):
+    """Shapes, finiteness, keep counts, prune ratios and the compaction of
+    one compressed generate."""
+    import torch
+
+    b = prep.input_ids.shape[0]
+    assert pre.logits.shape == (b, 1, cfg.text.vocab_size), pre.logits.shape
+    assert torch.isfinite(pre.logits.float()).all(), f"{method}: non-finite prefill logits"
+    assert res.sequences.shape == (b, COMPRESSED_NEW_TOKENS), res.sequences.shape
+    assert ((res.sequences >= 0) & (res.sequences < cfg.text.vocab_size)).all()
+    kept = pre.kept.cpu().numpy()
+    want = expected_kept(method, prep.n_img_tokens)
+    assert (kept == want).all(), f"{method}: kept {kept.tolist()}, expected {want.tolist()}"
+    if res.keep_img is not None:
+        assert not (res.keep_img & ~prep.img_valid).any(), f"{method}: kept a padding slot"
+        assert (res.keep_img.sum(1) == want).all()
+    assert ((res.prune_ratio > 0) & (res.prune_ratio < 1)).all(), res.prune_ratio
+    le = cfg.gp.le_length if cfg.gp.has_le else 0
+    n_text = prep.valid.sum(1) - prep.n_img_tokens - le
+    assert (pre.valid.sum(1).cpu().numpy() == n_text + kept).all(), \
+        f"{method}: compaction lost tokens"
+
+
+def run_compressed_path(cfg, model, cases, main_runs):
+    """generate_compressed with each compressor on each batch: prefill and
+    decode times, printed beside the same run's pruned and unpruned
+    ``generate`` (main_runs), keep counts, launch counts. K8 must not
+    launch: both of the 7B's importance blocks are full-attention blocks."""
+    import torch
+
+    from glimpseprune_torch.models.qwen2_5_vl.runner import GlimpsePruneRunner
+
+    runner = GlimpsePruneRunner(cfg, model)
+    reset_launches()
+    runs = []
+    for name, prep in cases:
+        for method in COMPRESSORS:
+            kw = compressor_kwargs(method)
+            runner.generate_compressed(prep, method, max_new_tokens=2, **kw)  # warm-up
+            torch.cuda.reset_peak_memory_stats()
+            prefill_ms, pre = timed_ms(lambda: runner.prefill_compressed(prep, method, **kw))
+            decode_ms, _ = timed_ms(lambda: runner._decode_loop(
+                pre.logits, pre.valid, pre.position_ids, pre.kv_k, pre.kv_v,
+                COMPRESSED_NEW_TOKENS, cfg.eos_token_id))
+            res = runner.generate_compressed(prep, method,
+                                             max_new_tokens=COMPRESSED_NEW_TOKENS, **kw)
+            peak = torch.cuda.max_memory_allocated()
+            check_compressed(cfg, prep, method, pre, res)
+            run = {"batch": name, "method": method, "B": int(prep.input_ids.shape[0]),
+                   "prefill_ms": prefill_ms,
+                   "decode_ms_per_token": decode_ms / COMPRESSED_NEW_TOKENS,
+                   "peak_mem_gib": peak / 2**30, "kv_len": int(pre.valid.shape[1]),
+                   "kept_img_tokens": pre.kept.tolist(),
+                   "prune_ratio": [float(x) for x in res.prune_ratio]}
+            print("compressed path " + json.dumps(run))
+            runs.append(run)
+    for name, _ in cases:
+        side = {r["mode"]: r for r in main_runs if r["batch"] == name}
+        side.update({r["method"]: r for r in runs if r["batch"] == name})
+        print(f"batch ({name}) prefill ms / decode ms per token: " + ", ".join(
+            f"{k} {r['prefill_ms']:.1f} / {r['decode_ms_per_token']:.1f}"
+            for k, r in side.items()))
+    torch.cuda.synchronize()
+    launches = read_launches(["window_attention_fused"] + [
+        f"flash_attention[{k}]" for k in ("causal", "dense", "segmented")])
+    print("compressed-path launches " + json.dumps(launches))
+    if launches["window_attention"]:
+        raise AssertionError("K8 launched on the published config, whose importance blocks "
+                             "are full-attention blocks")
+    return runs, launches
+
+
+def windowed_last(cfg, **vision):
+    """cfg with a vision tower whose last block is windowed (not in configs/)."""
+    import dataclasses
+
+    return dataclasses.replace(cfg, vision=dataclasses.replace(
+        cfg.vision, fullatt_block_indexes=WINDOWED_LAST_FULLATT, **vision))
+
+
+def run_importance_variant(cfg, model, prep):
+    """K8 on the importance path: the 7B's weights bound to a vision config
+    whose last block is windowed. One ViT call with emit_importance, then
+    generate_compressed with visionzip and vscan: K8 launches once per ViT
+    call. The model is bound back to cfg afterwards."""
+    import torch
+
+    from glimpseprune_torch.models.qwen2_5_vl.runner import GlimpsePruneRunner
+
+    vcfg = windowed_last(cfg)
+    runner = GlimpsePruneRunner(vcfg, model.set_config(vcfg))
+    inputs = runner._device_inputs(prep)
+    reset_launches()
+    with torch.inference_mode():
+        vit_ms, (merged, _, imp) = timed_ms(lambda: runner._vision(inputs, prep, True))
+    launches = read_launches(["window_attention"])
+    if launches["window_attention"] != 1:
+        raise AssertionError(f"K8 launched {launches['window_attention']} times in one ViT call")
+    n_units = prep.patches.shape[0] // cfg.vision.spatial_merge_unit
+    assert [tuple(t.shape) for t in imp] == [(n_units,), (n_units, cfg.vision.head_dim),
+                                             (n_units,)]
+    assert all(torch.isfinite(t).all() for t in (merged.float(), *imp))
+    record = {"config": f"vision fullatt_block_indexes={WINDOWED_LAST_FULLATT} "
+                        "(not in configs/)", "vit_importance_ms": vit_ms}
+    reset_launches()
+    for method in ("visionzip", "vscan"):
+        kw = compressor_kwargs(method)
+        ms, pre = timed_ms(lambda: runner.prefill_compressed(prep, method, **kw))
+        res = runner.generate_compressed(prep, method, max_new_tokens=COMPRESSED_NEW_TOKENS,
+                                         **kw)
+        check_compressed(vcfg, prep, method, pre, res)
+        record[f"{method}_prefill_ms"] = ms
+    launches = read_launches(["window_attention", "window_attention_fused"])
+    record["launches"] = launches
+    print("importance path, windowed last block " + json.dumps(record))
+    if launches["window_attention"] != 4:  # two prefills, two generates: 4 ViT calls
+        raise AssertionError(f"K8 launched {launches['window_attention']} times in 4 ViT calls")
+    model.set_config(cfg)
+    return record
+
+
+def check_small_importance(cfg, model, prep):
+    """A two-block tower of the 7B's width whose last block is windowed
+    (full attention at block 0; not in configs/), with the 7B's first two
+    blocks' weights, on batch (a) with emit_importance: on the card (bf16,
+    K2 and K8) against the CPU (fp32, the plain versions), relative to the
+    largest magnitude of each output, within the same 10% as the other
+    card-against-CPU checks."""
+    import dataclasses
+
+    import torch
+
+    from glimpseprune_torch.models.qwen2_5_vl.vision import VisionTransformer
+    from glimpseprune_torch.ops.cuda.window_attention import window_attention
+
+    vcfg = dataclasses.replace(cfg.vision, depth=2, fullatt_block_indexes=(0,))
+    tower = VisionTransformer(vcfg)
+    tower.load_state_dict({k: v for k, v in model.visual.state_dict().items()
+                           if not k.startswith("blocks.") or int(k.split(".")[1]) < 2})
+    tower.eval()
+    gpu = copy.deepcopy(tower).to(device="cuda", dtype=torch.bfloat16)
+    args = [torch.as_tensor(a) for a in (prep.patches, prep.vis_pos_ids, prep.full_seg,
+                                         prep.vis_valid)]
+    window_attention.launches = 0
+    with torch.inference_mode():
+        got = gpu(*[a.cuda() for a in args], emit_importance=True)
+        torch.cuda.synchronize()
+        k8 = window_attention.launches
+        t0 = time.perf_counter()
+        ref = tower(*args, emit_importance=True)
+        cpu_s = time.perf_counter() - t0
+    if k8 != 1:
+        raise AssertionError(f"the two-block tower launched K8 {k8} times")
+    unit_valid = torch.as_tensor(prep.vis_valid.reshape(-1, vcfg.spatial_merge_unit)[:, 0])
+    names = ("merged", "received", "keys_mean", "received_local")
+    errs = {}
+    for name, g, r in zip(names, (got[0], *got[2]), (ref[0], *ref[2])):
+        g, r = g.float().cpu()[unit_valid], r.float()[unit_valid]
+        errs[name] = ((g - r).abs().max() / r.abs().max()).item()
+    print(f"two-block tower, last block windowed (not in configs/), card bf16 vs CPU fp32 "
+          f"({cpu_s:.1f} s on the CPU), max error / max |ref|: " + json.dumps(errs))
+    bad = {k: v for k, v in errs.items() if not v <= 0.1}
+    if bad:
+        raise AssertionError(f"the card's importance path disagrees with the CPU: {bad}")
+    return errs
+
+
+def check_small_compressed():
+    """The tiny config's compressed prefill on the card (bf16, the kernels)
+    against the same weights on the CPU (fp32, the plain versions, which the
+    CPU tests hold equal to the JAX runner): visionzip's keep mask and
+    pdrop's compacted ids, positions and valid mask equal, first logits
+    within 10% of their largest magnitude."""
+    import torch
+
+    from glimpseprune_torch.config import tiny_test_config
+    from glimpseprune_torch.convert import init_random
+    from glimpseprune_torch.models.qwen2_5_vl.inputs import prepare_inputs
+    from glimpseprune_torch.models.qwen2_5_vl.runner import GlimpsePruneRunner
+
+    cfg = tiny_test_config()
+    rng = np.random.default_rng(1)
+    images = [rng.integers(0, 255, (64, 96, 3), dtype=np.uint8),
+              rng.integers(0, 255, (56, 56, 3), dtype=np.uint8)]
+    prep = prepare_inputs(cfg, make_prompts(cfg, rng, 2, 5, 400, (3, 6)), images,
+                          seq_multiple=8, patch_multiple=16)
+    cpu_model = init_random(cfg, seed=1, device="cpu", dtype=torch.float32)
+    gpu_model = copy.deepcopy(cpu_model).to(device="cuda", dtype=torch.bfloat16)
+    ref_run, got_run = GlimpsePruneRunner(cfg, cpu_model), GlimpsePruneRunner(cfg, gpu_model)
+    errs = {}
+    for method, kw in (("visionzip", {}), ("pdrop", {"stages": ((1, 0.5), (2, 0.25))})):
+        ref = ref_run.prefill_compressed(prep, method, **kw)
+        got = got_run.prefill_compressed(prep, method, **kw)
+        if method == "visionzip":
+            same = torch.equal(got.keep_img.cpu(), ref.keep_img)
+        else:
+            same = all(torch.equal(getattr(got, f).cpu(), getattr(ref, f))
+                       for f in ("input_ids", "position_ids", "valid"))
+        if not same:
+            raise AssertionError(f"tiny {method}: the card kept other image tokens than the CPU")
+        errs[method] = ((got.logits.float().cpu() - ref.logits).abs().max()
+                        / ref.logits.abs().max()).item()
+    print("tiny config compressed prefill, card bf16 vs CPU fp32, equal keep sets, first "
+          "logits max error / max |ref|: " + json.dumps(errs))
+    bad = {k: v for k, v in errs.items() if not v <= 0.1}
+    if bad:
+        raise AssertionError(f"the card's compressed prefill disagrees with the CPU: {bad}")
     return errs
 
 
@@ -1074,6 +1394,7 @@ def main() -> int:
     prep_b = prepare_inputs(cfg, make_prompts(cfg, rng, 1, lo, hi), images[:1])
     gen = torch.Generator(device="cuda").manual_seed(0)
     kernels = [check_window_attention(cfg, prep_a, gen)]
+    k8_row = check_window_attention_unfused(cfg, prep_a, gen)
     kernels += check_flash_attention(cfg, prep_a, prep_b, gen)
 
     t0 = time.perf_counter()
@@ -1084,6 +1405,20 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s, {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     runs, serve_launches = run_main_path(cfg, model, [("a", prep_a), ("b", prep_b)])
     small = check_small_reference()
+
+    # phase 10: the compressed serving path, before training changes the model
+    t_comp = time.perf_counter()
+    compressed_runs, compressed_launches = run_compressed_path(
+        cfg, model, [("a", prep_a), ("b", prep_b)], runs)
+    importance_variant = run_importance_variant(cfg, model, prep_a)
+    k8_row["launches"] = importance_variant["launches"]["window_attention"]
+    k8_row["launches_7b_compressed"] = compressed_launches["window_attention"]
+    k8_row["note"] = (f"launches: the importance path of a vision config with full attention "
+                      f"at {WINDOWED_LAST_FULLATT} (not in configs/), 4 ViT calls; 0 on the "
+                      "published 7B's compressed path")
+    small_importance = check_small_importance(cfg, model, prep_a)
+    small_compressed = check_small_compressed()
+    compressed_s = time.perf_counter() - t_comp
 
     work = ROOT / "build" / "chip_smoke_train"
     trainer = make_trainer(cfg, model, work)
@@ -1120,6 +1455,7 @@ def main() -> int:
                                                        "flash_attention_backward")) else \
             serve_launches
         k["launches"] = path[k["name"]]
+    kernels.insert(1, k8_row)
     off_path = {  # why a checked flavour has no launch on the (q4) path
         "matmul_int4_prefill[a16": "no shape routes W4A16 (JAX int4_matmul.py:268)",
         "flash_attention_int8[causal": "q4 runs int8 attention in the ViT only",
@@ -1135,6 +1471,12 @@ def main() -> int:
                       "training_launches": train_launches, "quantized_runs": quant_runs,
                       "quantized_launches": quant_launches, "quantized_path_s": quant_s,
                       "tiny_quantized_err": small_quant,
+                      "compressed_runs": compressed_runs,
+                      "compressed_launches": compressed_launches,
+                      "importance_variant": importance_variant,
+                      "importance_tower_err": small_importance,
+                      "tiny_compressed_err": small_compressed,
+                      "compressed_path_s": compressed_s,
                       "total_s": time.perf_counter() - t_start}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -5,9 +5,11 @@ Counterpart of glimpseprune_tpu/models/qwen2_5_vl/gp_model.py:
 ``vision_encode``, ``_le_vectors_all`` :166, ``_le_geometry`` :181,
 ``glimpse_encode`` :191 (with its training outputs: every fuser layer's
 logits and the answer loss ``le_loss``, :269-285), ``reduce_and_resume``
-:341, ``glimpse_prefill`` :417, ``vanilla_prefill`` :516 and
-``embed_with_images`` :704. The row scatters and gathers (:88-115) are index
-operations here, not the JAX package's one-hot matmuls.
+:341, ``glimpse_prefill`` :417, the baseline compressors' staged in-LLM
+drop ``staged_prefill`` :427 and full-depth ``prefill_embeds`` :595,
+``vanilla_prefill`` :516 and ``embed_with_images`` :704. The row scatters
+and gathers (:88-115) are index operations here, not the JAX package's
+one-hot matmuls.
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ from glimpseprune_torch.ops.compaction import (
     gather_positions,
     gather_tokens,
 )
-from glimpseprune_torch.ops.keep_policy import keep_scores_with_policy
+from glimpseprune_torch.ops.keep_policy import descending_rank, keep_scores_with_policy
 from glimpseprune_torch.ops.rope import mrope_cos_sin
 
 
@@ -126,9 +128,12 @@ class Qwen2_5_VL_GP(nn.Module):
 
     # ---- vision
 
-    def vision_encode(self, patches, pos_ids, full_seg, vis_valid, dense_attn: bool = False):
-        """Window-padded packed patches -> (merged embeds, taps) in slot order."""
-        return self.visual(patches, pos_ids, full_seg, vis_valid, dense_attn=dense_attn)
+    def vision_encode(self, patches, pos_ids, full_seg, vis_valid, dense_attn: bool = False,
+                      emit_importance: bool = False):
+        """Window-padded packed patches -> (merged embeds, taps[, importance])
+        in slot order; importance as in ``VisionTransformer.forward``."""
+        return self.visual(patches, pos_ids, full_seg, vis_valid, dense_attn=dense_attn,
+                           emit_importance=emit_importance)
 
     # ---- glimpse embeddings
 
@@ -262,6 +267,62 @@ class Qwen2_5_VL_GP(nn.Module):
     def glimpse_prefill(self, out_len: int, anchor_mask=None, **encode_kwargs) -> GlimpseOutputs:
         mask_logits, state, _ = self.glimpse_encode(**encode_kwargs)
         return self.reduce_and_resume(state, mask_logits, out_len, anchor_mask)
+
+    # ---- staged in-LLM dropping (PyramidDrop) and compressed sequences
+
+    def staged_prefill(self, input_ids, valid, position_ids, image_embeds, packed_idx,
+                       img_slots, img_valid, stages: Sequence, out_lens: Sequence[int]):
+        """Text-guided staged image-token dropping (compressors/staged.py).
+
+        At each (layer, ratio) stage: run the layers up to it, harvest the
+        last token's attention row at that layer, keep the top
+        max(int(ratio * n_img), 1) image tokens of each row, and compact the
+        hidden state and the KV accumulated so far to out_len slots. Returns
+        (logits [B, 1, V], ids, valid, position_ids, kv_k, kv_v, is_img) on
+        the final compacted geometry."""
+        c = self.cfg
+        b = input_ids.shape[0]
+        x = self.embed_with_images(input_ids, image_embeds, packed_idx, img_slots, img_valid)
+        is_img = _scatter_rows(torch.zeros_like(valid), img_slots, img_valid, img_valid)
+        pos = position_ids
+        ks, vs = [], []
+        cursor = 0
+        n_img0 = img_valid.sum(-1)
+        for (stage_layer, ratio), out_len in zip(stages, out_lens):
+            cos, sin = self._cos_sin(pos)
+            q_index = torch.full((b,), x.shape[1] - 1, dtype=torch.long, device=x.device)
+            x, (k_seg, v_seg), harv = self.text.run_layers(
+                x, cos, sin, valid, layer_start=cursor, layer_end=stage_layer,
+                harvest_layers=(stage_layer,), q_index=q_index, use_attention_logits=False)
+            ks.append(k_seg)
+            vs.append(v_seg)
+            cursor = stage_layer + 1
+            probs = harv[stage_layer].float().exp().mean(-1)  # [B, S]
+            rank = descending_rank(probs, is_img & valid)
+            k_keep = (ratio * n_img0).to(torch.int32).clamp(min=1)
+            keep = (valid & ~is_img) | ((rank < k_keep[:, None]) & is_img & valid)
+            plan = compaction_indices(keep, out_len)
+            x = gather_tokens(x, plan)
+            input_ids = gather_tokens(input_ids, plan, fill=c.pad_token_id)
+            pos = gather_positions(pos, plan)
+            is_img = gather_tokens(is_img, plan, fill=False)
+            valid = plan.valid
+            ks = [gather_kv(torch.cat(ks), plan)]
+            vs = [gather_kv(torch.cat(vs), plan)]
+        if cursor < c.text.num_hidden_layers:
+            cos, sin = self._cos_sin(pos)
+            x, (k_seg, v_seg), _ = self.text.run_layers(x, cos, sin, valid, layer_start=cursor)
+            ks.append(k_seg)
+            vs.append(v_seg)
+        logits = self.text.logits(self.text.final_norm(x[:, -1:]))
+        return logits, input_ids, valid, pos, torch.cat(ks), torch.cat(vs), is_img
+
+    def prefill_embeds(self, embeds, valid, position_ids):
+        """Full-depth prefill over precomputed embeddings (a compressed
+        sequence) -> (last position's logits, kv_k, kv_v)."""
+        cos, sin = self._cos_sin(position_ids)
+        x, (kv_k, kv_v), _ = self.text.run_layers(embeds, cos, sin, valid)
+        return self.text.logits(self.text.final_norm(x[:, -1:])), kv_k, kv_v
 
     # ---- the unpruned comparator
 

@@ -1,12 +1,14 @@
-"""The user-facing runner: pruned and unpruned greedy generation.
+"""The user-facing runner: pruned and unpruned greedy generation, and the
+baseline compressors.
 
 Counterpart of glimpseprune_tpu/models/qwen2_5_vl/runner.py
-(``GlimpsePruneRunner.__init__`` / ``glimpse`` / ``generate`` :437-936 and
+(``GlimpsePruneRunner.__init__`` / ``glimpse`` / ``generate`` :437-936,
 ``_decode_loop`` / ``_run_decode`` / ``_trim_eos`` / ``_first_stop_match``
-:1053-1190). The JAX package decodes in jitted ``lax.scan`` chunks
-(``gp_model.decode_chunk``); here the decode is a plain Python loop over
-steps and layers, with the early-exit check between chunks of steps so the
-host syncs once per chunk.
+:1053-1190, and ``generate_compressed`` :1243 with the bodies of
+``_staged_impl`` :525 and ``_pre_llm_compress_impl`` :542). The JAX
+package decodes in jitted ``lax.scan`` chunks (``gp_model.decode_chunk``);
+here the decode is a plain Python loop over steps and layers, with the
+early-exit check between chunks of steps so the host syncs once per chunk.
 
 The runner's config must be the model's, as the JAX runner builds its
 model from its config: the model is bound to a config once (built from it,
@@ -27,15 +29,36 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import NamedTuple, Optional, Sequence
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from glimpseprune_torch.compressors import (
+    cdpruner_select,
+    divprune_select,
+    staged_drop_schedule,
+    visionzip_select,
+)
+from glimpseprune_torch.compressors.vscan import merge_dropped_into_kept, vscan_select
 from glimpseprune_torch.config import ModelConfig
-from glimpseprune_torch.models.qwen2_5_vl.gp_model import GlimpseOutputs, Qwen2_5_VL_GP
-from glimpseprune_torch.models.qwen2_5_vl.inputs import PreparedInputs, _vis_dense_hint
+from glimpseprune_torch.models.qwen2_5_vl.gp_model import (
+    GlimpseOutputs,
+    Qwen2_5_VL_GP,
+    _gather_packed,
+    _scatter_rows,
+)
+from glimpseprune_torch.models.qwen2_5_vl.inputs import (
+    PreparedInputs,
+    _round_up,
+    _vis_dense_hint,
+)
 from glimpseprune_torch.models.layers import QuantLinear
+from glimpseprune_torch.ops.compaction import (
+    compaction_indices,
+    gather_positions,
+    gather_tokens,
+)
 from glimpseprune_torch.ops.kv_cache import alloc_cache, cache_set_prefix
 
 DECODE_CHUNK = 32  # decode steps between host-side eos / stop-sequence checks
@@ -58,6 +81,20 @@ class PrefillResult(NamedTuple):
     kv_v: torch.Tensor
     keep_img: Optional[torch.Tensor]     # [B, N], pruned prefill only
     mask_logits: Optional[torch.Tensor]  # [n_out, B, N], pruned prefill only
+
+
+class CompressedPrefill(NamedTuple):
+    logits: torch.Tensor          # [B, 1, V] at the last position
+    input_ids: torch.Tensor       # [B, R] the compressed sequence's ids
+    valid: torch.Tensor           # [B, R]
+    position_ids: torch.Tensor    # [3, B, R]
+    kv_k: torch.Tensor            # [L, B, R, Hkv, D]
+    kv_v: torch.Tensor
+    keep_img: Optional[torch.Tensor]  # [B, N]; None for pdrop (drops inside the LLM)
+    kept: torch.Tensor            # [B] image tokens that reach the last layer
+
+
+COMPRESSION_METHODS = ("visionzip", "divprune", "cdpruner", "vscan", "pdrop")
 
 
 def _weight_tier(module: torch.nn.Module) -> str:
@@ -158,15 +195,20 @@ class GlimpsePruneRunner:
             "fuser_reverse_index": t(prep.fuser.reverse_index),
             "fuser_segment_ids": t(prep.fuser.segment_ids, torch.int32),
             "fuser_pos_ids": t(prep.fuser.pos_ids),
+            # each row's first image's merged (h, w), for VScan's windows
+            "grid_hw": t(np.array([r[0] for r in prep.grid_hw_rows])
+                         if prep.grid_hw_rows
+                         else np.stack([prep.grids[:, 1], prep.grids[:, 2]], axis=-1) // 2),
         }
         d["le_start"] = None if prep.le_start is None else t(prep.le_start)
         d["anchor_mask"] = None if prep.anchor_mask is None else t(prep.anchor_mask, torch.bool)
         return d
 
-    def _vision(self, inputs: dict, prep: PreparedInputs):
+    def _vision(self, inputs: dict, prep: PreparedInputs, emit_importance: bool = False):
         return self.model.vision_encode(inputs["patches"], inputs["vis_pos_ids"],
                                         inputs["full_seg"], inputs["vis_valid"],
-                                        dense_attn=_vis_dense_hint(prep))
+                                        dense_attn=_vis_dense_hint(prep),
+                                        emit_importance=emit_importance)
 
     @torch.inference_mode()
     def glimpse(self, prep: PreparedInputs) -> GlimpseOutputs:
@@ -225,6 +267,132 @@ class GlimpsePruneRunner:
             prune_ratio = 1.0 - keep_img.sum(1) / np.maximum(prep.n_img_tokens, 1)
         return GenerateResult(sequences=seqs, num_generated=n_gen, keep_img=keep_img,
                               mask_logits=mask_logits, prune_ratio=prune_ratio)
+
+    @torch.inference_mode()
+    def prefill_compressed(
+        self, prep: PreparedInputs, method: str, visual_token_num: Optional[int] = None,
+        dominant_ratio: float = 0.65, contextual_ratio: float = 0.05,
+        stages: Tuple[Tuple[int, float], ...] = ((8, 0.5), (16, 0.25), (24, 0.125)),
+        clip_text_ids=None,
+    ) -> CompressedPrefill:
+        """The prefill of a baseline compressor (JAX :1243-1326): visionzip,
+        divprune, cdpruner and vscan select image tokens before the LLM and
+        prefill the compressed sequence; pdrop drops them inside it at the
+        ``stages`` (layer, keep ratio). The glimpse tokens are stripped:
+        compressors run without them."""
+        if method not in COMPRESSION_METHODS:
+            raise ValueError(f"unknown compressor {method!r}; one of {COMPRESSION_METHODS}")
+        if clip_text_ids is not None:
+            raise ValueError("clip_text_ids (CDPruner's CLIP-text relevance) needs the LLaVA "
+                             "model, which is not ported to the torch runner")
+        cfg = self.cfg
+        inputs = self._device_inputs(prep)
+        le_len = cfg.gp.le_length if cfg.gp.has_le else 0
+        if le_len:  # the glimpse slots are trailing
+            inputs["input_ids"] = inputs["input_ids"][:, :-le_len]
+            inputs["valid"] = inputs["valid"][:, :-le_len]
+            inputs["position_ids"] = inputs["position_ids"][:, :, :-le_len]
+        s = int(inputs["input_ids"].shape[1])
+        seq_mult = 64 if prep.input_ids.shape[1] % 64 == 0 else 8
+        if method == "pdrop":
+            stages = tuple((l, r) for l, r in stages if l < cfg.text.num_hidden_layers)
+            out_lens = staged_drop_schedule(int(prep.n_img_tokens.max()), s, stages,
+                                            round_to=seq_mult)
+            merged, _ = self._vision(inputs, prep)
+            logits, ids, valid, pos, kv_k, kv_v, is_img = self.model.staged_prefill(
+                inputs["input_ids"], inputs["valid"], inputs["position_ids"], merged,
+                inputs["packed_idx"], inputs["img_slots"], inputs["img_valid"], stages,
+                out_lens)
+            return CompressedPrefill(logits, ids, valid, pos, kv_k, kv_v, None,
+                                     is_img.sum(-1))
+        n = prep.img_valid.shape[1]
+        if method == "vscan":
+            keep_budget = visual_token_num or max(int(0.222 * n), 2)
+        else:
+            keep_budget = visual_token_num or max(int((dominant_ratio + contextual_ratio) * n)
+                                                  + 2, 1)
+        out_len = _round_up(s - int(prep.n_img_tokens.min()) + min(keep_budget, n), seq_mult)
+        out_len = min(out_len, s)
+        return self._pre_llm_compress(inputs, prep, method, keep_budget, out_len,
+                                      dominant_ratio, contextual_ratio)
+
+    def _pre_llm_compress(self, inputs: dict, prep: PreparedInputs, method: str, k: int,
+                          out_len: int, dominant_ratio: float,
+                          contextual_ratio: float) -> CompressedPrefill:
+        """Select image tokens before the LLM, compact, prefill (JAX
+        :542-663). CDPruner's relevance is the negated cosine similarity of
+        each image token to the mean text-token embedding (JAX :624-641)."""
+        model = self.model
+        input_ids, valid = inputs["input_ids"], inputs["valid"]
+        packed_idx, img_slots, img_valid = (inputs["packed_idx"], inputs["img_slots"],
+                                            inputs["img_valid"])
+
+        def rows_of(packed):  # packed [Pm] or [Pm, D] -> [B, N] or [B, N, D]
+            if packed.ndim == 1:
+                return _gather_packed(packed[:, None], packed_idx, img_valid)[..., 0]
+            return _gather_packed(packed, packed_idx, img_valid)
+
+        vis = self._vision(inputs, prep, emit_importance=method in ("visionzip", "vscan"))
+        rows = rows_of(vis[0])
+        is_img = _scatter_rows(torch.zeros_like(valid), img_slots, img_valid, img_valid)
+        if method == "visionzip":
+            received, keys_mean, _ = vis[2]
+            keep_img, rows = visionzip_select(rows, rows_of(received), rows_of(keys_mean),
+                                              img_valid, dominant_ratio, contextual_ratio)
+        elif method == "vscan":
+            received, _, received_local = vis[2]
+            keep_img = vscan_select(rows_of(received_local), rows_of(received), img_valid,
+                                    inputs["grid_hw"], k)
+            rows = merge_dropped_into_kept(rows, keep_img, img_valid)
+        elif method == "divprune":
+            keep_img = divprune_select(rows, img_valid, k)
+        else:  # cdpruner
+            embeds0 = model.text.embed(input_ids)
+            text_mask = (valid & ~is_img)[..., None]
+            text_mean = (embeds0 * text_mask).sum(1) / text_mask.sum(1).clamp(min=1)
+            rn = rows / torch.linalg.vector_norm(rows.float(), dim=-1,
+                                                 keepdim=True).clamp(min=1e-8)
+            tn = text_mean / torch.linalg.vector_norm(text_mean.float(), dim=-1,
+                                                      keepdim=True).clamp(min=1e-8)
+            relevance = -torch.einsum("bnd,bd->bn", rn.float(), tn.float())
+            keep_img = cdpruner_select(rows, relevance, img_valid, k)
+
+        embeds = _scatter_rows(model.text.embed(input_ids), img_slots, rows, img_valid)
+        keep = (valid & ~is_img) | _scatter_rows(torch.zeros_like(valid), img_slots, keep_img,
+                                                 img_valid)
+        plan = compaction_indices(keep, out_len)
+        r_ids = gather_tokens(input_ids, plan, fill=self.cfg.pad_token_id)
+        r_pos = gather_positions(inputs["position_ids"], plan)
+        logits, kv_k, kv_v = model.prefill_embeds(gather_tokens(embeds, plan), plan.valid,
+                                                  r_pos)
+        return CompressedPrefill(logits, r_ids, plan.valid, r_pos, kv_k, kv_v, keep_img,
+                                 keep_img.sum(-1))
+
+    @torch.inference_mode()
+    def generate_compressed(
+        self, prep: PreparedInputs, method: str, max_new_tokens: int = 128,
+        visual_token_num: Optional[int] = None, dominant_ratio: float = 0.65,
+        contextual_ratio: float = 0.05,
+        stages: Tuple[Tuple[int, float], ...] = ((8, 0.5), (16, 0.25), (24, 0.125)),
+        eos_token_id: Optional[int] = None, clip_text_ids=None,
+        stop_sequences: Optional[Sequence[Sequence[int]]] = None,
+    ) -> GenerateResult:
+        """Run a baseline compressor end to end with greedy decoding:
+        visionzip / divprune / cdpruner / vscan prune before the LLM, pdrop
+        prunes inside it. visual_token_num is the image-token budget of
+        divprune, cdpruner and vscan; clip_text_ids (the LLaVA model's
+        CLIP-text relevance for CDPruner) is refused until LLaVA is ported."""
+        eos = self.cfg.eos_token_id if eos_token_id is None else eos_token_id
+        pre = self.prefill_compressed(prep, method, visual_token_num, dominant_ratio,
+                                      contextual_ratio, stages, clip_text_ids)
+        seqs, n_gen = self._decode_loop(pre.logits, pre.valid, pre.position_ids, pre.kv_k,
+                                        pre.kv_v, max_new_tokens, eos, stop_sequences)
+        kept = pre.kept.cpu().numpy()
+        return GenerateResult(
+            sequences=seqs, num_generated=n_gen,
+            keep_img=None if pre.keep_img is None else pre.keep_img.cpu().numpy(),
+            mask_logits=None,
+            prune_ratio=1.0 - kept / np.maximum(prep.n_img_tokens, 1))
 
     def _decode_loop(self, logits, r_valid, r_pos, kv_k, kv_v, max_new_tokens, eos,
                      stop_sequences=None):

@@ -2,9 +2,11 @@
 the LLM's causal prefill, and decode over a KV cache.
 
 Counterparts of glimpseprune_tpu/ops/attention.py. Prefill attention goes
-through the two CUDA kernels (ops/cuda/), which take their plain PyTorch
-versions on CPU tensors. Both follow the kernel's semantics on every
-device: a query row with no allowed key outputs 0, where the JAX package's
+through the CUDA kernels (ops/cuda/): K2 for segment and causal attention,
+K1 for the fused rope + window attention, K8 for window attention on
+already-roped q, k, v; each takes its plain PyTorch version on CPU tensors.
+Segment and causal attention follow K2's semantics on every device: a
+query row with no allowed key outputs 0, where the JAX package's
 XLA paths let such padding rows attend to themselves. Padding rows never
 reach a valid output, so the two agree on every valid row.
 The int8 serving tier (``int8_qk``, ``int8_pv``) goes through K7, the
@@ -18,7 +20,10 @@ from __future__ import annotations
 import torch
 
 from glimpseprune_torch.ops.cuda.flash_attention import flash_attention
-from glimpseprune_torch.ops.cuda.window_attention import window_attention_fused
+from glimpseprune_torch.ops.cuda.window_attention import (
+    window_attention,
+    window_attention_fused,
+)
 from glimpseprune_torch.ops.kv_cache import Cache, is_quantized
 
 NEG_INF = -1e30
@@ -38,6 +43,14 @@ def segment_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           v.transpose(0, 1)[None], seg, seg, dense=dense,
                           qkv_int8=int8_qk, pv_int8=int8_qk and int8_pv)
     return out[0].transpose(0, 1)
+
+
+def batched_window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             valid: torch.Tensor, wp: int) -> torch.Tensor:
+    """Attention within fixed windows of wp patches (the JAX :268-317):
+    q/k/v [P, H, D] with rope applied, valid [P] -> [P, H, D]. Pad slots
+    attend to themselves, so every row is defined."""
+    return window_attention(q.contiguous(), k.contiguous(), v.contiguous(), valid, wp)
 
 
 def fused_window_attention(qkv: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,

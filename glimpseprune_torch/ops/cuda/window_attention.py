@@ -1,9 +1,14 @@
-"""K1: fused rope + window attention for the ViT's windowed blocks.
+"""K1 and K8: attention inside the ViT's 64-patch windows.
 
-Replaces the Pallas kernel ``window_attention_fused``
+K1 (``window_attention_fused``) fuses rope into the attention and replaces
+the Pallas kernel ``window_attention_fused``
 (glimpseprune_tpu/ops/pallas/window_attention.py:133, body ``_fused_kernel``
-:55). The CUDA source is ``glimpseprune_torch/csrc/window_attention.cu``;
-its header says what bounds it on the H100 and how the design answers.
+:55). K8 (``window_attention``) attends on q, k, v that already carry rope
+and replaces the Pallas kernel ``window_attention`` (:198, body ``_kernel``
+:31); the ViT takes it only in a windowed block that emits importance. Both
+are entry points of ``glimpseprune_torch/csrc/window_attention.cu`` over
+one kernel body, whose header says what bounds it on the H100 and how the
+design answers.
 
 The Pallas version merges W=2 windows per grid step, which was TPU tuning;
 here one block handles one (window, head) pair, so the grouping question
@@ -92,3 +97,60 @@ def window_attention_fused(qkv: torch.Tensor, cos: torch.Tensor,
 
 
 window_attention_fused.launches = 0
+
+
+def window_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                               valid: torch.Tensor, wp: int) -> torch.Tensor:
+    """Plain version of K8: fp32 math from the given inputs, output in q's
+    dtype. q/k/v [P, H, D] with rope applied; valid [P] bool; P = n_win*wp.
+    As the Pallas ``_kernel``: q scaled by 1/sqrt(D), keys masked to the
+    window's valid keys plus the diagonal, softmax, then PV."""
+    p, h, d = q.shape
+    nw = p // wp
+
+    def windows(t):
+        return t.float().reshape(nw, wp, h, d).transpose(1, 2)  # [nw, H, wp, D]
+
+    scores = (windows(q) * (1.0 / d ** 0.5)) @ windows(k).transpose(-1, -2)
+    eye = torch.eye(wp, dtype=torch.bool, device=q.device)
+    allowed = valid.reshape(nw, 1, 1, wp) | eye
+    probs = torch.softmax(scores.masked_fill(~allowed, NEG_INF), dim=-1)
+    out = probs @ windows(v)
+    return out.transpose(1, 2).reshape(p, h, d).to(q.dtype)
+
+
+def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     valid: torch.Tensor, wp: int) -> torch.Tensor:
+    """Attention inside each window of ``wp`` patches on roped q, k, v
+    [P, H, D] -> [P, H, D]. ``window_attention.launches`` counts kernel
+    launches."""
+    if q.device.type == "cpu":
+        return window_attention_reference(q, k, v, valid, wp)
+    if q.device.type != "cuda":
+        raise ValueError(f"window_attention: unsupported device {q.device}")
+    p, h, d = q.shape
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.shape != (p, h, d) or t.dtype != torch.bfloat16 or not t.is_contiguous() \
+                or t.device != q.device:
+            raise ValueError(f"window_attention: {name} must be contiguous bf16 [P, H, D] "
+                             "on q's device")
+    if not 0 < wp <= MAX_WP or p % wp or d > MAX_DIM:
+        raise ValueError(f"window_attention: unsupported wp={wp}, P={p}, D={d}")
+    if valid.shape != (p,) or valid.dtype != torch.bool or not valid.is_contiguous() \
+            or valid.device != q.device:
+        raise ValueError("window_attention: valid must be contiguous bool [P]")
+    out = torch.empty((p, h, d), dtype=q.dtype, device=q.device)
+    if p == 0:
+        return out
+    fn = load_library("window_attention").window_attention_bf16
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(), out.data_ptr(),
+            p, h, d, wp, stream)
+    check_launch(rc, "window_attention")
+    window_attention.launches += 1
+    return out
+
+
+window_attention.launches = 0

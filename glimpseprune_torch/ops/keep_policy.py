@@ -18,7 +18,7 @@ from typing import Optional
 import torch
 
 
-def _descending_rank(scores: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+def descending_rank(scores: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     """Per-row rank (0 = largest) among valid entries; invalid entries rank
     after all valid ones. Ties are broken by position (stable sort)."""
     neg = torch.where(valid, scores, torch.full_like(scores, -float("inf")))
@@ -34,7 +34,7 @@ def keep_scores_with_policy(probs: torch.Tensor, valid: torch.Tensor, threshold:
     probs = probs.float()
     keep = (probs > threshold) & valid
     n_valid = valid.sum(-1, keepdim=True)
-    rank = _descending_rank(probs, valid)
+    rank = descending_rank(probs, valid)
     if max_remain_ratio is not None:
         cap = torch.floor(max_remain_ratio * n_valid.float()).long()
         over = keep.sum(-1, keepdim=True) > cap

@@ -37,6 +37,10 @@ def test_port_imports_no_jax():
     assert "glimpseprune_torch.persistence" in out["modules"]
     assert "glimpseprune_torch.quantization" in out["modules"]
     assert "glimpseprune_torch.ops.cuda.int4_matmul" in out["modules"]
+    for name in ("compressors", "compressors.visionzip", "compressors.divprune",
+                 "compressors.cdpruner", "compressors.vscan", "compressors.staged",
+                 "ops.cuda.window_attention"):
+        assert f"glimpseprune_torch.{name}" in out["modules"]
     assert out["jax"] == []
 
 
