@@ -49,7 +49,20 @@ Phases, each of which raises on failure (the script then exits non-zero):
      windowed (full attention at blocks 7, 15, 23): one launch per ViT
      call; a two-block tower of that kind on the card against the CPU; and
      the tiny config's compressed prefill (visionzip, pdrop) on the card
-     against the CPU.
+     against the CPU;
+ 11. sequence parallelism: K9 (the flash kernel's q_positions flavours:
+     forward, LSE, backward, int8) on batch (a)'s causal shape with the q
+     rows cut into 2 and 4 shards and one unaligned shard, against its plain
+     versions and the monolithic K2 / K2-lse / K3 / K7 (with a control that
+     must fail); then SP_WORLD ranks on this one card over gloo, started by
+     the port's launcher, each building the 7B from seed 0 (checked by a
+     checksum all-gather): SP generate pruned and unpruned on batches (a)
+     and (b) against rank 0's single-process run (first-logit and mask-logit
+     distance, keep counts, tokens, K9 launches per prefill by the
+     per-call-site rule), the training batch's gradients under SP against
+     one process and two SP train steps, one SP (q8) generate with the text
+     attention in int8 (K9-int8), and the tiny config under SP on the card
+     against the CPU; times from CUDA events and peaks per rank.
 Every kernel row carries its time, its plain version's time, one PyTorch
 call's time where one computes the same function (``library_ms``: SDPA
 with the same boolean mask, or its autograd backward; a yardstick the port
@@ -91,6 +104,10 @@ K56_REPLACES = "glimpseprune_tpu/ops/pallas/int4_matmul.py:283"
 K7_REPLACES = {"dense": "glimpseprune_tpu/ops/pallas/flash_attention.py:200",
                "segmented": "glimpseprune_tpu/ops/pallas/flash_attention.py:175",
                "causal": "glimpseprune_tpu/ops/pallas/flash_attention.py:175"}
+K9_REPLACES = {"flash_attention": "glimpseprune_tpu/ops/pallas/flash_attention.py:183",
+               "flash_attention_lse": "glimpseprune_tpu/ops/pallas/flash_attention.py:216",
+               "flash_attention_backward": "glimpseprune_tpu/ops/pallas/flash_attention.py:341",
+               "flash_attention_int8": "glimpseprune_tpu/ops/pallas/flash_attention.py:191"}
 KERNEL_LIBS = ("window_attention", "flash_attention", "flash_attention_bwd", "int4_matmul")
 # Kernels run in bf16 and their plain versions in fp32 from the same bf16
 # inputs, so the two differ by the kernel's bf16 output rounding (half an
@@ -129,6 +146,9 @@ K7_RMS_RTOL = 2 ** -8
 PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
 PEAK_HBM_BYTES = 3.35e12
+# sequence parallelism on the one card: two ranks over gloo (NCCL refuses
+# two ranks on one device)
+SP_WORLD = 2
 MAX_NEW_TOKENS = 32
 TRAIN_STEPS = 4
 COMPRESSORS = ("visionzip", "divprune", "cdpruner", "vscan", "pdrop")
@@ -638,38 +658,49 @@ def run_main_path(cfg, model, cases):
     return runs, launches
 
 
-def check_small_reference():
+def check_small_reference(sp_group=None):
     """The tiny config on the card (bf16, the kernels) against the same
     weights on the CPU (fp32, the plain versions, which the CPU tests hold
     equal to the JAX package): first logits of the unpruned prefill and mask
     logits of the pruned one, relative to their largest magnitude. The bound
     catches a wrong path; bf16 rounding through the tiny model stays far
-    below it."""
+    below it. With ``sp_group`` the card runs under sequence parallelism
+    over it (the patches padded to 64 so that the ViT's windows divide over
+    2 ranks), the CPU unsharded."""
+    import contextlib
+
     import torch
 
     from glimpseprune_torch.config import tiny_test_config
     from glimpseprune_torch.convert import init_random
     from glimpseprune_torch.models.qwen2_5_vl.inputs import prepare_inputs
     from glimpseprune_torch.models.qwen2_5_vl.runner import GlimpsePruneRunner
+    from glimpseprune_torch.parallel import sequence_parallel
 
     cfg = tiny_test_config()
     rng = np.random.default_rng(1)
     images = [rng.integers(0, 255, (64, 96, 3), dtype=np.uint8),
               rng.integers(0, 255, (56, 56, 3), dtype=np.uint8)]
     prep = prepare_inputs(cfg, make_prompts(cfg, rng, 2, 5, 400, (3, 6)), images,
-                          seq_multiple=8, patch_multiple=16)
+                          seq_multiple=8, patch_multiple=16 if sp_group is None else 64)
     cpu_model = init_random(cfg, seed=1, device="cpu", dtype=torch.float32)
     gpu_model = copy.deepcopy(cpu_model).to(device="cuda", dtype=torch.bfloat16)
     ref_run, got_run = GlimpsePruneRunner(cfg, cpu_model), GlimpsePruneRunner(cfg, gpu_model)
+    def sharded():
+        return contextlib.nullcontext() if sp_group is None else sequence_parallel(sp_group)
+
     errs = {}
     for do_sel, field in ((False, "logits"), (True, "mask_logits")):
         ref = getattr(ref_run.prefill(prep, do_sel), field).float()
-        got = getattr(got_run.prefill(prep, do_sel), field).float().cpu()
+        with sharded():
+            got = getattr(got_run.prefill(prep, do_sel), field).float().cpu()
         if do_sel:
             img_valid = torch.as_tensor(prep.img_valid)
             ref, got = ref[:, img_valid], got[:, img_valid]
         errs[field] = ((got - ref).abs().max() / ref.abs().max()).item()
-    print("tiny config, card bf16 vs CPU fp32, max error / max |ref|: " + json.dumps(errs))
+    tag = "" if sp_group is None else f" under SP over {SP_WORLD} ranks"
+    print(f"tiny config{tag}, card bf16 vs CPU fp32, max error / max |ref|: "
+          + json.dumps(errs))
     bad = {k: v for k, v in errs.items() if not v <= 0.1}
     if bad:
         raise AssertionError(f"the card disagrees with the CPU reference: {bad}")
@@ -1246,6 +1277,183 @@ def check_flash_int8(cfg, prep_a, prep_b, gen):
     return rows
 
 
+def qpos_shards(s: int):
+    """(name, lo, hi) of the q shards K9 is checked on: 2 and 4 equal shards
+    and one that no tile boundary aligns (tests/test_sp.py:70-78)."""
+    return [(f"{n}x{i}", i * s // n, (i + 1) * s // n) for n in (2, 4) for i in range(n)] + [
+        ("unaligned", 100, 160)]
+
+
+def check_flash_qpos(cfg, prep_a, gen):
+    """K9 (the q_positions flavours: forward, LSE, backward, int8) at batch
+    (a)'s causal shape, q [2, 28, 832, 128] against kv of 4 heads with
+    left-padded rows, its q rows cut into 2 and 4 shards and one unaligned
+    shard. Each shard against the kernel's plain version, and against the
+    monolithic K2 / K2-lse / K3 / K7 call over the whole sequence: the
+    forward, the LSE, dq and the int8 output equal it bit for bit (each row
+    visits the same k tiles in the same order); dk and dv, each shard's part
+    rounded to bf16 and summed over the shards, within GRAD_RTOL. Control:
+    K2 causal on a later shard alone (rows at their local index, keys of the
+    shard only) must fail. Times at the upper half shard (world 2, rank 1);
+    -> the kernels line's K9 rows."""
+    import torch
+
+    from glimpseprune_torch.ops.cuda.flash_attention import (
+        KERNEL_BLOCK_K,
+        allowed_mask,
+        flash_attention,
+        flash_attention_backward,
+        flash_attention_backward_reference,
+        flash_attention_int8,
+        flash_attention_int8_reference,
+        flash_attention_lse,
+        flash_attention_lse_reference,
+        flash_attention_reference,
+    )
+    from glimpseprune_torch.ops.kv_cache import quantize_kv
+
+    t = cfg.text
+    b, s = prep_a.valid.shape
+    hq, hkv, d = t.num_attention_heads, t.num_key_value_heads, t.head_dim
+    seg = torch.as_tensor(np.where(prep_a.valid, 0, -1), dtype=torch.int32, device="cuda")
+    q, k, v, _, _ = attention_case(gen, b, hq, hkv, s, d, d, seg, True)
+    dout = torch.randn((b, s, hq, d), generator=gen, device="cuda").bfloat16().transpose(1, 2)
+    mono = flash_attention(q, k, v, seg, seg, causal=True)
+    mono_o, mono_lse = flash_attention_lse(q, k, v, seg, seg, causal=True)
+    mono_grads = flash_attention_backward(q, k, v, seg, seg, mono_o, mono_lse, dout, causal=True)
+    mono_i8 = {pv: flash_attention_int8(q, k, v, seg, seg, causal=True, pv_int8=pv)
+               for pv in (False, True)}
+    k8, ksc = quantize_kv(k)
+    torch.cuda.synchronize()
+
+    def shard(lo, hi):
+        return (q[:, :, lo:hi], seg[:, lo:hi],
+                torch.arange(lo, hi, dtype=torch.int32, device="cuda").expand(b, hi - lo))
+
+    report, dkv_sums = {}, {n: [0.0, 0.0] for n in (2, 4)}
+    for name, lo, hi in qpos_shards(s):
+        qs, qseg, qpos = shard(lo, hi)
+        got = flash_attention(qs, k, v, qseg, seg, causal=True, q_positions=qpos)
+        out, lse = flash_attention_lse(qs, k, v, qseg, seg, causal=True, q_positions=qpos)
+        grads = flash_attention_backward(qs, k, v, qseg, seg, out, lse, dout[:, :, lo:hi],
+                                         causal=True, q_positions=qpos)
+        i8 = {pv: flash_attention_int8(qs, k, v, qseg, seg, causal=True, pv_int8=pv,
+                                       q_positions=qpos) for pv in (False, True)}
+        torch.cuda.synchronize()
+        ref_o, ref_lse = flash_attention_lse_reference(qs.float(), k.float(), v.float(), qseg,
+                                                       seg, causal=True, q_positions=qpos)
+        seen = ref_lse > -1e29
+        ref_grads = flash_attention_backward_reference(
+            qs.float(), k.float(), v.float(), qseg, seg, out.float(), lse,
+            dout[:, :, lo:hi].float(), causal=True, q_positions=qpos)
+        q8, qsc = quantize_kv(qs)
+        i8_refs = {pv: flash_attention_int8_reference(q8, k8, v, qsc, ksc, qseg, seg, True,
+                                                      False, pv, KERNEL_BLOCK_K, torch.float32,
+                                                      qpos) for pv in (False, True)}
+        r = {"fwd_err": (got.float() - ref_o).abs().max().item(),
+             "lse_rel_err": rel_err(lse, ref_lse, seen),
+             "bwd_rel_err": [rel_err(g, rr) for g, rr in zip(grads, ref_grads)],
+             "bwd_abs_err": max((g.float() - rr).abs().max().item()
+                                for g, rr in zip(grads, ref_grads)),
+             "int8_errs": {pv: k7_errors(i8[pv], i8_refs[pv]) for pv in (False, True)},
+             "int8_abs_err": (i8[False].float() - i8_refs[False]).abs().max().item(),
+             "equal_to_monolithic": {
+                 "forward": torch.equal(got, mono[:, :, lo:hi]),
+                 "lse": torch.equal(lse, mono_lse[:, :, lo:hi]),
+                 "dq": torch.equal(grads[0], mono_grads[0][:, :, lo:hi]),
+                 "int8": torch.equal(i8[False], mono_i8[False][:, :, lo:hi]),
+                 "int8+pv8": torch.equal(i8[True], mono_i8[True][:, :, lo:hi])}}
+        report[name] = r
+        if name != "unaligned":
+            n = int(name.split("x")[0])
+            dkv_sums[n] = [dkv_sums[n][0] + grads[1].float(), dkv_sums[n][1] + grads[2].float()]
+        bad = [key for key, ok in r["equal_to_monolithic"].items() if not ok]
+        if not (r["fwd_err"] <= KERNEL_ATOL and r["lse_rel_err"] <= LSE_RTOL
+                and torch.equal(lse <= -1e29, ~seen) and max(r["bwd_rel_err"]) <= GRAD_RTOL
+                and all(k7_within(e) for e in r["int8_errs"].values()) and not bad):
+            raise AssertionError(f"K9 shard {name} [{lo}:{hi}] fails: {r}")
+    for n, (dk, dv) in dkv_sums.items():
+        errs = (rel_err(dk, mono_grads[1]), rel_err(dv, mono_grads[2]))
+        report[f"dk_dv_sum_over_{n}_shards_rel_err"] = errs
+        if not max(errs) <= GRAD_RTOL:
+            raise AssertionError(f"K9: dk, dv summed over {n} shards differ from K3's: {errs}")
+    # control: K2 causal on the last quarter alone
+    lo, hi = 3 * s // 4, s
+    control = flash_attention(q[:, :, lo:hi], k[:, :, lo:hi], v[:, :, lo:hi], seg[:, lo:hi],
+                              seg[:, lo:hi], causal=True)
+    control_err = (control.float() - mono[:, :, lo:hi].float()).abs().max().item()
+    report["control_k2_on_shard_err"] = control_err
+    if control_err <= KERNEL_ATOL:
+        raise AssertionError("K9: the check cannot tell a shard's global causal mask from K2's")
+    print("K9 shards against the plain versions and the monolithic K2/K2-lse/K3/K7 "
+          + json.dumps(report, default=str))
+
+    # times at the upper half of the sequence (rank 1 of 2)
+    lo, hi = s // 2, s
+    qs, qseg, qpos = shard(lo, hi)
+    ds = dout[:, :, lo:hi]
+    allowed = allowed_mask(qseg, seg, b, hi - lo, s, True, False, "cuda", qpos)
+    pairs, mask = int(allowed.sum()), allowed[:, None]
+    seg_bytes = nbytes(qseg, seg, qpos)
+    shape = f"q[{b},{hq},{hi - lo},{d}] rows {lo}:{hi} kv[{b},{hkv},{s},{d}]"
+    out, lse = flash_attention_lse(qs, k, v, qseg, seg, causal=True, q_positions=qpos)
+    sdpa_ms = cuda_ms(lambda: sdpa(qs, k, v, mask))
+    rows = []
+
+    def row(fn_name, ms, plain_ms, lib_ms, flops, nbytes_, int8_ops=0.0, **extra):
+        bound_ms, bound_by = bound(flops, nbytes_ + seg_bytes, int8_ops)
+        print(f"K9 {fn_name}[causal+qpos] {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"sdpa {lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+        rows.append({"name": f"{fn_name}[causal+qpos]", "route": "cuda",
+                     "source": K3_SRC if fn_name == "flash_attention_backward" else K2_SRC,
+                     "replaces": K9_REPLACES[fn_name], "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
+                     "shape": shape, **extra})
+
+    half = report["2x1"]
+    row("flash_attention",
+        cuda_ms(lambda: flash_attention(qs, k, v, qseg, seg, causal=True, q_positions=qpos)),
+        cuda_ms(lambda: flash_attention_reference(qs, k, v, qseg, seg, causal=True,
+                                                  q_positions=qpos)),
+        sdpa_ms, 4.0 * pairs * hq * d, nbytes(qs, k, v, out), max_abs_err=half["fwd_err"],
+        equal_to_monolithic=half["equal_to_monolithic"]["forward"])
+    row("flash_attention_lse",
+        cuda_ms(lambda: flash_attention_lse(qs, k, v, qseg, seg, causal=True, q_positions=qpos)),
+        cuda_ms(lambda: flash_attention_lse_reference(qs, k, v, qseg, seg, causal=True,
+                                                      q_positions=qpos)),
+        sdpa_ms, 4.0 * pairs * hq * d, nbytes(qs, k, v, out, lse), max_abs_err=half["fwd_err"],
+        lse_rel_err=half["lse_rel_err"], equal_to_monolithic=half["equal_to_monolithic"]["lse"])
+    qr, kr, vr = (x.detach().requires_grad_(True) for x in (qs, k, v))
+    lib_out = sdpa(qr, kr, vr, mask)
+    grads = flash_attention_backward(qs, k, v, qseg, seg, out, lse, ds, causal=True,
+                                     q_positions=qpos)
+    row("flash_attention_backward",
+        cuda_ms(lambda: flash_attention_backward(qs, k, v, qseg, seg, out, lse, ds, causal=True,
+                                                 q_positions=qpos)),
+        cuda_ms(lambda: flash_attention_backward_reference(qs, k, v, qseg, seg, out, lse, ds,
+                                                           causal=True, q_positions=qpos)),
+        cuda_ms(lambda: torch.autograd.grad(lib_out, (qr, kr, vr), ds, retain_graph=True)),
+        2.0 * pairs * hq * 5 * d, nbytes(qs, k, v, out, lse, ds, *grads),
+        max_abs_err=half["bwd_abs_err"], rel_err=max(half["bwd_rel_err"]),
+        dk_dv_sum_rel_err=report["dk_dv_sum_over_2_shards_rel_err"],
+        equal_to_monolithic=half["equal_to_monolithic"]["dq"])
+    del lib_out
+    q8, qsc = quantize_kv(qs)
+    got = flash_attention_int8(qs, k, v, qseg, seg, causal=True, q_positions=qpos)
+    row("flash_attention_int8",
+        cuda_ms(lambda: flash_attention_int8(qs, k, v, qseg, seg, causal=True, q_positions=qpos)),
+        cuda_ms(lambda: flash_attention_int8_reference(q8, k8, v, qsc, ksc, qseg, seg, True,
+                                                       False, False, KERNEL_BLOCK_K,
+                                                       torch.bfloat16, qpos)),
+        sdpa_ms, 2.0 * pairs * hq * d, nbytes(q8, k8, v, qsc, ksc, got),
+        int8_ops=2.0 * pairs * hq * d, max_abs_err=half["int8_abs_err"],
+        rel_err=half["int8_errs"][False][0], rms_rel_err=half["int8_errs"][False][1],
+        equal_to_monolithic=half["equal_to_monolithic"]["int8"])
+    del q, k, v, dout, mono_grads, grads
+    torch.cuda.empty_cache()
+    return rows, report
+
+
 QUANT_TIERS = {
     # name: (weight mode, quantized_config keywords, batches)
     "q8": ("int8", dict(act_quant="prefill"), ("a",)),
@@ -1372,6 +1580,321 @@ def check_small_quant(cfg_tier: str):
     return errs
 
 
+def same_weights(model, world: int) -> bool:
+    """Every rank's per-tensor parameter sums (float64), all-gathered and
+    compared: the ranks built the same weights."""
+    import torch
+    import torch.distributed as dist
+
+    sums = torch.stack([p.detach().double().sum() for p in model.parameters()])
+    parts = [torch.empty_like(sums) for _ in range(world)]
+    dist.all_gather(parts, sums)
+    return all(torch.equal(parts[0], p) for p in parts)
+
+
+def launch_counts():
+    """{row name: launches} so far (no kernel required)."""
+    return read_launches([])
+
+
+def launches_since(before, required=()):
+    """Launches since the ``before`` snapshot; raises if a kernel of
+    ``required`` did not launch in between."""
+    delta = {k: v - before.get(k, 0) for k, v in launch_counts().items()}
+    missing = [k for k in required if not delta.get(k)]
+    if missing:
+        raise AssertionError(f"the SP path never launched {missing}")
+    return {k: v for k, v in delta.items() if v}
+
+
+class CollectiveClock:
+    """While open, counts the calls of ``dist.all_gather`` and
+    ``dist.all_reduce`` (the only collectives of parallel/sequence.py) and
+    their host time, the card synchronized at both ends of each call: the
+    share of an SP prefill or train step that the ranks spend exchanging
+    data. The synchronization serializes the card's queue, so the run it
+    clocks is not the timed one."""
+
+    NAMES = ("all_gather", "all_reduce")
+
+    def __enter__(self):
+        import torch
+        import torch.distributed as dist
+
+        self.calls, self.ms = 0, 0.0
+        self.originals = {n: getattr(dist, n) for n in self.NAMES}
+
+        def clocked(fn):
+            def call(*args, **kwargs):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*args, **kwargs)
+                torch.cuda.synchronize()
+                self.ms += (time.perf_counter() - t0) * 1e3
+                self.calls += 1
+                return out
+            return call
+
+        for n, fn in self.originals.items():
+            setattr(dist, n, clocked(fn))
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+
+        for n, fn in self.originals.items():
+            setattr(dist, n, fn)
+
+    def record(self, total_ms: float) -> dict:
+        return {"collectives": self.calls, "collective_ms": self.ms, "clocked_run_ms": total_ms}
+
+
+def sp_expected_k9(cfg, prep, do_selection: bool, world: int) -> int:
+    """K9 launches of one SP prefill by JAX's per-call-site rule: the layers
+    before the keep policy over S slots and the resume layers over out_len
+    (pruned), or every layer over S minus the glimpse slots (unpruned), each
+    where the length divides over the ranks."""
+    gp, n_layers = cfg.gp, cfg.text.num_hidden_layers
+    s = prep.input_ids.shape[1]
+    if not do_selection:
+        s -= gp.le_length if gp.has_le else 0
+        return n_layers if s % world == 0 else 0
+    first = gp.reduce_layer + 1
+    return ((first if s % world == 0 else 0)
+            + (n_layers - first if prep.out_len % world == 0 else 0))
+
+
+def sp_serve(cfg, runner, cases, rank, world, tier="bf16", modes=(True, False)):
+    """Per batch and mode: rank 0 runs the single-process prefill and
+    generate (the reference), then every rank runs them under SP, timed with
+    CUDA events, with the kernels' launches of the SP prefill; -> records."""
+    import torch
+    import torch.distributed as dist
+
+    from glimpseprune_torch.parallel import sequence_parallel
+
+    runs = []
+    for name, prep in cases:
+        for do_sel in modes:
+            ref = None
+            if rank == 0:  # the other ranks wait: this card's time is rank 0's alone
+                runner.generate(prep, max_new_tokens=2, do_selection=do_sel)  # warm-up
+                single_ms, pre = timed_ms(lambda: runner.prefill(prep, do_sel))
+                res = runner.generate(prep, max_new_tokens=MAX_NEW_TOKENS, do_selection=do_sel)
+                ref = (pre.logits.float().cpu(), pre.mask_logits, res, single_ms)
+            dist.barrier()
+            with sequence_parallel(dist.group.WORLD):
+                runner.generate(prep, max_new_tokens=2, do_selection=do_sel)  # warm-up
+                torch.cuda.reset_peak_memory_stats()
+                before = launch_counts()
+                prefill_ms, pre = timed_ms(lambda: runner.prefill(prep, do_sel))
+                prefill_launches = launches_since(before)
+                decode_ms, _ = timed_ms(lambda: runner._decode_loop(
+                    pre.logits, pre.valid, pre.position_ids, pre.kv_k, pre.kv_v,
+                    MAX_NEW_TOKENS, cfg.eos_token_id))
+                res = runner.generate(prep, max_new_tokens=MAX_NEW_TOKENS, do_selection=do_sel)
+                peak = torch.cuda.max_memory_allocated()
+                with CollectiveClock() as clock:
+                    clocked_ms, _ = timed_ms(lambda: runner.prefill(prep, do_sel))
+            check_outputs(cfg, prep, pre, res, do_sel)
+            k9 = prefill_launches.get("flash_attention[causal+qpos]", 0)
+            k9 += prefill_launches.get("flash_attention_int8[causal+qpos]", 0)
+            want = sp_expected_k9(cfg, prep, do_sel, world)
+            if k9 != want:
+                raise AssertionError(f"SP {tier} ({name}) launched K9 {k9} times in one "
+                                     f"prefill, not {want}")
+            run = {"rank": rank, "tier": tier, "batch": name,
+                   "mode": "pruned" if do_sel else "unpruned", "S": int(prep.input_ids.shape[1]),
+                   "out_len": int(prep.out_len), "prefill_ms": prefill_ms,
+                   "decode_ms_per_token": decode_ms / MAX_NEW_TOKENS, "peak_mem_gib": peak / 2**30,
+                   "k9_launches_per_prefill": k9, "prefill_launches": prefill_launches,
+                   "prefill_collectives": clock.record(clocked_ms)}
+            if do_sel:
+                run["kept_img_tokens"] = res.keep_img.sum(1).tolist()
+            if ref is not None:
+                logits, mask, single, run["single_prefill_ms"] = ref
+                run["first_logits_rel_diff"] = rel_err(pre.logits.float().cpu(), logits)
+                run["tokens_equal_share"] = float((res.sequences == single.sequences).mean())
+                if do_sel:
+                    img_valid = torch.as_tensor(prep.img_valid, device=mask.device)
+                    run["mask_logits_rel_diff"] = rel_err(pre.mask_logits[:, img_valid],
+                                                          mask[:, img_valid])
+                    run["single_kept_img_tokens"] = single.keep_img.sum(1).tolist()
+                bad = {k: run[k] for k in ("first_logits_rel_diff", "mask_logits_rel_diff")
+                       if not run.get(k, 0.0) <= 0.1}
+                if bad:
+                    raise AssertionError(f"SP {tier} ({name}) disagrees with one process: {bad}")
+            print("sp path " + json.dumps(run), flush=True)
+            runs.append(run)
+    return runs
+
+
+def sp_train(cfg, model, rank, work: Path, steps: int = 2):
+    """The smoke's training batch 2 on a GPTrainer over the 7B: rank 0's
+    single-process loss and gradients (the other ranks wait) against the
+    same under SP, the SP gradients equal on every rank (each holds the
+    whole gradient), then ``steps`` SP train steps, timed; -> record."""
+    import torch
+    import torch.distributed as dist
+
+    from glimpseprune_torch.parallel import sequence_parallel
+    from glimpseprune_torch.training.train_step import compute_loss
+
+    trainer = make_trainer(cfg, model, work)
+    batch = trainer.collate(trainer.cfg, next(trainer.dataset.batches(2, seed=0)),
+                            trainer.tokenize, trainer.load_image, trainer.tcfg, device="cuda")
+    params = trainer.optimizer.params
+
+    def loss_and_grads():
+        for p in params.values():
+            p.grad = None
+        total, _ = compute_loss(trainer.cfg, model, batch,
+                                torch.Generator(device="cuda").manual_seed(0))
+        total.backward()
+        return total.item(), {k: p.grad.clone() for k, p in params.items()}
+
+    single_ms, loss1, grads1 = None, None, None
+    if rank == 0:  # the other ranks wait: this card's time is rank 0's alone
+        loss_and_grads()  # warm-up
+        single_ms, (loss1, grads1) = timed_ms(loss_and_grads)
+    dist.barrier()
+    with sequence_parallel(dist.group.WORLD):
+        before = launch_counts()
+        grad_ms, (loss2, grads2) = timed_ms(loss_and_grads)
+        launches = launches_since(before, ["flash_attention_lse[causal+qpos]",
+                                           "flash_attention_backward[causal+qpos]"])
+        sums = torch.stack([g.double().sum() for g in grads2.values()])
+        parts = [torch.empty_like(sums) for _ in range(dist.get_world_size())]
+        dist.all_gather(parts, sums)
+        if not all(torch.equal(parts[0], p) for p in parts):
+            raise AssertionError("the ranks' SP gradients differ")
+        # rank 0 holds the single-process gradients; the others equal its SP ones
+        errs = {k: rel_err(grads2[k], grads1[k]) for k in grads1} if rank == 0 else {}
+        worst = max(errs, key=errs.get) if errs else None
+        with CollectiveClock() as clock:
+            clocked_ms, _ = timed_ms(loss_and_grads)
+        step_records = []
+        for i in range(steps):
+            torch.cuda.reset_peak_memory_stats()
+            ms, metrics = timed_ms(lambda: trainer.step_fn(
+                batch, torch.Generator(device="cuda").manual_seed(i)))
+            step_records.append({"ms": ms, "loss": float(metrics["loss"]),
+                                 "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
+    record = {"rank": rank, "S": int(batch["input_ids"].shape[1]),
+              "patches": int(batch["patches"].shape[0]), "loss_single": loss1, "loss_sp": loss2,
+              "loss_rel_diff": 0.0 if loss1 is None else abs(loss2 - loss1) / abs(loss1),
+              "single_loss_and_grad_ms": single_ms, "sp_loss_and_grad_ms": grad_ms,
+              "worst_grad_rel_diff": errs.get(worst, 0.0), "worst_grad": worst,
+              "grad_rel_diff": errs, "steps": step_records, "launches": launches,
+              "loss_and_grad_collectives": clock.record(clocked_ms)}
+    print("sp train " + json.dumps({k: v for k, v in record.items() if k != "grad_rel_diff"}),
+          flush=True)
+    bad = [st for st in step_records if not np.isfinite(st["loss"])]
+    if bad or not (record["worst_grad_rel_diff"] <= 0.1 and record["loss_rel_diff"] <= 0.1):
+        raise AssertionError(f"SP training disagrees with one process: {worst} "
+                             f"{record['worst_grad_rel_diff']}, loss {loss2} vs {loss1}, "
+                             f"steps {step_records}")
+    shutil.rmtree(work, ignore_errors=True)
+    return record
+
+
+def sp_rank(rank: int, world: int, cases):
+    """Phase 11 on one rank: the 7B with the same random weights as every
+    other rank (checked by checksum), SP generate in bf16 and q8, SP
+    training, the tiny config under SP against the CPU; -> records."""
+    import torch
+    import torch.distributed as dist
+
+    from glimpseprune_torch.config import ModelConfig
+    from glimpseprune_torch.convert import init_random
+    from glimpseprune_torch.models.qwen2_5_vl.runner import GlimpsePruneRunner
+    from glimpseprune_torch.quantization import quantize_model
+
+    torch.cuda.set_device(0)
+    cfg = ModelConfig.load(str(ROOT / "configs" / "model_qwen2_5_7b_gp"))
+    model = init_random(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
+    if not same_weights(model, world):
+        raise AssertionError(f"rank {rank} built other weights than rank 0")
+    reset_launches()
+    out = {"rank": rank, "gloo_gather_ms": gloo_gather_ms(cfg, cases[0][1], world),
+           "serve": sp_serve(cfg, GlimpsePruneRunner(cfg, model), cases, rank,
+                                           world)}
+    out["train"] = sp_train(cfg, model, rank, ROOT / "build" / f"chip_smoke_sp_train{rank}")
+    del model
+    torch.cuda.empty_cache()
+    qcfg = sp_q8_config(cfg)
+    model = init_random(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
+    quantize_model(model, "int8", cfg=qcfg)
+    out["q8"] = sp_serve(qcfg, GlimpsePruneRunner(qcfg, model), cases[:1], rank, world,
+                         tier="q8", modes=(True,))
+    del model
+    torch.cuda.empty_cache()
+    out["launches"] = launch_counts()
+    out["tiny"] = check_small_reference(dist.group.WORLD)
+    return out
+
+
+def gloo_gather_ms(cfg, prep, world: int, iters: int = 10):
+    """Host-clock ms of one gather_kv of this rank's K and V shard (bf16 on
+    the card, through gloo) at the LLM's and the ViT's full-attention shape
+    of ``prep``: what each sharded attention layer adds to the prefill."""
+    import torch
+    import torch.distributed as dist
+
+    from glimpseprune_torch.parallel import gather_kv, get_sequence_parallel, sequence_parallel
+
+    t, v = cfg.text, cfg.vision
+    b, s = prep.input_ids.shape
+    # (shape of the stacked k and v shard, its sequence dim)
+    shapes = {"llm": ((2, b, s // world, t.num_key_value_heads, t.head_dim), 2),
+              "vit": ((2, prep.patches.shape[0] // world, v.num_heads, v.head_dim), 1)}
+    out = {}
+    with sequence_parallel(dist.group.WORLD):
+        sp = get_sequence_parallel()
+        for name, (shape, dim) in shapes.items():
+            x = torch.randn(shape, device="cuda").bfloat16()
+            gather_kv(x, dim, sp)  # warm-up
+            torch.cuda.synchronize()
+            dist.barrier()
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                gather_kv(x, dim, sp)
+            torch.cuda.synchronize()
+            out[name] = (time.perf_counter() - t0) * 1e3 / iters
+    return out
+
+
+def sp_q8_config(cfg):
+    """(q8) with the text tower's attention in int8 too (K9-int8 under SP)."""
+    import dataclasses
+
+    from glimpseprune_torch.quantization import quantized_config
+
+    q = quantized_config(cfg, "int8", act_quant="prefill", attn_qk_int8="text")
+    return dataclasses.replace(q, text=dataclasses.replace(q.text, kv_cache_quant="int8"))
+
+
+def run_sp_path(cases):
+    """Phase 11: SP_WORLD ranks on the one card over gloo, started by the
+    port's launcher; -> (every rank's records, summed launches)."""
+    from glimpseprune_torch.parallel import launch
+
+    t0 = time.perf_counter()
+    ranks = launch(sp_rank, SP_WORLD, cases, backend="gloo", timeout_s=900)
+    secs = time.perf_counter() - t0
+    required = ["flash_attention[causal+qpos]", "flash_attention_lse[causal+qpos]",
+                "flash_attention_backward[causal+qpos]", "flash_attention_int8[causal+qpos]",
+                "window_attention_fused", "flash_attention[segmented]"]
+    launches = {k: sum(r["launches"].get(k, 0) for r in ranks)
+                for k in set().union(*(r["launches"] for r in ranks))}
+    missing = [k for k in required if not launches.get(k)]
+    if missing:
+        raise AssertionError(f"the SP path never launched {missing}")
+    print(f"SP path over {SP_WORLD} ranks on one card (gloo) in {secs:.1f} s; launches, summed "
+          "over the ranks: " + json.dumps(launches))
+    return ranks, launches, secs
+
+
 def main() -> int:
     smi = find_card()
     import torch
@@ -1450,6 +1973,17 @@ def main() -> int:
         small_quant[tier] = check_small_quant(tier)
     quant_s = time.perf_counter() - t_quant
 
+    # phase 11: K9 against its plain versions and the monolithic kernels,
+    # then the SP path over SP_WORLD ranks on this card (the parent holds no
+    # model: each rank builds its own 7B)
+    torch.cuda.empty_cache()
+    k9_rows, k9_report = check_flash_qpos(cfg, prep_a, gen)
+    torch.cuda.empty_cache()
+    sp_ranks, sp_launches, sp_s = run_sp_path([("a", prep_a), ("b", prep_b)])
+    for k in k9_rows:
+        k["launches"] = sp_launches[k["name"]]
+        k["launches_per_rank"] = [r["launches"].get(k["name"], 0) for r in sp_ranks]
+
     for k in kernels:
         path = train_launches if k["name"].startswith(("flash_attention_lse",
                                                        "flash_attention_backward")) else \
@@ -1465,6 +1999,7 @@ def main() -> int:
         if not k["launches"]:
             k["note"] = next(v for p, v in off_path.items() if k["name"].startswith(p))
     kernels += quant_kernels
+    kernels += k9_rows
     print(json.dumps({"card": smi, "build_s": build_s, "runs": runs,
                       "tiny_reference_err": small, "train_steps": steps,
                       "train_path_s": train_s, "tiny_train_err": small_train,
@@ -1477,7 +2012,9 @@ def main() -> int:
                       "importance_tower_err": small_importance,
                       "tiny_compressed_err": small_compressed,
                       "compressed_path_s": compressed_s,
-                      "total_s": time.perf_counter() - t_start}))
+                      "k9_shards": k9_report, "sp_path_s": sp_s, "sp_launches": sp_launches,
+                      "sp_ranks": sp_ranks,
+                      "total_s": time.perf_counter() - t_start}, default=str))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

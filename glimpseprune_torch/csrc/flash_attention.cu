@@ -40,6 +40,18 @@
 // int32 sum per tile, rescaled by v_scale / 127. So the numbers depend on
 // the kv tile length, 64 here: the plain version takes it as an argument.
 // The rest (online softmax, tile skipping, zeroed empty rows) is K2's.
+//
+// K9, the `q_positions` flavour (entries' `qpos` argument, [B, Sq] int32 or
+// null), replaces the Pallas adapters `_qpos_kernel_adapter` (:183),
+// `_i8_qpos_kernel_adapter` (:191) and `_qpos_lse_kernel_adapter` (:216):
+// the q rows are a shard of a longer sequence (sequence parallelism), k and
+// v are the whole sequence in slot order, and causal allows key t for query
+// s iff t <= qpos[b, s], the row's global slot. The causal tile limit then
+// comes from the largest position in the q tile (JAX :71-72), not from q0;
+// each row's k tiles are visited in the same order as in a monolithic call
+// over the whole sequence, so a shard's rows equal the monolithic call's
+// bit for bit (the tiles past a row's diagonal add exact zeros). It is
+// bounded like K2: a q shard of Sq/n rows against Skv keys.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -73,6 +85,7 @@ struct Args {
   float* lse;       // [B, Hq, Sq] or null
   const int* qseg;  // [B, Sq] or null when dense
   const int* kseg;  // [B, Skv] or null when dense
+  const int* qpos;  // [B, Sq] global q slots (K9) or null: q row s is slot s
   const float* qsc;  // [B, Hq, Sq] per-row q scales (int8 flavour)
   const float* ksc;  // [B, Hkv, Skv] per-row k scales (int8 flavour)
   int group, sq, skv, dqk, dv;
@@ -104,8 +117,9 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(Args a) {
   float* al_s = l_s + kBQ;                                          // [kBQ] rescale
   int* qseg_s = reinterpret_cast<int*>(al_s + kBQ);                 // [kBQ]
   int* kseg_s = qseg_s + kBQ;                                       // [kBK]
-  int* qrange = kseg_s + kBK;                                       // [2] min, max
-  float* qsc_s = reinterpret_cast<float*>(qrange + 2);              // [kBQ] (QK8)
+  int* qrange = kseg_s + kBK;                                       // [4] min, max seg, max pos
+  int* qpos_s = qrange + 4;                                         // [kBQ] causal slot
+  float* qsc_s = reinterpret_cast<float*>(qpos_s + kBQ);            // [kBQ] (QK8)
   float* ksc_s = qsc_s + kBQ;                                       // [kBK] (QK8)
   float* vsc_s = ksc_s + kBK;                                       // [kMaxDv] (PV8)
   int8_t* vq = reinterpret_cast<int8_t*>(vsc_s + kMaxDv);           // [kBK][dv] (PV8)
@@ -144,6 +158,8 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(Args a) {
     int seg = -1;
     if (s < a.sq) seg = dense ? 0 : a.qseg[(long)b * a.sq + s];
     qseg_s[tid] = seg;
+    // a row past Sq gets -1: it allows no key and never raises the tile's limit
+    qpos_s[tid] = s < a.sq ? (a.qpos != nullptr ? a.qpos[(long)b * a.sq + s] : s) : -1;
     m_s[tid] = kNegInf;
     l_s[tid] = 0.f;
     // q_scale * sm_scale * log2(e), the product JAX forms first (:111)
@@ -152,16 +168,18 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(Args a) {
   }
   __syncthreads();
   if (tid == 0) {
-    int lo = 0x7fffffff, hi = -1;
+    int lo = 0x7fffffff, hi = -1, pmax = -1;
     for (int r = 0; r < kBQ; ++r) {
       const int seg = qseg_s[r];
       if (seg >= 0) {
         lo = min(lo, seg);
         hi = max(hi, seg);
       }
+      pmax = max(pmax, qpos_s[r]);
     }
     qrange[0] = lo;
     qrange[1] = hi;
+    qrange[2] = pmax;
   }
   __syncthreads();
   const int qlo = qrange[0], qhi = qrange[1];
@@ -173,7 +191,8 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(Args a) {
     for (int n = 0; n < kMaxNv; ++n) acc[r][n] = 0.f;
 
   int n_kt = (a.skv + kBK - 1) / kBK;
-  if (a.causal) n_kt = min(n_kt, (q0 + kBQ - 1) / kBK + 1);
+  // causal: no k tile past the tile's largest q slot (-1: no row, no tile)
+  if (a.causal) n_kt = min(n_kt, qrange[2] < 0 ? 0 : qrange[2] / kBK + 1);
   if (qhi < 0) n_kt = 0;  // every row of the tile is padding: all zeros
 
   for (int kt = 0; kt < n_kt; ++kt) {
@@ -292,7 +311,7 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(Args a) {
         const int kseg = kseg_s[j];
         bool allowed = k0 + j < a.skv;
         if (!dense) allowed = allowed && qseg >= 0 && qseg == kseg;
-        if (a.causal) allowed = allowed && k0 + j <= q0 + i;
+        if (a.causal) allowed = allowed && k0 + j <= qpos_s[i];
         ps[i * (kBK + 1) + j] = allowed ? s[r][c] : kNegInf;
       }
     }
@@ -395,7 +414,7 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(Args a) {
 size_t smem_bytes(bool qk8, bool pv8, int dqk, int dv) {
   const size_t qk = qk8 ? (size_t)(kBQ + kBK) * ld_i8(dqk) : (size_t)(kBQ + kBK) * (dqk + 2) * 2;
   size_t n = qk + (size_t)kBK * dv * 2 + (size_t)kBQ * (kBK + 1) * 4 + 3 * kBQ * 4 +
-             (kBQ + kBK + 2) * 4 + (size_t)(kBQ + kBK + kMaxDv) * 4;
+             (kBQ + kBK + 4 + kBQ) * 4 + (size_t)(kBQ + kBK + kMaxDv) * 4;
   if (pv8) n += (size_t)kBK * dv;
   return n;
 }
@@ -413,12 +432,13 @@ int launch(const Args& a, int batch, int heads_q, int sq, void* stream) {
 }
 
 int fill_args(Args& a, const void* q, const void* k, const void* v, void* o, void* lse,
-              const void* qseg, const void* kseg, const void* qsc, const void* ksc,
-              int heads_q, int heads_kv, int sq, int skv, int dqk, int dv, int q_sb,
+              const void* qseg, const void* kseg, const void* qpos, const void* qsc,
+              const void* ksc, int heads_q, int heads_kv, int sq, int skv, int dqk, int dv, int q_sb,
               int q_sh, int q_ss, int k_sb, int k_sh, int k_ss, int v_sb, int v_sh, int v_ss,
               int o_sb, int o_sh, int o_ss, int causal) {
   if (heads_kv <= 0 || heads_q % heads_kv != 0 || dv <= 0 || dv > kMaxDv ||
-      dqk <= 0 || dqk > kMaxDqk || (qseg == nullptr) != (kseg == nullptr))
+      dqk <= 0 || dqk > kMaxDqk || (qseg == nullptr) != (kseg == nullptr) ||
+      (qpos != nullptr && !causal) || (qpos == nullptr && causal && sq != skv))
     return (int)cudaErrorInvalidValue;
   a.q = q;
   a.k = k;
@@ -427,6 +447,7 @@ int fill_args(Args& a, const void* q, const void* k, const void* v, void* o, voi
   a.lse = (float*)lse;
   a.qseg = (const int*)qseg;
   a.kseg = (const int*)kseg;
+  a.qpos = (const int*)qpos;
   a.qsc = (const float*)qsc;
   a.ksc = (const float*)ksc;
   a.group = heads_q / heads_kv;
@@ -446,32 +467,34 @@ int fill_args(Args& a, const void* q, const void* k, const void* v, void* o, voi
 }  // namespace
 
 extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v, void* o,
-                                    void* lse, const void* qseg, const void* kseg, int batch,
+                                    void* lse, const void* qseg, const void* kseg,
+                                    const void* qpos, int batch,
                                     int heads_q, int heads_kv, int sq, int skv, int dqk,
                                     int dv, int q_sb, int q_sh, int q_ss, int k_sb,
                                     int k_sh, int k_ss, int v_sb, int v_sh, int v_ss,
                                     int o_sb, int o_sh, int o_ss, int causal,
                                     void* stream) {
   Args a;
-  const int rc = fill_args(a, q, k, v, o, lse, qseg, kseg, nullptr, nullptr, heads_q, heads_kv,
-                           sq, skv, dqk, dv, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh,
-                           v_ss, o_sb, o_sh, o_ss, causal);
+  const int rc = fill_args(a, q, k, v, o, lse, qseg, kseg, qpos, nullptr, nullptr, heads_q,
+                           heads_kv, sq, skv, dqk, dv, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb,
+                           v_sh, v_ss, o_sb, o_sh, o_ss, causal);
   if (rc != 0) return rc;
   return launch<false, false>(a, batch, heads_q, sq, stream);
 }
 
 // K7: q, k int8 [B, H, S, Dqk] (strided like q, k above) with f32 per-row
-// scales q_scale [B, Hq, Sq] and k_scale [B, Hkv, Skv] (contiguous); v, o bf16
+// scales q_scale [B, Hq, Sq] and k_scale [B, Hkv, Skv] (contiguous); v, o bf16.
+// With qpos (causal only) it is K9-int8.
 extern "C" int flash_attention_i8(const void* q, const void* k, const void* v, void* o,
                                   const void* q_scale, const void* k_scale, const void* qseg,
-                                  const void* kseg, int batch, int heads_q, int heads_kv,
+                                  const void* kseg, const void* qpos, int batch, int heads_q, int heads_kv,
                                   int sq, int skv, int dqk, int dv, int q_sb, int q_sh,
                                   int q_ss, int k_sb, int k_sh, int k_ss, int v_sb, int v_sh,
                                   int v_ss, int o_sb, int o_sh, int o_ss, int causal,
                                   int pv_int8, void* stream) {
   if (q_scale == nullptr || k_scale == nullptr) return (int)cudaErrorInvalidValue;
   Args a;
-  const int rc = fill_args(a, q, k, v, o, nullptr, qseg, kseg, q_scale, k_scale, heads_q,
+  const int rc = fill_args(a, q, k, v, o, nullptr, qseg, kseg, qpos, q_scale, k_scale, heads_q,
                            heads_kv, sq, skv, dqk, dv, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss,
                            v_sb, v_sh, v_ss, o_sb, o_sh, o_ss, causal);
   if (rc != 0) return rc;

@@ -33,6 +33,17 @@
 // design does; mma.sync / wgmma tiles are later work. The dkv grid is small
 // at the LLM shape (13 k tiles x 4 kv heads x 2 rows = 104 blocks for 132
 // SMs), the price of summing the GQA group without atomics.
+//
+// K9's backward, the `q_positions` flavour (`qpos` [B, Sq] int32 or null),
+// replaces the Pallas adapters `_bwd_dq_qpos_adapter` (:787) and
+// `_bwd_dkv_qpos_adapter` (:795) under the custom VJP
+// `_flash_attention_qpos_diff` (:341-397): the q rows are a shard of a
+// longer sequence, k and v the whole of it, and causal allows key t for
+// query s iff t <= qpos[b, s]. The dq kernel's causal tile limit comes from
+// the q tile's largest position; the dkv kernel walks every q tile from the
+// first (a shard's rows do not sit at their slot index) and skips a q tile
+// none of whose rows reaches the k tile. dk and dv are this shard's part:
+// the caller sums them over the shards.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -57,6 +68,7 @@ struct BwdArgs {
   const float* dsum;  // [B, Hq, Sq]
   const int* qseg;    // [B, Sq] or null when dense
   const int* kseg;    // [B, Skv] or null when dense
+  const int* qpos;    // [B, Sq] global q slots (K9) or null: q row s is slot s
   bf16* dq;
   bf16* dk;
   bf16* dv;
@@ -109,13 +121,20 @@ __device__ __forceinline__ int seg_at(const int* seg, int b, int s, int n, int p
   return seg == nullptr ? 0 : seg[(long)b * n + s];
 }
 
+// causal slot of q row s of batch b: its global position with qpos, else s;
+// -1 past the q end (allows no key)
+__device__ __forceinline__ int pos_at(const int* qpos, int b, int s, int sq) {
+  if (s >= sq) return -1;
+  return qpos == nullptr ? s : qpos[(long)b * sq + s];
+}
+
 // p and ds of one 64 x 64 (q, k) tile pair, from the score micro-tile s and
 // dp = dO V^T; rows i = ty + 16r are q rows, columns j = tx + 16c are k rows
 __device__ __forceinline__ void p_ds_tile(const BwdArgs& a, const float (&s)[4][4],
                                           const float (&dp)[4][4], const int* qseg_s,
-                                          const int* kseg_s, const float* lse_s,
-                                          const float* dsum_s, int q0, int k0, int ty, int tx,
-                                          float* p_s, float* ds_s) {
+                                          const int* kseg_s, const int* qpos_s,
+                                          const float* lse_s, const float* dsum_s, int k0,
+                                          int ty, int tx, float* p_s, float* ds_s) {
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
     const int i = ty + 16 * r;
@@ -126,7 +145,7 @@ __device__ __forceinline__ void p_ds_tile(const BwdArgs& a, const float (&s)[4][
     for (int c = 0; c < 4; ++c) {
       const int j = tx + 16 * c;
       bool allowed = qs >= 0 && qs == kseg_s[j] && lse > kNegInf * 0.5f;
-      if (a.causal) allowed = allowed && k0 + j <= q0 + i;
+      if (a.causal) allowed = allowed && k0 + j <= qpos_s[i];
       const float p = allowed ? exp2f(s[r][c] * a.scale_log2 - lse) : 0.f;
       if (p_s != nullptr) p_s[i * kLdP + j] = p;
       ds_s[i * kLdP + j] = p * (dp[r][c] - dsum);
@@ -147,7 +166,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(BwdArgs a) {
   float* dsum_s = lse_s + kB;
   int* qseg_s = reinterpret_cast<int*>(dsum_s + kB);
   int* kseg_s = qseg_s + kB;
-  int* qrange = kseg_s + kB;
+  int* qrange = kseg_s + kB;   // [4] min, max seg, max pos
+  int* qpos_s = qrange + 4;    // [kB]
 
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int q0 = blockIdx.x * kB, h = blockIdx.y, b = blockIdx.z;
@@ -159,21 +179,24 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(BwdArgs a) {
   if (tid < kB) {
     const int s = q0 + tid;
     qseg_s[tid] = seg_at(a.qseg, b, s, a.sq, -1);
+    qpos_s[tid] = pos_at(a.qpos, b, s, a.sq);
     lse_s[tid] = s < a.sq ? a.lse[row + s] : kNegInf;
     dsum_s[tid] = s < a.sq ? a.dsum[row + s] : 0.f;
   }
   __syncthreads();
   if (tid == 0) {
-    int lo = 0x7fffffff, hi = -1;
+    int lo = 0x7fffffff, hi = -1, pmax = -1;
     for (int r = 0; r < kB; ++r) {
       const int seg = qseg_s[r];
       if (seg >= 0) {
         lo = min(lo, seg);
         hi = max(hi, seg);
       }
+      pmax = max(pmax, qpos_s[r]);
     }
     qrange[0] = lo;
     qrange[1] = hi;
+    qrange[2] = pmax;
   }
   __syncthreads();
   const int qlo = qrange[0], qhi = qrange[1];
@@ -185,7 +208,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(BwdArgs a) {
     for (int n = 0; n < NQK; ++n) acc[r][n] = 0.f;
 
   int n_kt = (a.skv + kB - 1) / kB;
-  if (a.causal) n_kt = min(n_kt, (q0 + kB - 1) / kB + 1);
+  // causal: no k tile past the tile's largest q slot (-1: no row, no tile)
+  if (a.causal) n_kt = min(n_kt, qrange[2] < 0 ? 0 : qrange[2] / kB + 1);
   if (qhi < 0) n_kt = 0;  // every row of the tile is padding: dq = 0
 
   const bf16* kg = a.k + (long)b * a.k_sb + (long)kvh * a.k_sh;
@@ -207,7 +231,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(BwdArgs a) {
     float s[4][4], dp[4][4];
     tile_dot(s, qs, ldq, ks, ldq, a.dqk, ty, tx);
     tile_dot(dp, dos, ldv, vs, ldv, a.dvd, ty, tx);
-    p_ds_tile(a, s, dp, qseg_s, kseg_s, lse_s, dsum_s, q0, k0, ty, tx, nullptr, ds_s);
+    p_ds_tile(a, s, dp, qseg_s, kseg_s, qpos_s, lse_s, dsum_s, k0, ty, tx, nullptr, ds_s);
     __syncthreads();
 
     for (int j = 0; j < kB; ++j) {
@@ -253,7 +277,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(BwdArgs a) {
   float* dsum_s = lse_s + kB;
   int* qseg_s = reinterpret_cast<int*>(dsum_s + kB);
   int* kseg_s = qseg_s + kB;
-  int* krange = kseg_s + kB;
+  int* krange = kseg_s + kB;   // [4] min, max seg
+  int* qpos_s = krange + 4;    // [kB]
 
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int k0 = blockIdx.x * kB, kvh = blockIdx.y, b = blockIdx.z;
@@ -287,7 +312,9 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(BwdArgs a) {
   }
 
   const int n_qt = khi < 0 ? 0 : (a.sq + kB - 1) / kB;  // all-padding keys: dk = dv = 0
-  const int qt0 = a.causal ? k0 / kB : 0;  // q tiles wholly above the diagonal see none of these keys
+  // q tiles wholly above the diagonal see none of these keys; with qpos the
+  // rows need not sit at their slot, so each q tile is tested by its rows
+  const int qt0 = a.causal && a.qpos == nullptr ? k0 / kB : 0;
   for (int g = 0; g < a.group; ++g) {
     const int h = kvh * a.group + g;
     const long row = ((long)b * a.heads_q + h) * a.sq;
@@ -300,10 +327,12 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(BwdArgs a) {
       if (tid < kB) {
         const int s = q0 + tid;
         const int seg = seg_at(a.qseg, b, s, a.sq, -1);
+        const int pos = pos_at(a.qpos, b, s, a.sq);
         qseg_s[tid] = seg;
+        qpos_s[tid] = pos;
         lse_s[tid] = s < a.sq ? a.lse[row + s] : kNegInf;
         dsum_s[tid] = s < a.sq ? a.dsum[row + s] : 0.f;
-        hit = seg >= 0 && seg >= klo && seg <= khi;
+        hit = seg >= 0 && seg >= klo && seg <= khi && (!a.causal || pos >= k0);
       }
       if (!__syncthreads_or(hit)) continue;  // no query segment meets this k tile
       load_tile(qs, ldq, qg, a.q_ss, q0, a.sq, a.dqk);
@@ -313,7 +342,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(BwdArgs a) {
       float s[4][4], dp[4][4];
       tile_dot(s, qs, ldq, ks, ldq, a.dqk, ty, tx);
       tile_dot(dp, dos, ldv, vs, ldv, a.dvd, ty, tx);
-      p_ds_tile(a, s, dp, qseg_s, kseg_s, lse_s, dsum_s, q0, k0, ty, tx, p_s, ds_s);
+      p_ds_tile(a, s, dp, qseg_s, kseg_s, qpos_s, lse_s, dsum_s, k0, ty, tx, p_s, ds_s);
       __syncthreads();
 
       // this thread's key rows j = ty + 16r, columns c = tx + 16n
@@ -378,13 +407,15 @@ int launch(Kernel kernel, dim3 grid, size_t smem, cudaStream_t stream, const Bwd
 
 extern "C" int flash_attention_bwd_bf16(
     const void* q, const void* k, const void* v, const void* dout, const void* lse,
-    const void* dsum, const void* qseg, const void* kseg, void* dq, void* dk, void* dv,
+    const void* dsum, const void* qseg, const void* kseg, const void* qpos, void* dq, void* dk,
+    void* dv,
     int batch, int heads_q, int heads_kv, int sq, int skv, int dqk, int dvd,
     int q_sb, int q_sh, int q_ss, int k_sb, int k_sh, int k_ss, int v_sb, int v_sh, int v_ss,
     int do_sb, int do_sh, int do_ss, int dq_sb, int dq_sh, int dq_ss, int dk_sb, int dk_sh,
     int dk_ss, int dv_sb, int dv_sh, int dv_ss, int causal, void* stream) {
   if (heads_kv <= 0 || heads_q % heads_kv != 0 || dvd <= 0 || dvd > kMaxDv || dqk <= 0 ||
-      dqk > kMaxDqk || (qseg == nullptr) != (kseg == nullptr))
+      dqk > kMaxDqk || (qseg == nullptr) != (kseg == nullptr) ||
+      (qpos != nullptr && !causal) || (qpos == nullptr && causal && sq != skv))
     return (int)cudaErrorInvalidValue;
   BwdArgs a;
   a.q = (const bf16*)q;
@@ -395,6 +426,7 @@ extern "C" int flash_attention_bwd_bf16(
   a.dsum = (const float*)dsum;
   a.qseg = (const int*)qseg;
   a.kseg = (const int*)kseg;
+  a.qpos = (const int*)qpos;
   a.dq = (bf16*)dq;
   a.dk = (bf16*)dk;
   a.dv = (bf16*)dv;
@@ -418,7 +450,8 @@ extern "C" int flash_attention_bwd_bf16(
 
   // four bf16 tiles (an even element count, as kB is even), fp32 tiles, row vectors
   const size_t bf16_bytes = ((size_t)2 * kB * (dqk + 2) + (size_t)2 * kB * (dvd + 2)) * 2;
-  const size_t rows = (size_t)2 * kB * 4 + (size_t)(2 * kB + 2) * 4;
+  // lse, dsum; q and k segment ids, the range, q positions
+  const size_t rows = (size_t)2 * kB * 4 + (size_t)(3 * kB + 4) * 4;
   const size_t smem_dq = bf16_bytes + (size_t)kB * kLdP * 4 + rows;
   const size_t smem_dkv = bf16_bytes + (size_t)2 * kB * kLdP * 4 + rows;
 

@@ -12,6 +12,17 @@ The quantized tiers follow the JAX package: W8A8 (``a8``) in the prefill
 layers, in decode only under ``act_quant="int8"`` (``_act_quant_on`` :85),
 int8 flash attention in prefill when the tower's flags ask for it
 (:122-127), and the head's a8 only under ``"int8"`` (:290).
+
+Under sequence parallelism (parallel/sequence.py) ``run_layers`` shards the
+sequence over the group when it divides (``sp_split``, read at each call):
+x, the rope tables and the padding mask are split, each layer attends with
+its local queries over the gathered K/V (K9), and x is gathered again after
+the last layer. The gathered per-layer K/V are what ``collect_kv`` returns,
+the replicated cache that decode reads unsharded, as in JAX. The glimpse
+embeddings are added on the whole sequence and split like x, so their
+gradient is whole on every rank; the harvest takes the glimpse query from
+the rank that holds it by a collective over [B, Hq, D] and gathers the
+harvested rows.
 """
 
 from __future__ import annotations
@@ -28,6 +39,13 @@ from glimpseprune_torch.models.layers import GatedMLP, Linear, RMSNorm
 from glimpseprune_torch.ops.attention import causal_segment_attention, decode_attention
 from glimpseprune_torch.ops.kv_cache import cache_append, cache_layer
 from glimpseprune_torch.ops.rope import apply_rotary
+from glimpseprune_torch.parallel.sequence import (
+    SeqShard,
+    gather_kv,
+    gather_seq,
+    sp_split,
+    split_seq,
+)
 
 
 def _act_quant_on(cfg: TextConfig, decoding: bool) -> bool:
@@ -74,17 +92,17 @@ class DecoderLayer(nn.Module):
         x = x + self.self_attn.o_proj(attn.reshape(b, s, -1), a8)
         return x + self.mlp(self.post_attention_layernorm(x), a8)
 
-    def prefill(self, x, cos, sin, valid, q_index):
-        """-> (x, k, v, sel_q): sel_q is the glimpse query's post-rope q
-        [B, Hq, D] at q_index, the only per-layer harvest state."""
+    def prefill(self, x, cos, sin, valid, sp: Optional[SeqShard] = None):
+        """-> (x, q, k, v): q is the post-rope q of x's rows (the harvest
+        reads the glimpse query from it); k and v are the whole sequence's,
+        gathered over the ranks under ``sp``, where x, cos, sin and valid
+        are this rank's shard."""
         c = self.cfg
         a8 = _act_quant_on(c, decoding=False)
         q, k, v = self.qkv(x, cos, sin, a8)
-        attn = causal_segment_attention(q, k, v, valid, int8_qk=a8 and c.attn_qk_int8,
-                                        int8_pv=a8 and c.attn_pv_int8)
-        x = self.finish(x, attn, a8)
-        sel_q = q[torch.arange(q.shape[0], device=q.device), q_index]
-        return x, k, v, sel_q
+        attn, k, v = causal_segment_attention(q, k, v, valid, int8_qk=a8 and c.attn_qk_int8,
+                                              int8_pv=a8 and c.attn_pv_int8, sp=sp)
+        return self.finish(x, attn, a8), q, k, v
 
     def decode(self, layer: int, x, cos, sin, k_cache, v_cache, kv_valid, write_idx: int):
         """One decode layer against the stacked cache [L, B, T, Hkv, D]
@@ -108,6 +126,25 @@ def harvest_postprocess(raw_row: torch.Tensor, valid: torch.Tensor,
         return raw_row
     logits = raw_row.masked_fill(~valid[..., None], -float("inf"))
     return torch.log_softmax(logits, dim=1)
+
+
+def _glimpse_query(q: torch.Tensor, q_index: torch.Tensor,
+                  sp: Optional[SeqShard] = None) -> torch.Tensor:
+    """The post-rope q [B, Hq, D] of each row at q_index, from q [B, S, Hq, D]
+    (this rank's shard under ``sp``: the rank holding a row's glimpse slot
+    contributes it, the others zeros, summed over the ranks with
+    ``gather_kv``, whose backward sums the ranks' gradients as the sharded
+    harvest needs)."""
+    bidx = torch.arange(q.shape[0], device=q.device)
+    if sp is None:
+        return q[bidx, q_index]
+    sl = q.shape[1]
+    local = q_index - sp.rank * sl
+    inside = (local >= 0) & (local < sl)
+    rows = q[bidx, local.clamp(0, sl - 1)]
+    rows = torch.where(inside[:, None, None], rows, torch.zeros((), dtype=q.dtype,
+                                                                 device=q.device))
+    return gather_kv(rows[:, None], 1, sp).sum(1)
 
 
 class TextDecoder(nn.Module):
@@ -187,7 +224,10 @@ class TextDecoder(nn.Module):
         or None unless collect_kv, {layer: [B, S, Hq] harvested rows}). With
         ``cfg.remat`` and autograd recording, each layer runs under
         ``torch.utils.checkpoint``: its activations are recomputed in the
-        backward instead of kept for the whole depth."""
+        backward instead of kept for the whole depth. Under sequence
+        parallelism the layers run on this rank's shard when S divides
+        (``sp_split``); every input and output is still the whole
+        sequence."""
         cfg = self.cfg
         if layer_end is None:
             layer_end = cfg.num_hidden_layers - 1
@@ -195,30 +235,38 @@ class TextDecoder(nn.Module):
         if q_index is None:
             q_index = torch.full((b,), s - 1, dtype=torch.long, device=x.device)
         remat = cfg.remat and torch.is_grad_enabled()
-        ks, vs, sel_qs = {}, {}, {}
+        sp = sp_split(s)
+        valid_all = valid
+        if sp is not None:
+            rows = sp.slice(s)
+            x = split_seq(x, 1, sp)
+            cos, sin, valid = cos[:, rows], sin[:, rows], valid[:, rows]
+        g = cfg.num_attention_heads // cfg.num_key_value_heads
+        ks, vs, harvests = [], [], {}
         for lid in range(layer_start, layer_end + 1):
             if le_vecs is not None and lid > 0:
-                le_rows = le_vecs[lid][le_offset]
-                x = x + torch.where(le_inside[..., None], le_rows.to(x.dtype),
-                                    torch.zeros((), dtype=x.dtype, device=x.device))
+                le_rows = torch.where(le_inside[..., None], le_vecs[lid][le_offset].to(x.dtype),
+                                      torch.zeros((), dtype=x.dtype, device=x.device))
+                x = x + (le_rows if sp is None else split_seq(le_rows, 1, sp))
             layer = self.layers[lid]
             if remat:
-                x, k, v, sel_q = checkpoint(layer.prefill, x, cos, sin, valid, q_index,
-                                            use_reentrant=False)
+                x, q, k, v = checkpoint(layer.prefill, x, cos, sin, valid, sp,
+                                        use_reentrant=False)
             else:
-                x, k, v, sel_q = layer.prefill(x, cos, sin, valid, q_index)
-            if collect_kv or lid in harvest_layers:
-                ks[lid], vs[lid] = k, v
+                x, q, k, v = layer.prefill(x, cos, sin, valid, sp)
+            if collect_kv:
+                ks.append(k)
+                vs.append(v)
             if lid in harvest_layers:
-                sel_qs[lid] = sel_q
-        harvests = {}
-        g = cfg.num_attention_heads // cfg.num_key_value_heads
-        for lid in harvest_layers:
-            k_exp = ks[lid].float().repeat_interleave(g, dim=2)  # [B, S, Hq, D]
-            raw = torch.einsum("bhd,bthd->bth", sel_qs[lid].float(), k_exp)
-            raw = raw / cfg.head_dim ** 0.5
-            harvests[lid] = harvest_postprocess(raw, valid, use_attention_logits)
-        kv = None
-        if collect_kv:
-            kv = (torch.stack(list(ks.values())), torch.stack(list(vs.values())))
+                sel_q = _glimpse_query(q, q_index, sp)
+                k_local = k if sp is None else k[:, rows]
+                k_exp = k_local.float().repeat_interleave(g, dim=2)  # [B, S, Hq, D]
+                raw = torch.einsum("bhd,bthd->bth", sel_q.float(), k_exp)
+                raw = raw / cfg.head_dim ** 0.5
+                if sp is not None:
+                    raw = gather_seq(raw, 1, sp)
+                harvests[lid] = harvest_postprocess(raw, valid_all, use_attention_logits)
+        if sp is not None:
+            x = gather_seq(x, 1, sp)
+        kv = (torch.stack(ks), torch.stack(vs)) if collect_kv else None
         return x, kv, harvests

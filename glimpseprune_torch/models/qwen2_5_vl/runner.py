@@ -23,6 +23,16 @@ KV, quantized once (JAX ``_build_decode_cache`` :424, used at :1134-1137).
 The runner refuses a config knob that the port does not implement, and a
 model whose weights are not in the config's tier, rather than run something
 else.
+
+Sequence parallelism (parallel/sequence.py): inside ``sequence_parallel``
+every rank of the group calls ``generate`` with the same inputs and
+weights; the ViT block stack, the prefill layers and the resume layers
+shard the sequence where it divides, and the keep policy, compaction and
+decode run replicated on the gathered state, so every rank returns the
+same result. The setting is read at each call, not when the runner is
+built (the JAX runner binds it at trace time and warns when it changes,
+:448-452, :872-881). The compressors do not run under SP yet: their entry
+points raise.
 """
 
 from __future__ import annotations
@@ -60,6 +70,7 @@ from glimpseprune_torch.ops.compaction import (
     gather_tokens,
 )
 from glimpseprune_torch.ops.kv_cache import alloc_cache, cache_set_prefix
+from glimpseprune_torch.parallel.sequence import get_sequence_parallel
 
 DECODE_CHUNK = 32  # decode steps between host-side eos / stop-sequence checks
 
@@ -282,6 +293,9 @@ class GlimpsePruneRunner:
         compressors run without them."""
         if method not in COMPRESSION_METHODS:
             raise ValueError(f"unknown compressor {method!r}; one of {COMPRESSION_METHODS}")
+        if get_sequence_parallel() is not None:
+            raise ValueError("the compressors are not sequence-parallel: call "
+                             "generate_compressed / prefill_compressed outside sequence_parallel")
         if clip_text_ids is not None:
             raise ValueError("clip_text_ids (CDPruner's CLIP-text relevance) needs the LLaVA "
                              "model, which is not ported to the torch runner")

@@ -20,11 +20,20 @@ a full-attention one through K2 in bf16 even in an int8-attention tier.
 The score softmax is dense over the whole packed sequence under the
 full-attention segment mask, as in the JAX package, taken one head at a
 time so that one [P, P] fp32 matrix is live at once.
+
+Under sequence parallelism (parallel/sequence.py) the block stack runs on
+this rank's shard of whole windows when P divides (``sp_split(P, wp)``,
+read at each call): the patches, rope tables, segment ids and valid mask
+are split, windowed blocks attend within the local windows with no
+collective, full-attention blocks attend with local queries over the
+gathered keys, and the taps (merge-unit means, which never straddle a
+window) and the stack's output are gathered before the merger, which runs
+replicated. ``emit_importance`` is not sharded: it raises under SP.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -39,6 +48,7 @@ from glimpseprune_torch.ops.attention import (
     segment_attention,
 )
 from glimpseprune_torch.ops.rope import apply_rotary, vision_rope_cos_sin
+from glimpseprune_torch.parallel.sequence import SeqShard, gather_seq, sp_split
 
 
 class VisionAttention(nn.Module):
@@ -58,10 +68,11 @@ class VisionBlock(nn.Module):
         self.mlp = GatedMLP(cfg.hidden_size, cfg.intermediate_size, cfg.hidden_act, bias=True)
 
     def forward(self, x, cos, sin, segment_ids, valid, wp: int, dense_attn: bool = False,
-                emit_importance: bool = False):
+                emit_importance: bool = False, sp: Optional[SeqShard] = None):
         """wp > 0 selects the window path; otherwise full attention over
         segment_ids (dense_attn: one unpadded image, no mask). With
-        emit_importance returns (x, (received [P], keys_mean [P, D]))."""
+        emit_importance returns (x, (received [P], keys_mean [P, D])).
+        Under ``sp`` the inputs are this rank's shard of whole windows."""
         c = self.cfg
         p = x.shape[0]
         a8 = c.act_quant in ("int8", "prefill")
@@ -76,7 +87,8 @@ class VisionBlock(nn.Module):
             else:
                 attn = segment_attention(q, k, qkv[:, 2], segment_ids, dense=dense_attn,
                                          int8_qk=a8 and c.attn_qk_int8 and not emit_importance,
-                                         int8_pv=a8 and c.attn_pv_int8 and not emit_importance)
+                                         int8_pv=a8 and c.attn_pv_int8 and not emit_importance,
+                                         sp=sp)
         x = x + self.attn.proj(attn.reshape(p, c.hidden_size), a8)
         x = x + self.mlp(self.norm2(x), a8)
         if emit_importance:
@@ -135,6 +147,13 @@ class VisionTransformer(nn.Module):
         c = self.cfg
         mu = c.spatial_merge_unit
         dtype = self.patch_embed.weight.dtype
+        sp = sp_split(patches.shape[0], self.window_patches)
+        if sp is not None:
+            if emit_importance:
+                raise ValueError("emit_importance is not sequence-parallel: run it without SP")
+            rows = sp.slice(patches.shape[0])
+            patches, pos_ids, full_seg, valid = (patches[rows], pos_ids[rows], full_seg[rows],
+                                                 valid[rows])
         x = self.patch_embed(patches.to(dtype))
         cos, sin = vision_rope_cos_sin(pos_ids, c.head_dim)
         cos, sin = cos.to(dtype), sin.to(dtype)
@@ -145,7 +164,7 @@ class VisionTransformer(nn.Module):
         for i, block in enumerate(self.blocks):
             want_imp = emit_importance and i in (first_fullatt, c.depth - 1)
             out = block(x, cos, sin, full_seg, valid, 0 if i in fullatt else self.window_patches,
-                        dense_attn=dense_attn, emit_importance=want_imp)
+                        dense_attn=dense_attn, emit_importance=want_imp, sp=sp)
             if want_imp:
                 x, (received, keys_mean) = out
                 pooled = received.reshape(-1, mu).mean(1)
@@ -157,7 +176,10 @@ class VisionTransformer(nn.Module):
             else:
                 x = out
             if i in self.tap_layers:
-                taps[self.tap_layers.index(i)] = x.reshape(-1, mu, c.hidden_size).mean(1)
+                tap = x.reshape(-1, mu, c.hidden_size).mean(1)
+                taps[self.tap_layers.index(i)] = tap if sp is None else gather_seq(tap, 0, sp)
+        if sp is not None:
+            x = gather_seq(x, 0, sp)
         merged = self.merger_ln_q(x).reshape(-1, mu * c.hidden_size)
         merged = self.merger_fc2(F.gelu(self.merger_fc1(merged)))
         if emit_importance:

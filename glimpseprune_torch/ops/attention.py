@@ -13,9 +13,19 @@ The int8 serving tier (``int8_qk``, ``int8_pv``) goes through K7, the
 int8 flavour of the flash kernel. Decode attention has no kernel in the JAX
 package either; it is plain PyTorch here, over a cache in the model dtype
 or in the int8 tier of ops/kv_cache.py.
+
+Under sequence parallelism (parallel/sequence.py; JAX :42-190) the caller
+passes ``sp``, the shard the layer stack runs on, and these entry points
+take and return this rank's shard: segment and causal attention keep q
+local and gather k, v and the segment ids or padding mask once
+(``gather_kv``), causal attention masks against global slots through K9
+(the flash kernel's q_positions flavour), and window attention runs on the
+rank's whole windows with no collective.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -25,22 +35,36 @@ from glimpseprune_torch.ops.cuda.window_attention import (
     window_attention_fused,
 )
 from glimpseprune_torch.ops.kv_cache import Cache, is_quantized
+from glimpseprune_torch.parallel.sequence import SeqShard, gather_kv, gather_seq
 
 NEG_INF = -1e30
 
 
+def _gather_kv_pair(k: torch.Tensor, v: torch.Tensor, dim: int, sp: SeqShard):
+    """k and v of every rank, in one collective (they share a shape)."""
+    kv = gather_kv(torch.stack([k, v]), dim + 1, sp)
+    return kv[0], kv[1]
+
+
 def segment_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       segment_ids: torch.Tensor, dense: bool = False,
-                      int8_qk: bool = False, int8_pv: bool = False) -> torch.Tensor:
+                      int8_qk: bool = False, int8_pv: bool = False,
+                      sp: Optional[SeqShard] = None) -> torch.Tensor:
     """Bidirectional block-diagonal attention over the packed ViT sequence.
 
     q/k/v [S, H, D]; segment_ids [S] (attend iff equal; < 0 is padding).
     dense=True promises one valid segment (a single unpadded image), so no
     mask is applied. int8_qk runs QK^T in int8 (per-row q/k), int8_pv also
-    the PV product (the JAX package's :216-256). Returns [S, H, D]."""
-    seg = None if dense else segment_ids[None]
+    the PV product (the JAX package's :216-256). Returns [S, H, D]. Under
+    ``sp`` every input is this rank's shard: k, v and the segment ids are
+    gathered, and the local queries attend over the whole sequence."""
+    q_seg = kv_seg = None if dense else segment_ids[None]
+    if sp is not None:
+        k, v = _gather_kv_pair(k, v, 0, sp)
+        if not dense:
+            kv_seg = gather_seq(segment_ids, 0, sp)[None]
     out = flash_attention(q.transpose(0, 1)[None], k.transpose(0, 1)[None],
-                          v.transpose(0, 1)[None], seg, seg, dense=dense,
+                          v.transpose(0, 1)[None], q_seg, kv_seg, dense=dense,
                           qkv_int8=int8_qk, pv_int8=int8_qk and int8_pv)
     return out[0].transpose(0, 1)
 
@@ -49,29 +73,43 @@ def batched_window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              valid: torch.Tensor, wp: int) -> torch.Tensor:
     """Attention within fixed windows of wp patches (the JAX :268-317):
     q/k/v [P, H, D] with rope applied, valid [P] -> [P, H, D]. Pad slots
-    attend to themselves, so every row is defined."""
+    attend to themselves, so every row is defined. Under sequence
+    parallelism the caller passes its shard of whole windows: no
+    collective."""
     return window_attention(q.contiguous(), k.contiguous(), v.contiguous(), valid, wp)
 
 
 def fused_window_attention(qkv: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
                            valid: torch.Tensor, wp: int) -> torch.Tensor:
     """Rope + attention inside each window of wp patches: qkv [P, 3, H, D]
-    pre-rope, cos/sin [P, D], valid [P] -> [P, H, D]."""
+    pre-rope, cos/sin [P, D], valid [P] -> [P, H, D]. Under sequence
+    parallelism the caller passes its shard of whole windows (and their rope
+    rows): no collective."""
     return window_attention_fused(qkv, cos, sin, valid, wp)
 
 
 def causal_segment_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              valid: torch.Tensor, int8_qk: bool = False,
-                             int8_pv: bool = False) -> torch.Tensor:
+                             int8_pv: bool = False, sp: Optional[SeqShard] = None):
     """Causal GQA self-attention over a left-padded batch.
 
-    q [B, S, Hq, D], k/v [B, S, Hkv, D], valid [B, S] -> [B, S, Hq, D].
-    int8_qk / int8_pv: as in segment_attention."""
-    seg = torch.where(valid, 0, -1).to(torch.int32)
+    q [B, S, Hq, D], k/v [B, S, Hkv, D], valid [B, S] -> (out [B, S, Hq, D],
+    k, v), where k and v are the ones attended over: what the KV cache
+    keeps. int8_qk / int8_pv: as in segment_attention. Under ``sp`` every
+    input and ``out`` are this rank's shard of the sequence: k, v and valid
+    are gathered (the returned k and v are the whole sequence's), and K9
+    masks each local query against its global slot."""
+    seg_q = seg_k = torch.where(valid, 0, -1).to(torch.int32)
+    q_positions = None
+    if sp is not None:
+        k, v = _gather_kv_pair(k, v, 1, sp)
+        seg_k = gather_seq(seg_q, 1, sp)
+        b, sl = valid.shape
+        q_positions = (sp.rank * sl + torch.arange(sl, device=q.device)).expand(b, sl)
     out = flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                          seg, seg, causal=True, qkv_int8=int8_qk,
-                          pv_int8=int8_qk and int8_pv)
-    return out.transpose(1, 2)
+                          seg_q, seg_k, causal=True, qkv_int8=int8_qk,
+                          pv_int8=int8_qk and int8_pv, q_positions=q_positions)
+    return out.transpose(1, 2), k, v
 
 
 def decode_attention(q: torch.Tensor, k_cache: Cache, v_cache: Cache,

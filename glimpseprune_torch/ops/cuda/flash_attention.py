@@ -14,6 +14,15 @@ Replaces the Pallas kernels of glimpseprune_tpu/ops/pallas/flash_attention.py:
   in plain PyTorch as JAX does it outside its kernel): per-row int8 q and k,
   an int32 QK^T with a rank-1 rescale, and with ``pv_int8`` an int8 PV
   product per kv tile. Inference only, as in JAX.
+- K9, the ``q_positions`` flavour of K2, K2-lse, K3 and K7
+  (``_qpos_kernel_adapter`` :183, ``_i8_qpos_kernel_adapter`` :191,
+  ``_qpos_lse_kernel_adapter`` :216, the custom VJP
+  ``_flash_attention_qpos_diff`` :341 with ``_bwd_dq_qpos_adapter`` :787 and
+  ``_bwd_dkv_qpos_adapter`` :795): q [B, Hq, Sq, D] is a shard of a longer
+  sequence whose k and v [B, Hkv, Skv, D] are given whole, and causal
+  allows key t for query s iff t <= q_positions[b, s], the row's global
+  slot. Sequence-parallel prefill calls it; its launches are counted under
+  the flavour ``"causal+qpos"``.
 The CUDA sources are ``glimpseprune_torch/csrc/flash_attention.cu`` (K2,
 K2-lse and K7, one kernel with template flavours) and
 ``flash_attention_bwd.cu`` (K3); their headers say what bounds them on the
@@ -45,18 +54,18 @@ NEG_INF = -1e30
 LOG2E = math.log2(math.e)
 MAX_DQK = 256
 MAX_DV = 128
-FLAVOURS = ("causal", "dense", "dqk_ne_dv", "segmented")
+FLAVOURS = ("causal", "causal+qpos", "dense", "dqk_ne_dv", "segmented")
 # K7's launch-count buckets: the flavour, with "+pv8" under pv_int8
 INT8_FLAVOURS = tuple(f + pv for f in FLAVOURS for pv in ("", "+pv8"))
 # the kv tile of csrc/flash_attention.cu, over which K7's pv_int8 quantizes v
 KERNEL_BLOCK_K = 64
 
 
-def flavour(causal: bool, dense: bool, dqk: int, dv: int) -> str:
+def flavour(causal: bool, dense: bool, dqk: int, dv: int, qpos: bool = False) -> str:
     """The launch-count bucket of one call: the first that applies of
-    causal, dense, dqk != dv, segmented."""
+    causal (+qpos with q positions), dense, dqk != dv, segmented."""
     if causal:
-        return "causal"
+        return "causal+qpos" if qpos else "causal"
     if dense:
         return "dense"
     return "dqk_ne_dv" if dqk != dv else "segmented"
@@ -64,17 +73,18 @@ def flavour(causal: bool, dense: bool, dqk: int, dv: int) -> str:
 
 def allowed_mask(q_segment_ids: Optional[torch.Tensor], kv_segment_ids: Optional[torch.Tensor],
                  b: int, sq: int, skv: int, causal: bool, dense: bool,
-                 device) -> torch.Tensor:
+                 device, q_positions: Optional[torch.Tensor] = None) -> torch.Tensor:
     """[B, Sq, Skv] bool: key t is allowed for query s iff the segment ids
-    are equal and the query's is >= 0 (all keys when dense), and t <= s when
-    causal."""
+    are equal and the query's is >= 0 (all keys when dense), and, when
+    causal, t <= s, or t <= q_positions[b, s] when q positions are given."""
     if dense:
         allowed = torch.ones((b, sq, skv), dtype=torch.bool, device=device)
     else:
         qs = q_segment_ids[:, :, None]
         allowed = (qs == kv_segment_ids[:, None, :]) & (qs >= 0)
     if causal:
-        pos_q = torch.arange(sq, device=device)[:, None]
+        pos_q = (torch.arange(sq, device=device)[:, None] if q_positions is None
+                 else q_positions.to(device)[:, :, None])
         allowed = allowed & (pos_q >= torch.arange(skv, device=device)[None, :])
     return allowed
 
@@ -90,19 +100,21 @@ def _scores(q, k, v):
 def flash_attention_lse_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                   q_segment_ids: Optional[torch.Tensor],
                                   kv_segment_ids: Optional[torch.Tensor],
-                                  causal: bool = False,
-                                  dense: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of K2 and K2-lse: fp32 math from the given inputs.
+                                  causal: bool = False, dense: bool = False,
+                                  q_positions: Optional[torch.Tensor] = None
+                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K2, K2-lse and K9: fp32 math from the given inputs.
 
     q [B, Hq, Sq, Dqk], k [B, Hkv, Skv, Dqk], v [B, Hkv, Skv, Dv]; segment
-    ids [B, S] int (ignored when dense). Returns (out [B, Hq, Sq, Dv] in q's
+    ids [B, S] int (ignored when dense); q_positions [B, Sq] int, the causal
+    slot of each q row (K9). Returns (out [B, Hq, Sq, Dv] in q's
     dtype, lse [B, Hq, Sq] f32): lse is log2(sum_t 2^(s_t log2 e)), the
     log-sum-exp of the scaled scores in the log2 domain, and -1e30 for a row
     with no allowed key, whose output is 0."""
     b, _, sq, _ = q.shape
     scores, _, vf = _scores(q, k, v)
     allowed = allowed_mask(q_segment_ids, kv_segment_ids, b, sq, k.shape[2], causal, dense,
-                           q.device)
+                           q.device, q_positions)
     scores = scores.masked_fill(~allowed[:, None], NEG_INF)
     seen = allowed.any(-1)[:, None, :]  # [B, 1, Sq]
     lse = torch.logsumexp(scores, dim=-1)  # the softmax's own normalizer
@@ -113,19 +125,22 @@ def flash_attention_lse_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Ten
 
 
 def flash_attention_reference(q, k, v, q_segment_ids, kv_segment_ids,
-                              causal: bool = False, dense: bool = False) -> torch.Tensor:
-    """Plain version of K2: the output of ``flash_attention_lse_reference``."""
+                              causal: bool = False, dense: bool = False,
+                              q_positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain version of K2 and K9: the output of
+    ``flash_attention_lse_reference``."""
     return flash_attention_lse_reference(q, k, v, q_segment_ids, kv_segment_ids,
-                                         causal, dense)[0]
+                                         causal, dense, q_positions)[0]
 
 
 def flash_attention_backward_reference(
         q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q_segment_ids: Optional[torch.Tensor], kv_segment_ids: Optional[torch.Tensor],
         out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
-        causal: bool = False, dense: bool = False
+        causal: bool = False, dense: bool = False,
+        q_positions: Optional[torch.Tensor] = None
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain version of K3, in fp32 from the given inputs: the probabilities
+    """Plain version of K3 and of K9's backward (with q_positions), in fp32 from the given inputs: the probabilities
     recomputed from q, k and the log2-domain lse (0 on rows whose lse is
     -1e30), dsum = rowsum(dO * O), ds = p * (dO V^T - dsum), then
     dq = ds K / sqrt(Dqk), dk = ds^T Q / sqrt(Dqk), dv = p^T dO, with dk and
@@ -136,7 +151,7 @@ def flash_attention_backward_reference(
     scale = 1.0 / dqk ** 0.5
     scores, kf, vf = _scores(q, k, v)
     allowed = allowed_mask(q_segment_ids, kv_segment_ids, b, sq, skv, causal, dense,
-                           q.device)[:, None] & (lse > NEG_INF / 2)[..., None]
+                           q.device, q_positions)[:, None] & (lse > NEG_INF / 2)[..., None]
     s2 = (scores * LOG2E).masked_fill(~allowed, NEG_INF)
     p = torch.exp2(s2 - lse[..., None]).masked_fill(~allowed, 0.0)
     dof = dout.float()
@@ -158,42 +173,54 @@ def _strides(t: torch.Tensor, name: str):
     return st
 
 
-def _check(q, k, v, q_segment_ids, kv_segment_ids, causal, dense):
-    """Validate a CUDA call -> (segment-id pointers, int32 segment ids)."""
+def _check(q, k, v, q_segment_ids, kv_segment_ids, causal, dense, q_positions=None):
+    """Validate a CUDA call -> (segment-id and q-position pointers, the int32
+    tensors they point into)."""
     b, hq, sq, dqk = q.shape
     _, hkv, skv, dv = v.shape
     if k.shape != (b, hkv, skv, dqk) or v.shape[0] != b or hq % hkv:
         raise ValueError(f"flash_attention: shapes q{tuple(q.shape)} "
                          f"k{tuple(k.shape)} v{tuple(v.shape)} do not match")
-    if causal and sq != skv:
-        raise ValueError("flash_attention: causal needs Sq == Skv")
+    qpos = None
+    if q_positions is not None:
+        qpos = q_positions.to(device=q.device, dtype=torch.int32).contiguous()
+        if qpos.shape != (b, sq):
+            raise ValueError("flash_attention: q_positions must be [B, Sq]")
+    elif causal and sq != skv:
+        raise ValueError("flash_attention: causal needs Sq == Skv without q_positions")
     if not (0 < dqk <= MAX_DQK and 0 < dv <= MAX_DV):
         raise ValueError(f"flash_attention: unsupported head dims {dqk}/{dv}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dtype != torch.bfloat16 or t.device != q.device:
             raise ValueError(f"flash_attention: {name} must be bf16 on {q.device}")
+    qpos_ptr = None if qpos is None else qpos.data_ptr()
     if dense:
-        return (None, None), (None, None)
+        return (None, None, qpos_ptr), (qpos,)
     qseg = q_segment_ids.to(device=q.device, dtype=torch.int32).contiguous()
     kseg = kv_segment_ids.to(device=q.device, dtype=torch.int32).contiguous()
     if qseg.shape != (b, sq) or kseg.shape != (b, skv):
         raise ValueError("flash_attention: segment ids must be [B, Sq] and [B, Skv]")
-    return (qseg.data_ptr(), kseg.data_ptr()), (qseg, kseg)
+    return (qseg.data_ptr(), kseg.data_ptr(), qpos_ptr), (qseg, kseg, qpos)
 
 
-def _device_of(q: torch.Tensor, dense: bool, q_segment_ids, kv_segment_ids) -> str:
+def _device_of(q: torch.Tensor, dense: bool, q_segment_ids, kv_segment_ids,
+               causal: bool = False, q_positions=None) -> str:
     if not dense and (q_segment_ids is None or kv_segment_ids is None):
         raise ValueError("flash_attention: segment ids are required unless dense")
+    if q_positions is not None and (not causal or dense):
+        raise ValueError("flash_attention: q_positions ask for causal, non-dense attention")
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     return q.device.type
 
 
-def _launch_forward(q, k, v, q_segment_ids, kv_segment_ids, causal, dense, with_lse):
+def _launch_forward(q, k, v, q_segment_ids, kv_segment_ids, causal, dense, with_lse,
+                    q_positions=None):
     """One launch of csrc/flash_attention.cu -> (out, lse or None)."""
     b, hq, sq, dqk = q.shape
     _, hkv, skv, dv = v.shape
-    seg_ptrs, _keep = _check(q, k, v, q_segment_ids, kv_segment_ids, causal, dense)
+    seg_ptrs, _keep = _check(q, k, v, q_segment_ids, kv_segment_ids, causal, dense,
+                             q_positions)
     strides = _strides(q, "q") + _strides(k, "k") + _strides(v, "v")
     out = torch.empty((b, sq, hq, dv), dtype=q.dtype, device=q.device).transpose(1, 2)
     lse = (torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
@@ -201,7 +228,7 @@ def _launch_forward(q, k, v, q_segment_ids, kv_segment_ids, causal, dense, with_
     if out.numel() == 0:
         return out, lse
     fn = load_library("flash_attention").flash_attention_bf16
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 20 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 20 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -215,17 +242,21 @@ def _launch_forward(q, k, v, q_segment_ids, kv_segment_ids, causal, dense, with_
 def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         q_segment_ids: Optional[torch.Tensor] = None,
                         kv_segment_ids: Optional[torch.Tensor] = None,
-                        causal: bool = False,
-                        dense: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K2-lse: ``flash_attention``'s output and the per-row log2-domain LSE
-    [B, Hq, Sq] f32 (-1e30 on rows with no allowed key), which K3 reads.
-    ``flash_attention_lse.launches[flavour]`` counts kernel launches."""
-    if _device_of(q, dense, q_segment_ids, kv_segment_ids) == "cpu":
+                        causal: bool = False, dense: bool = False,
+                        q_positions: Optional[torch.Tensor] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2-lse (K9-lse with q_positions): ``flash_attention``'s output and the
+    per-row log2-domain LSE [B, Hq, Sq] f32 (-1e30 on rows with no allowed
+    key), which K3 reads. ``flash_attention_lse.launches[flavour]`` counts
+    kernel launches."""
+    if _device_of(q, dense, q_segment_ids, kv_segment_ids, causal, q_positions) == "cpu":
         return flash_attention_lse_reference(q, k, v, q_segment_ids, kv_segment_ids,
-                                             causal, dense)
-    out, lse = _launch_forward(q, k, v, q_segment_ids, kv_segment_ids, causal, dense, True)
+                                             causal, dense, q_positions)
+    out, lse = _launch_forward(q, k, v, q_segment_ids, kv_segment_ids, causal, dense, True,
+                               q_positions)
     if out.numel():
-        flash_attention_lse.launches[flavour(causal, dense, q.shape[-1], v.shape[-1])] += 1
+        flash_attention_lse.launches[flavour(causal, dense, q.shape[-1], v.shape[-1],
+                                             q_positions is not None)] += 1
     return out, lse
 
 
@@ -233,21 +264,25 @@ def flash_attention_backward(
         q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q_segment_ids: Optional[torch.Tensor], kv_segment_ids: Optional[torch.Tensor],
         out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
-        causal: bool = False, dense: bool = False
+        causal: bool = False, dense: bool = False,
+        q_positions: Optional[torch.Tensor] = None
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """K3: (dq, dk, dv) of attention from the forward's output and LSE.
+    """K3 (K9's backward with q_positions): (dq, dk, dv) of attention from
+    the forward's output and LSE. With q_positions, dk and dv are the part
+    of this q shard; summing them over the shards gives the whole.
 
     On the card dsum = rowsum(dO * O) is one PyTorch reduction (the JAX
     package computes it outside Pallas too, :818), then one launch of
     csrc/flash_attention_bwd.cu writes dq, dk, dv as [B, H, S, D] views of
     [B, S, H, D] buffers. ``flash_attention_backward.launches[flavour]``
     counts kernel launches."""
-    if _device_of(q, dense, q_segment_ids, kv_segment_ids) == "cpu":
+    if _device_of(q, dense, q_segment_ids, kv_segment_ids, causal, q_positions) == "cpu":
         return flash_attention_backward_reference(q, k, v, q_segment_ids, kv_segment_ids,
-                                                  out, lse, dout, causal, dense)
+                                                  out, lse, dout, causal, dense, q_positions)
     b, hq, sq, dqk = q.shape
     _, hkv, skv, dv = v.shape
-    seg_ptrs, _keep = _check(q, k, v, q_segment_ids, kv_segment_ids, causal, dense)
+    seg_ptrs, _keep = _check(q, k, v, q_segment_ids, kv_segment_ids, causal, dense,
+                             q_positions)
     if out.shape != (b, hq, sq, dv) or dout.shape != out.shape or lse.shape != (b, hq, sq):
         raise ValueError("flash_attention_backward: out, dout or lse has the wrong shape")
     dout = dout.to(torch.bfloat16)
@@ -264,33 +299,38 @@ def flash_attention_backward(
                + _strides(dout, "dout") + dq.stride()[:3] + dk.stride()[:3]
                + dvv.stride()[:3])
     fn = load_library("flash_attention_bwd").flash_attention_bwd_bf16
-    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 29 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 29 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
             dsum.data_ptr(), *seg_ptrs, dq.data_ptr(), dk.data_ptr(), dvv.data_ptr(),
             b, hq, hkv, sq, skv, dqk, dv, *strides, int(causal), stream)
     check_launch(rc, "flash_attention_backward")
-    flash_attention_backward.launches[flavour(causal, dense, dqk, dv)] += 1
+    flash_attention_backward.launches[flavour(causal, dense, dqk, dv,
+                                              q_positions is not None)] += 1
     return dq, dk, dvv
 
 
 class FlashAttentionFunction(torch.autograd.Function):
-    """Differentiable flash attention: K2-lse forward, K3 backward (their
-    plain versions on CPU tensors). Segment ids and flags get no gradient."""
+    """Differentiable flash attention: K2-lse forward, K3 backward (K9's
+    flavours with q positions; their plain versions on CPU tensors).
+    Segment ids, q positions and flags get no gradient."""
 
     @staticmethod
-    def forward(ctx, q, k, v, q_segment_ids, kv_segment_ids, causal: bool, dense: bool):
-        out, lse = flash_attention_lse(q, k, v, q_segment_ids, kv_segment_ids, causal, dense)
-        ctx.save_for_backward(q, k, v, q_segment_ids, kv_segment_ids, out, lse)
+    def forward(ctx, q, k, v, q_segment_ids, kv_segment_ids, causal: bool, dense: bool,
+                q_positions=None):
+        out, lse = flash_attention_lse(q, k, v, q_segment_ids, kv_segment_ids, causal, dense,
+                                       q_positions)
+        ctx.save_for_backward(q, k, v, q_segment_ids, kv_segment_ids, q_positions, out, lse)
         ctx.flags = (causal, dense)
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, qseg, kseg, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_backward(q, k, v, qseg, kseg, out, lse, dout, *ctx.flags)
-        return dq, dk, dv, None, None, None, None
+        q, k, v, qseg, kseg, qpos, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(q, k, v, qseg, kseg, out, lse, dout, *ctx.flags,
+                                              q_positions=qpos)
+        return dq, dk, dv, None, None, None, None, None
 
 
 # ---------------------------------------------------------------- K7
@@ -305,8 +345,9 @@ def flash_attention_int8_reference(
         k_scale: torch.Tensor, q_segment_ids: Optional[torch.Tensor],
         kv_segment_ids: Optional[torch.Tensor], causal: bool = False, dense: bool = False,
         pv_int8: bool = False, block_k: int = KERNEL_BLOCK_K,
-        out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
-    """Plain version of K7: the online softmax over kv tiles of ``block_k``
+        out_dtype: torch.dtype = torch.bfloat16,
+        q_positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain version of K7 (K9-int8 with q_positions): the online softmax over kv tiles of ``block_k``
     keys, in fp32, as the kernel runs it. Scores are the exact integer
     q_i8 . k_i8 times (q_scale * sm_scale * log2 e) * k_scale; with pv_int8
     each tile's probabilities are rounded to p * 127 and its v quantized
@@ -318,7 +359,7 @@ def flash_attention_int8_reference(
     g = hq // k_i8.shape[1]
     scale2 = (1.0 / d ** 0.5) * LOG2E
     allowed = allowed_mask(q_segment_ids, kv_segment_ids, b, sq, skv, causal, dense,
-                           q_i8.device)[:, None]
+                           q_i8.device, q_positions)[:, None]
     qf = q_i8.float()
     kf = k_i8.float().repeat_interleave(g, dim=1)
     ksc = k_scale.float().repeat_interleave(g, dim=1)
@@ -353,8 +394,9 @@ def flash_attention_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          q_segment_ids: Optional[torch.Tensor] = None,
                          kv_segment_ids: Optional[torch.Tensor] = None,
                          causal: bool = False, dense: bool = False, pv_int8: bool = False,
-                         block_k: Optional[int] = None) -> torch.Tensor:
-    """K7: attention with per-row int8 q and k (and, with pv_int8, an int8
+                         block_k: Optional[int] = None,
+                         q_positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K7 (K9-int8 with q_positions): attention with per-row int8 q and k (and, with pv_int8, an int8
     PV product) -> [B, Hq, Sq, Dv] in q's dtype; layouts as
     ``flash_attention``. q and k are quantized here (plain PyTorch, as JAX
     does outside its kernel). block_k is the kv tile over which pv_int8
@@ -362,32 +404,33 @@ def flash_attention_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     card it is the kernel's, ``KERNEL_BLOCK_K``, and another value raises.
     ``flash_attention_int8.launches[flavour(+pv8)]`` counts kernel
     launches."""
-    device = _device_of(q, dense, q_segment_ids, kv_segment_ids)
+    device = _device_of(q, dense, q_segment_ids, kv_segment_ids, causal, q_positions)
     q8, qsc = quantize_kv(q)  # per-row int8, JAX's _quant_rows_i8 (:232)
     k8, ksc = quantize_kv(k)
     if device == "cpu":
         return flash_attention_int8_reference(
             q8, k8, v, qsc, ksc, q_segment_ids, kv_segment_ids, causal, dense, pv_int8,
-            block_k or default_block_k(k.shape[2]), q.dtype)
+            block_k or default_block_k(k.shape[2]), q.dtype, q_positions)
     if block_k not in (None, KERNEL_BLOCK_K):
         raise ValueError(f"flash_attention_int8: the kernel's kv tile is {KERNEL_BLOCK_K}")
     b, hq, sq, dqk = q.shape
     _, hkv, skv, dv = v.shape
-    seg_ptrs, _keep = _check(q, k, v, q_segment_ids, kv_segment_ids, causal, dense)
+    seg_ptrs, _keep = _check(q, k, v, q_segment_ids, kv_segment_ids, causal, dense,
+                             q_positions)
     out = torch.empty((b, sq, hq, dv), dtype=q.dtype, device=q.device).transpose(1, 2)
     if out.numel() == 0:
         return out
     strides = _strides(q8, "q") + _strides(k8, "k") + _strides(v, "v")
     qsc, ksc = qsc.contiguous(), ksc.contiguous()  # indexed as [B, H, S]
     fn = load_library("flash_attention").flash_attention_i8
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 21 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 21 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     rc = fn(q8.data_ptr(), k8.data_ptr(), v.data_ptr(), out.data_ptr(), qsc.data_ptr(),
             ksc.data_ptr(), *seg_ptrs, b, hq, hkv, sq, skv, dqk, dv, *strides,
             *out.stride()[:3], int(causal), int(pv_int8),
             torch.cuda.current_stream(q.device).cuda_stream)
     check_launch(rc, "flash_attention_int8")
-    fl = flavour(causal, dense, dqk, dv) + ("+pv8" if pv_int8 else "")
+    fl = flavour(causal, dense, dqk, dv, q_positions is not None) + ("+pv8" if pv_int8 else "")
     flash_attention_int8.launches[fl] += 1
     return out
 
@@ -396,7 +439,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     q_segment_ids: Optional[torch.Tensor] = None,
                     kv_segment_ids: Optional[torch.Tensor] = None,
                     causal: bool = False, dense: bool = False, qkv_int8: bool = False,
-                    pv_int8: bool = False, block_k: Optional[int] = None) -> torch.Tensor:
+                    pv_int8: bool = False, block_k: Optional[int] = None,
+                    q_positions: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Attention of q [B, Hq, Sq, Dqk] over k [B, Hkv, Skv, Dqk] and
     v [B, Hkv, Skv, Dv] -> [B, Hq, Sq, Dv].
 
@@ -409,23 +453,31 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     qkv_int8 (with pv_int8, block_k) selects K7, ``flash_attention_int8``:
     the int8 serving tier, inference only, so it raises while autograd
-    records, as the JAX tier has no VJP."""
+    records, as the JAX tier has no VJP.
+
+    q_positions [B, Sq] int (K9; needs causal and segment ids): q is a
+    shard of the sequence that k and v hold whole, and q row s is the
+    sequence's slot q_positions[b, s]; causal allows key t iff t <=
+    q_positions[b, s]. Each row's output equals the monolithic call's."""
     if pv_int8 and not qkv_int8:
         raise ValueError("flash_attention: pv_int8 rides the qkv_int8 tier")
     if qkv_int8:
         if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
             raise ValueError("flash_attention: the int8 tier is inference only (no backward)")
         return flash_attention_int8(q, k, v, q_segment_ids, kv_segment_ids, causal, dense,
-                                    pv_int8, block_k)
-    device = _device_of(q, dense, q_segment_ids, kv_segment_ids)
+                                    pv_int8, block_k, q_positions)
+    device = _device_of(q, dense, q_segment_ids, kv_segment_ids, causal, q_positions)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         return FlashAttentionFunction.apply(q, k, v, q_segment_ids, kv_segment_ids,
-                                            causal, dense)
+                                            causal, dense, q_positions)
     if device == "cpu":
-        return flash_attention_reference(q, k, v, q_segment_ids, kv_segment_ids, causal, dense)
-    out, _ = _launch_forward(q, k, v, q_segment_ids, kv_segment_ids, causal, dense, False)
+        return flash_attention_reference(q, k, v, q_segment_ids, kv_segment_ids, causal, dense,
+                                         q_positions)
+    out, _ = _launch_forward(q, k, v, q_segment_ids, kv_segment_ids, causal, dense, False,
+                             q_positions)
     if out.numel():
-        flash_attention.launches[flavour(causal, dense, q.shape[-1], v.shape[-1])] += 1
+        flash_attention.launches[flavour(causal, dense, q.shape[-1], v.shape[-1],
+                                         q_positions is not None)] += 1
     return out
 
 

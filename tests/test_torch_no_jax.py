@@ -39,7 +39,8 @@ def test_port_imports_no_jax():
     assert "glimpseprune_torch.ops.cuda.int4_matmul" in out["modules"]
     for name in ("compressors", "compressors.visionzip", "compressors.divprune",
                  "compressors.cdpruner", "compressors.vscan", "compressors.staged",
-                 "ops.cuda.window_attention"):
+                 "ops.cuda.window_attention", "parallel", "parallel.sequence",
+                 "parallel.launch"):
         assert f"glimpseprune_torch.{name}" in out["modules"]
     assert out["jax"] == []
 
