@@ -8,11 +8,20 @@ Phases, each of which raises on failure (the script then exits non-zero):
   2. build the CUDA kernels from glimpseprune_torch/csrc/, one nvcc per
      source, all at once (timed);
   3. K1, the fused window attention, and K8, window attention on roped
-     q, k, v, each against its plain version at the 7B ViT's windowed shape
-     (K8 also against K1 run on the same q, k, v, which ropes them a second
-     time and must fail the check);
+     q, k, v, each against its plain version at the 7B ViT's windowed shape,
+     also relative to the output's size (K1 with the plain version's P in
+     4 bits, K8 with K1 run on the same q, k, v, which ropes them a second
+     time, as controls that must fail the check), then both on edge cases:
+     a window with one valid key, trailing pad windows, the tiny config's
+     head dim;
   4. K2, flash attention, against its plain version at each serving call
-     site: ViT dense and segmented, LLM causal GQA, fuser Dqk != Dv;
+     site: ViT dense and segmented, LLM causal GQA, fuser Dqk != Dv, also
+     relative to the output's size (controls that must fail: the plain
+     version with P in 4 bits, and without key tile 0); then
+     K2 and K2-lse on edge cases: Sq and Skv that are no multiple of a
+     tile, the tiny config's head dims (8, 16, 8/4), GQA group 7 with
+     left-padded rows and a q tile that is all padding, and rows with no
+     allowed key (output exactly 0, LSE exactly -1e30);
   5. K2-lse (flash attention with the per-row LSE) and K3 (its backward)
      against their plain versions at the training batch's LLM causal GQA
      and fuser Dqk != Dv shapes, and at a small dense case;
@@ -63,7 +72,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
      one process and two SP train steps, one SP (q8) generate with the text
      attention in int8 (K9-int8), and the tiny config under SP on the card
      against the CPU; times from CUDA events and peaks per rank.
-Every kernel row carries its time, its plain version's time, one PyTorch
+Every kernel row carries its time (CUDA events over 10 calls; for K1, K8,
+K2, K2-lse and K9 also ``device_ms``, the card's own time from
+torch.profiler, without the host's launch cost), its plain version's time, one PyTorch
 call's time where one computes the same function (``library_ms``: SDPA
 with the same boolean mask, or its autograd backward; a yardstick the port
 never calls; for the int4 products, where no PyTorch call computes the
@@ -71,8 +82,11 @@ function, null with ``bf16_matmul_ms`` beside it: the bf16 matmul of the
 same shape that the unquantized path pays) and ``bound_ms``: the larger of
 its bytes over the card's memory rate and its operations over the tensor
 peak of their type (bf16, or int8 for the int8 products), counted from this
-run's inputs. The line before the last is a JSON object with one entry per
-kernel flavour; the last line is {"ok": true, "device": {...}}.
+run's inputs. Before the summary, one "speed" line per kernel row gives its
+time beside the time PERF.md records for it before the tensor-core
+redesign of K1, K8 and K2 (``RECORDED_MS``), the rate it reached and its
+share of the bound. The line before the last is a JSON object with one
+entry per kernel flavour; the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -141,11 +155,41 @@ INT4_RTOL = 4e-3
 # on every run by holding each kernel output against the other references.
 K7_MAX_RTOL = 2 ** -7
 K7_RMS_RTOL = 2 ** -8
+# K1 and K2 at the main path's shapes are held to the same two limits
+# beside KERNEL_ATOL, since their outputs are as small: like Pallas they
+# round P to bf16 before PV (unit roundoff 2**-8 of each probability, ~2.3e-3
+# RMS of the output) and round the output to bf16. Controls that must fail:
+# the plain version with P rounded to 4 significant bits (~2.7e-2 RMS off)
+# and, for K2, without key tile 0 (control_attention).
 # H100 SXM published peaks (NVIDIA data sheet, dense): the bf16 and int8
 # tensor rates and HBM bandwidth; bound_ms is stated against them.
 PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
 PEAK_HBM_BYTES = 3.35e12
+# Each kernel's time as PERF.md's kernel table records it for the CUDA-core
+# kernels that the tensor-core K1, K8 and K2 flavours replace (and for the
+# kernels kept as they are), mean ms of 10 calls on an NVIDIA H100 80GB HBM3
+# at 700 W at the same shapes: printed beside this run's time.
+RECORDED_MS = {
+    "window_attention_fused": 0.2946, "window_attention": 0.3016,
+    "flash_attention[dense]": 3.7256, "flash_attention[segmented]": 5.4423,
+    "flash_attention[causal]": 0.6203, "flash_attention[dqk_ne_dv]": 0.3383,
+    "flash_attention_lse[causal]": 0.9003, "flash_attention_lse[dqk_ne_dv]": 0.3417,
+    "flash_attention_backward[causal]": 4.5586, "flash_attention_backward[dqk_ne_dv]": 0.9605,
+    "matmul_int4[3584x3584]": 0.0434, "matmul_int4[3584x512]": 0.0554,
+    "matmul_int4[3584x18944]": 0.0745, "matmul_int4[18944x3584]": 0.0793,
+    "matmul_int4[3584x152064]": 0.9781,
+    "matmul_int4_prefill[a16,3584x3584]": 2.1540, "matmul_int4_prefill[a16,3584x512]": 0.5300,
+    "matmul_int4_prefill[a16,3584x18944]": 10.4312,
+    "matmul_int4_prefill[a16,18944x3584]": 12.0072,
+    "matmul_int4_prefill[a8,3584x3584]": 0.8007, "matmul_int4_prefill[a8,3584x512]": 0.4945,
+    "matmul_int4_prefill[a8,3584x18944]": 3.2937, "matmul_int4_prefill[a8,18944x3584]": 4.6463,
+    "flash_attention_int8[dense]": 3.1134, "flash_attention_int8[dense+pv8]": 4.3081,
+    "flash_attention_int8[segmented]": 4.5792, "flash_attention_int8[segmented+pv8]": 6.2714,
+    "flash_attention_int8[causal]": 0.6453, "flash_attention_int8[causal+pv8]": 0.8228,
+    "flash_attention[causal+qpos]": 0.5879, "flash_attention_lse[causal+qpos]": 0.5886,
+    "flash_attention_backward[causal+qpos]": 2.5082, "flash_attention_int8[causal+qpos]": 0.5461,
+}
 # sequence parallelism on the one card: two ranks over gloo (NCCL refuses
 # two ranks on one device)
 SP_WORLD = 2
@@ -203,6 +247,32 @@ def cuda_ms(fn, warmup: int = 2, iters: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters: int = 10, tries: int = 3):
+    """Mean device time of the CUDA kernels one call of ``fn`` launches, from
+    torch.profiler: the card's own time, without the host's launch cost,
+    which cuda_ms includes when the host is slower than the card. A trace
+    that recorded no device time is taken again, up to ``tries`` times;
+    then the time is None (not measured), never 0."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    def self_us(e):  # the attribute's name in PyTorch >= 2.4, and before
+        t = getattr(e, "self_device_time_total", None)
+        return e.self_cuda_time_total if t is None else t
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total_us = sum(self_us(e) for e in prof.key_averages())
+        if total_us > 0:
+            return total_us / iters / 1e3
+    return None
+
+
 def bound(flops: float, nbytes: float, int8_ops: float = 0.0):
     """(least ms, what bounds it) from bf16 operations, int8 operations and
     bytes."""
@@ -215,15 +285,47 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
+def fmt_ms(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f} ms"
+
+
+def speed(row) -> str:
+    """The line that prints a kernel row's time beside its recorded time,
+    the achieved rate and the share of the bound; the row is left as it
+    is. The rate is the bound's work over this run's time: GB/s for a bytes
+    bound, TFLOP/s (TOP/s for the int8 products) for an operations bound."""
+    share = row["bound_ms"] / row["ms"]
+    int8 = row["name"].startswith(("flash_attention_int8", "matmul_int4_prefill[a8"))
+    if row["bound_by"] == "bytes":
+        rate = f"{share * PEAK_HBM_BYTES / 1e9:.0f} GB/s"
+    elif int8:
+        rate = f"{share * PEAK_INT8_OPS / 1e12:.1f} TOP/s"
+    else:
+        rate = f"{share * PEAK_BF16_FLOPS / 1e12:.1f} TFLOP/s"
+    recorded = RECORDED_MS.get(row["name"])
+    before = ("" if recorded is None
+              else f", recorded {recorded:.4f} ms ({recorded / row['ms']:.1f}x)")
+    device = ""
+    if "device_ms" in row:  # the card's own time, and the library call's
+        device = f"; on the card {fmt_ms(row['device_ms'])}"
+        if "library_device_ms" in row:
+            device += f" (library {fmt_ms(row['library_device_ms'])})"
+    return (f"speed {row['name']} {row.get('shape', '')}: {row['ms']:.4f} ms{before}, {rate}, "
+            f"{share:.1%} of the bound ({row['bound_by']}){device}")
+
+
 def check_window_attention(cfg, prep, gen):
-    """K1 at the ViT shape the batch gives it (H=16, D=80, wp=64)."""
+    """K1 at the ViT shape the batch gives it (H=16, D=80, wp=64), within
+    KERNEL_ATOL and relative to its outputs' size (K7_MAX_RTOL, K7_RMS_RTOL),
+    with the plain version's P rounded to 4 significant bits as the control
+    that must fail."""
     import torch
 
     from glimpseprune_torch.ops.cuda.window_attention import (
         window_attention_fused,
         window_attention_fused_reference,
     )
-    from glimpseprune_torch.ops.rope import vision_rope_cos_sin
+    from glimpseprune_torch.ops.rope import rotate_half, vision_rope_cos_sin
 
     v = cfg.vision
     wp = (v.window_size // v.spatial_merge_size // v.patch_size) ** 2 * v.spatial_merge_unit
@@ -236,21 +338,40 @@ def check_window_attention(cfg, prep, gen):
     torch.cuda.synchronize()
     ref = window_attention_fused_reference(qkv.float(), cos.float(), sin.float(), valid, wp)
     err = (got.float() - ref).abs().max().item()
+    errs = k7_errors(got, ref)
+    x, c, s = qkv.float(), cos.float()[:, None], sin.float()[:, None]
+    nw = p // wp
+
+    def windows(t):
+        return t.reshape(nw, wp, v.num_heads, v.head_dim).transpose(1, 2)
+
+    allowed = valid.reshape(nw, 1, 1, wp) | torch.eye(wp, dtype=torch.bool, device="cuda")
+    control = control_attention(windows(x[:, 0] * c + rotate_half(x[:, 0]) * s),
+                                windows(x[:, 1] * c + rotate_half(x[:, 1]) * s),
+                                windows(x[:, 2]), allowed, round_p=True)
+    control_errs = k7_errors(got, control.transpose(1, 2).reshape(got.shape))
     ms = cuda_ms(lambda: window_attention_fused(qkv, cos, sin, valid, wp))
+    dev_ms = device_ms(lambda: window_attention_fused(qkv, cos, sin, valid, wp))
     plain_ms = cuda_ms(lambda: window_attention_fused_reference(qkv, cos, sin, valid, wp))
     # valid queries x valid keys of each window, QK^T and PV, every head
     per_window = valid.reshape(-1, wp).sum(1).double()
     flops = 4.0 * float((per_window ** 2).sum()) * v.num_heads * v.head_dim
     bound_ms, bound_by = bound(flops, nbytes(qkv, cos, sin, valid, got))
     shape = f"qkv[{p},3,{v.num_heads},{v.head_dim}] wp={wp} valid={int(valid.sum())}"
-    print(f"K1 window_attention_fused {shape}: max_abs_err={err:.3e} "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
-    if not err <= KERNEL_ATOL:
-        raise AssertionError(f"K1 disagrees with its plain version: {err} > {KERNEL_ATOL}")
+    print(f"K1 window_attention_fused {shape}: max_abs_err={err:.3e} rel_err={errs[0]:.3e} "
+          f"rms_rel_err={errs[1]:.3e}; control p_4_bits (max/rms rel) "
+          f"{control_errs[0]:.3e}/{control_errs[1]:.3e}; kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    if not (err <= KERNEL_ATOL and k7_within(errs)):
+        raise AssertionError(f"K1 disagrees with its plain version: {err}, {errs}")
+    if k7_within(control_errs):
+        raise AssertionError("K1: the check cannot tell the kernel from P in 4 bits")
     # no single PyTorch call applies rope and attends within windows
     return {"name": "window_attention_fused", "route": "cuda", "source": K1_SRC,
-            "replaces": K1_REPLACES, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None, "shape": shape}
+            "replaces": K1_REPLACES, "max_abs_err": err, "rel_err": errs[0],
+            "rms_rel_err": errs[1], "control_rms_rel_err": control_errs[1], "ms": ms,
+            "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None, "shape": shape}
 
 
 def check_window_attention_unfused(cfg, prep, gen):
@@ -293,6 +414,8 @@ def check_window_attention_unfused(cfg, prep, gen):
     mask = valid.reshape(nw, 1, 1, wp) | torch.eye(wp, dtype=torch.bool, device="cuda")
     qw, kw, vw = windows(q), windows(k), windows(vv)
     lib_ms = cuda_ms(lambda: sdpa(qw, kw, vw, mask))
+    dev_ms = device_ms(lambda: window_attention(q, k, vv, valid, wp))
+    lib_dev_ms = device_ms(lambda: sdpa(qw, kw, vw, mask))
     per_window = valid.reshape(-1, wp).sum(1).double()
     flops = 4.0 * float((per_window ** 2).sum()) * v.num_heads * v.head_dim
     bound_ms, bound_by = bound(flops, nbytes(q, k, vv, valid, got))
@@ -309,8 +432,60 @@ def check_window_attention_unfused(cfg, prep, gen):
     return {"name": "window_attention", "route": "cuda", "source": K1_SRC,
             "replaces": K8_REPLACES, "max_abs_err": err, "rel_err": errs[0],
             "rms_rel_err": errs[1], "control_rms_rel_err": control_errs[1], "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": lib_ms, "shape": shape}
+            "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": lib_ms, "library_device_ms": lib_dev_ms,
+            "shape": shape}
+
+
+def check_window_edges(gen):
+    """K1 and K8 against their plain versions, within KERNEL_ATOL, on windows
+    the ViT batch does not hold: a fully valid window, a window with one
+    valid key, a random half, and trailing pad windows (no valid key: each
+    row attends to itself), at the 7B's head dim (80, wp=64) and at the
+    tiny config's (8, wp=16, 4 heads)."""
+    import torch
+
+    from glimpseprune_torch.ops.cuda.window_attention import (
+        plan_window,
+        window_attention,
+        window_attention_fused,
+        window_attention_fused_reference,
+        window_attention_reference,
+    )
+
+    report = {}
+    for name, heads, dim, wp in (("7b", 16, 80, 64), ("tiny", 4, 8, 16)):
+        n_win = 6
+        valid = torch.zeros((n_win, wp), dtype=torch.bool, device="cuda")
+        valid[0] = True
+        valid[1, 5 % wp] = True
+        valid[2] = torch.rand((wp,), generator=gen, device="cuda") < 0.5
+        valid = valid.reshape(-1)  # windows 3-5: trailing pads
+        p = n_win * wp
+        qkv = torch.randn((p, 3, heads, dim), generator=gen, device="cuda").bfloat16()
+        theta = torch.rand((p, dim), generator=gen, device="cuda") * 6.3
+        cos, sin = theta.cos().bfloat16(), theta.sin().bfloat16()
+        q, k, v = (torch.randn((p, heads, dim), generator=gen, device="cuda").bfloat16()
+                   for _ in range(3))
+        got1 = window_attention_fused(qkv, cos, sin, valid, wp)
+        got8 = window_attention(q, k, v, valid, wp)
+        torch.cuda.synchronize()
+        ref1 = window_attention_fused_reference(qkv.float(), cos.float(), sin.float(), valid, wp)
+        ref8 = window_attention_reference(q.float(), k.float(), v.float(), valid, wp)
+        errs = {"K1": (got1.float() - ref1).abs().max().item(),
+                "K8": (got8.float() - ref8).abs().max().item()}
+        # a pad window's row attends to itself only: its output is its v row
+        pad_rows = slice(3 * wp, p)
+        errs["K8_pad_rows_equal_v"] = torch.equal(got8[pad_rows], v[pad_rows])
+        report[name] = {"shape": f"P={p} H={heads} D={dim} wp={wp}",
+                        "plan": plan_window(dim, wp, heads, True).__dict__, **errs}
+        if not (errs["K1"] <= KERNEL_ATOL and errs["K8"] <= KERNEL_ATOL
+                and errs["K8_pad_rows_equal_v"]):
+            raise AssertionError(f"K1/K8 edge cases ({name}) disagree with their plain "
+                                 f"versions: {report[name]}")
+    print("K1/K8 edge cases (one-key window, trailing pad windows, tiny dims), max abs err: "
+          + json.dumps(report))
+    return report
 
 
 def attention_case(gen, b, hq, hkv, s, d_qk, d_v, segs, causal):
@@ -335,6 +510,33 @@ def sdpa(q, k, v, mask):
 
     return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
                                           enable_gqa=q.shape[1] != k.shape[1])
+
+
+def control_attention(q, k, v, allowed, round_p: bool = False, drop_keys: int = 0):
+    """A wrong plain version that the relative check must refuse: fp32
+    softmax attention with each probability rounded to 4 significant bits
+    (round_p: fp8 e4m3's mantissa, without its range), or without keys
+    [0, drop_keys) (a dropped k tile). q [B, Hq, Sq, D]; k, v [B, Hkv, Skv,
+    D]; allowed [B, 1, Sq, Skv] bool, or None for every key; a row with no
+    allowed key gives 0."""
+    import torch
+
+    from glimpseprune_torch.ops.cuda.flash_attention import NEG_INF
+
+    g = q.shape[1] // k.shape[1]
+    kf, vf = k.float().repeat_interleave(g, 1), v.float().repeat_interleave(g, 1)
+    scores = q.float() @ kf.transpose(-1, -2) * q.shape[-1] ** -0.5
+    if allowed is None:
+        allowed = torch.ones((1, 1) + scores.shape[2:], dtype=torch.bool, device=q.device)
+    if drop_keys:
+        allowed = allowed.clone()
+        allowed[..., :drop_keys] = False
+    p = torch.softmax(scores.masked_fill(~allowed, NEG_INF), -1)
+    del scores
+    if round_p:
+        mant, exp = torch.frexp(p)
+        p = torch.ldexp(torch.round(mant * 16) / 16, exp)
+    return (p @ vf).masked_fill(~allowed.any(-1, keepdim=True), 0.0)
 
 
 def check_flash_attention(cfg, prep_a, prep_b, gen):
@@ -377,24 +579,110 @@ def check_flash_attention(cfg, prep_a, prep_b, gen):
         ref = flash_attention_reference(q.float(), k.float(), vv.float(), segs, segs,
                                         causal=causal, dense=dense)
         err = (got.float() - ref).abs().max().item()
+        errs = k7_errors(got, ref)
+        control_errs = {
+            "p_4_bits": k7_errors(got, control_attention(q, k, vv, mask, round_p=True)),
+            "k_tile_0_dropped": k7_errors(got, control_attention(q, k, vv, mask, drop_keys=64))}
         ms = cuda_ms(lambda: flash_attention(q, k, vv, segs, segs, causal=causal, dense=dense))
         plain_ms = cuda_ms(lambda: flash_attention_reference(q, k, vv, segs, segs,
                                                              causal=causal, dense=dense))
         lib_ms = cuda_ms(lambda: sdpa(q, k, vv, mask))
+        dev_ms = device_ms(lambda: flash_attention(q, k, vv, segs, segs, causal=causal,
+                                                   dense=dense))
+        lib_dev_ms = device_ms(lambda: sdpa(q, k, vv, mask))
         bound_ms, bound_by = bound(2.0 * pairs * hq * (d_qk + d_v),
                                    nbytes(q, k, vv, got) + (0 if dense else 2 * segs.nbytes))
         fl = flavour(causal, dense, d_qk, d_v)
         shape = f"{name} q[{b},{hq},{s},{d_qk}] kv[{b},{hkv},{s},{d_qk}/{d_v}]"
         print(f"K2 flash_attention[{fl}] {shape}: max_abs_err={err:.3e} "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms} ms, "
+              f"rel_err={errs[0]:.3e} rms_rel_err={errs[1]:.3e}; controls (max/rms rel) "
+              + ", ".join(f"{c} {e[0]:.3e}/{e[1]:.3e}" for c, e in control_errs.items())
+              + f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms} ms, "
               f"bound {bound_ms:.4f} ms ({bound_by})")
-        if not err <= KERNEL_ATOL:
-            raise AssertionError(f"K2 {name} disagrees with its plain version: {err}")
+        if not (err <= KERNEL_ATOL and k7_within(errs)):
+            raise AssertionError(f"K2 {name} disagrees with its plain version: {err}, {errs}")
+        passed = [c for c, e in control_errs.items() if k7_within(e)]
+        if passed:
+            raise AssertionError(f"K2 {name}: the check cannot tell the kernel from {passed}")
         rows.append({"name": f"flash_attention[{fl}]", "route": "cuda", "source": K2_SRC,
-                     "replaces": K2_REPLACES, "max_abs_err": err, "ms": ms,
-                     "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                     "library_ms": lib_ms, "shape": shape})
+                     "replaces": K2_REPLACES, "max_abs_err": err, "rel_err": errs[0],
+                     "rms_rel_err": errs[1],
+                     "control_rms_rel_err": min(e[1] for e in control_errs.values()), "ms": ms,
+                     "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": lib_ms,
+                     "library_device_ms": lib_dev_ms, "shape": shape})
     return rows
+
+
+def check_flash_edges(gen):
+    """K2 and K2-lse against their plain versions on shapes the main path
+    does not reach: Sq and Skv that are no multiple of a tile, the tiny
+    config's head dims (8, 16, 8/4), GQA group 7 with left-padded rows and
+    a q tile that is all padding, and rows with no allowed key (output
+    exactly 0, LSE exactly -1e30). K2 and K2-lse must agree bit for bit."""
+    import torch
+
+    from glimpseprune_torch.ops.cuda.flash_attention import (
+        NEG_INF,
+        flash_attention,
+        flash_attention_lse,
+        flash_attention_lse_reference,
+        plan_flash,
+    )
+
+    def seg(rows):
+        return torch.as_tensor(np.asarray(rows), dtype=torch.int32, device="cuda")
+
+    def left_padded(pads, s):
+        return seg([[-1] * n + [0] * (s - n) for n in pads])
+
+    two = seg([[0] * 150 + [1] * 120 + [-1] * 63])
+    cases = [
+        # (name, B, Hq, Hkv, Sq, Skv, Dqk, Dv, q segment ids, kv segment ids, causal)
+        ("ragged_dense", 2, 4, 2, 130, 197, 80, 80, None, None, False),
+        ("ragged_segmented_trailing_pad", 1, 4, 4, 333, 333, 80, 80, two, two, False),
+        ("tiny_vit", 1, 4, 4, 100, 100, 8, 8, seg([[0] * 60 + [1] * 40]),
+         seg([[0] * 60 + [1] * 40]), False),
+        ("tiny_llm", 2, 4, 2, 23, 23, 16, 16, left_padded((5, 0), 23),
+         left_padded((5, 0), 23), True),
+        ("tiny_fuser", 2, 4, 4, 37, 37, 8, 4, seg([[0] * 20 + [1] * 10 + [-1] * 7, [0] * 37]),
+         seg([[0] * 20 + [1] * 10 + [-1] * 7, [0] * 37]), False),
+        ("gqa7_left_padded", 2, 28, 4, 300, 300, 128, 128, left_padded((150, 37), 300),
+         left_padded((150, 37), 300), True),
+        ("no_allowed_key", 1, 4, 4, 96, 160, 64, 64, seg([[0] * 40 + [7] * 30 + [1] * 26]),
+         seg([[0] * 100 + [1] * 60]), False),
+        ("dqk_ne_dv_ragged", 1, 2, 2, 77, 77, 192, 64, seg([[0] * 50 + [1] * 27]),
+         seg([[0] * 50 + [1] * 27]), False),
+    ]
+    report = {}
+    for name, b, hq, hkv, sq, skv, d_qk, d_v, qseg, kseg, causal in cases:
+        dense = qseg is None
+
+        def rand(s, h, d):
+            x = torch.randn((b, s, h, d), generator=gen, device="cuda")
+            return x.bfloat16().transpose(1, 2)
+
+        q, k, v = rand(sq, hq, d_qk), rand(skv, hkv, d_qk), rand(skv, hkv, d_v)
+        out = flash_attention(q, k, v, qseg, kseg, causal=causal, dense=dense)
+        out_l, lse = flash_attention_lse(q, k, v, qseg, kseg, causal=causal, dense=dense)
+        torch.cuda.synchronize()
+        ref, ref_lse = flash_attention_lse_reference(q.float(), k.float(), v.float(), qseg, kseg,
+                                                     causal=causal, dense=dense)
+        seen = ref_lse > -1e29
+        r = {"err": (out.float() - ref).abs().max().item(),
+             "lse_rel_err": rel_err(lse, ref_lse, seen) if seen.any() else 0.0,
+             "rows_without_key": int((~seen).sum()),
+             "their_output_zero": bool((out_l[~seen] == 0).all()),
+             "their_lse_-1e30": bool((lse[~seen] == NEG_INF).all()),
+             "k2_equals_k2_lse": torch.equal(out, out_l),
+             "plan": plan_flash(d_qk, d_v, skv).__dict__}
+        report[name] = r
+        if not (r["err"] <= KERNEL_ATOL and r["lse_rel_err"] <= LSE_RTOL
+                and r["their_output_zero"] and r["their_lse_-1e30"] and r["k2_equals_k2_lse"]
+                and torch.equal(lse <= -1e29, ~seen)):
+            raise AssertionError(f"K2 edge case {name} fails: {r}")
+    print("K2/K2-lse edge cases against the plain version: " + json.dumps(report))
+    return report
 
 
 def rel_err(got, ref, rows=None) -> float:
@@ -455,6 +743,9 @@ def check_flash_training(cfg, batch, gen):
         plain_ms = cuda_ms(lambda: flash_attention_lse_reference(q, k, v, segs, segs,
                                                                  causal=causal, dense=dense))
         lib_ms = cuda_ms(lambda: sdpa(q, k, v, mask))
+        dev_ms = device_ms(lambda: flash_attention_lse(q, k, v, segs, segs, causal=causal,
+                                                       dense=dense))
+        lib_dev_ms = device_ms(lambda: sdpa(q, k, v, mask))
         bound_ms, bound_by = bound(2.0 * pairs * hq * (d_qk + d_v),
                                    nbytes(q, k, v, out, lse) + seg_bytes)
         print(f"K2-lse flash_attention_lse[{fl}] {shape}: max_abs_err={out_err:.3e} "
@@ -462,8 +753,9 @@ def check_flash_training(cfg, batch, gen):
               f"sdpa {lib_ms} ms, bound {bound_ms:.4f} ms ({bound_by})")
         lse_row = {"name": f"flash_attention_lse[{fl}]", "route": "cuda", "source": K2_SRC,
                    "replaces": K2_LSE_REPLACES, "max_abs_err": out_err, "lse_rel_err": lse_err,
-                   "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                   "bound_by": bound_by, "library_ms": lib_ms, "shape": shape}
+                   "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                   "bound_by": bound_by, "library_ms": lib_ms,
+                   "library_device_ms": lib_dev_ms, "shape": shape}
 
         # K3: dq, dk, dv against the plain fp32 backward on the same
         # inputs (the kernel's own forward output and LSE)
@@ -1328,7 +1620,8 @@ def check_flash_qpos(cfg, prep_a, gen):
 
     def shard(lo, hi):
         return (q[:, :, lo:hi], seg[:, lo:hi],
-                torch.arange(lo, hi, dtype=torch.int32, device="cuda").expand(b, hi - lo))
+                torch.arange(lo, hi, dtype=torch.int32, device="cuda").expand(b, hi - lo)
+                .contiguous())  # int32 and contiguous, as the SP path passes them
 
     report, dkv_sums = {}, {n: [0.0, 0.0] for n in (2, 4)}
     for name, lo, hi in qpos_shards(s):
@@ -1398,6 +1691,7 @@ def check_flash_qpos(cfg, prep_a, gen):
     shape = f"q[{b},{hq},{hi - lo},{d}] rows {lo}:{hi} kv[{b},{hkv},{s},{d}]"
     out, lse = flash_attention_lse(qs, k, v, qseg, seg, causal=True, q_positions=qpos)
     sdpa_ms = cuda_ms(lambda: sdpa(qs, k, v, mask))
+    sdpa_dev_ms = device_ms(lambda: sdpa(qs, k, v, mask))
     rows = []
 
     def row(fn_name, ms, plain_ms, lib_ms, flops, nbytes_, int8_ops=0.0, **extra):
@@ -1416,13 +1710,19 @@ def check_flash_qpos(cfg, prep_a, gen):
         cuda_ms(lambda: flash_attention_reference(qs, k, v, qseg, seg, causal=True,
                                                   q_positions=qpos)),
         sdpa_ms, 4.0 * pairs * hq * d, nbytes(qs, k, v, out), max_abs_err=half["fwd_err"],
-        equal_to_monolithic=half["equal_to_monolithic"]["forward"])
+        equal_to_monolithic=half["equal_to_monolithic"]["forward"],
+        device_ms=device_ms(lambda: flash_attention(qs, k, v, qseg, seg, causal=True,
+                                                    q_positions=qpos)),
+        library_device_ms=sdpa_dev_ms)
     row("flash_attention_lse",
         cuda_ms(lambda: flash_attention_lse(qs, k, v, qseg, seg, causal=True, q_positions=qpos)),
         cuda_ms(lambda: flash_attention_lse_reference(qs, k, v, qseg, seg, causal=True,
                                                       q_positions=qpos)),
         sdpa_ms, 4.0 * pairs * hq * d, nbytes(qs, k, v, out, lse), max_abs_err=half["fwd_err"],
-        lse_rel_err=half["lse_rel_err"], equal_to_monolithic=half["equal_to_monolithic"]["lse"])
+        lse_rel_err=half["lse_rel_err"], equal_to_monolithic=half["equal_to_monolithic"]["lse"],
+        device_ms=device_ms(lambda: flash_attention_lse(qs, k, v, qseg, seg, causal=True,
+                                                        q_positions=qpos)),
+        library_device_ms=sdpa_dev_ms)
     qr, kr, vr = (x.detach().requires_grad_(True) for x in (qs, k, v))
     lib_out = sdpa(qr, kr, vr, mask)
     grads = flash_attention_backward(qs, k, v, qseg, seg, out, lse, ds, causal=True,
@@ -1918,7 +2218,9 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     kernels = [check_window_attention(cfg, prep_a, gen)]
     k8_row = check_window_attention_unfused(cfg, prep_a, gen)
+    window_edges = check_window_edges(gen)
     kernels += check_flash_attention(cfg, prep_a, prep_b, gen)
+    flash_edges = check_flash_edges(gen)
 
     t0 = time.perf_counter()
     model = init_random(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
@@ -2000,7 +2302,10 @@ def main() -> int:
             k["note"] = next(v for p, v in off_path.items() if k["name"].startswith(p))
     kernels += quant_kernels
     kernels += k9_rows
+    for k in kernels:
+        print(speed(k))
     print(json.dumps({"card": smi, "build_s": build_s, "runs": runs,
+                      "window_edge_cases": window_edges, "flash_edge_cases": flash_edges,
                       "tiny_reference_err": small, "train_steps": steps,
                       "train_path_s": train_s, "tiny_train_err": small_train,
                       "training_launches": train_launches, "quantized_runs": quant_runs,

@@ -105,7 +105,8 @@ def causal_segment_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         k, v = _gather_kv_pair(k, v, 1, sp)
         seg_k = gather_seq(seg_q, 1, sp)
         b, sl = valid.shape
-        q_positions = (sp.rank * sl + torch.arange(sl, device=q.device)).expand(b, sl)
+        q_positions = (sp.rank * sl + torch.arange(sl, device=q.device, dtype=torch.int32)
+                       ).expand(b, sl).contiguous()  # as the kernel reads it
     out = flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                           seg_q, seg_k, causal=True, qkv_int8=int8_qk,
                           pv_int8=int8_qk and int8_pv, q_positions=q_positions)

@@ -24,9 +24,11 @@ Replaces the Pallas kernels of glimpseprune_tpu/ops/pallas/flash_attention.py:
   slot. Sequence-parallel prefill calls it; its launches are counted under
   the flavour ``"causal+qpos"``.
 The CUDA sources are ``glimpseprune_torch/csrc/flash_attention.cu`` (K2,
-K2-lse and K7, one kernel with template flavours) and
-``flash_attention_bwd.cu`` (K3); their headers say what bounds them on the
-H100 and how the design answers.
+K2-lse and K9 on tensor cores; K7 and K9-int8 on their own scalar kernel)
+and ``flash_attention_bwd.cu`` (K3); their headers say what bounds them on
+the H100 and how the design answers. ``plan_flash`` is the forward's
+host-side plan: the padded head-dim pair it is built for, the q tile, the
+k tile and the shared-memory bytes.
 
 The TPU tuning does not carry over: there are no 1024x1024 blocks and no
 head-dim padding to 128. The qk head dim and the v head dim are separate
@@ -41,13 +43,21 @@ versions), otherwise it launches the plain forward K2.
 
 from __future__ import annotations
 
+import array
 import ctypes
+import functools
 import math
+from dataclasses import dataclass
 from typing import Optional, Tuple
 
 import torch
 
-from glimpseprune_torch.ops.cuda.build import check_launch, load_library
+from glimpseprune_torch.ops.cuda.build import (
+    SMEM_LIMIT,
+    check_launch,
+    current_stream,
+    kernel_function,
+)
 from glimpseprune_torch.ops.kv_cache import quantize_kv
 
 NEG_INF = -1e30
@@ -59,6 +69,67 @@ FLAVOURS = ("causal", "causal+qpos", "dense", "dqk_ne_dv", "segmented")
 INT8_FLAVOURS = tuple(f + pv for f in FLAVOURS for pv in ("", "+pv8"))
 # the kv tile of csrc/flash_attention.cu, over which K7's pv_int8 quantizes v
 KERNEL_BLOCK_K = 64
+# The forward (K2, K2-lse, K9): the padded (Dqk, Dv) pairs it is built for,
+# in the order the plan tries them (csrc/flash_attention.cu `dispatch`); 16 q
+# rows per warp; k tiles of 64 keys whatever the shape, in a ring of two
+# stages.
+FWD_DIMS = ((16, 16), (64, 64), (80, 80), (128, 128), (192, 64), (256, 128))
+FWD_BLOCK_K = 64
+FWD_STAGES = 2
+
+
+@dataclass(frozen=True)
+class FlashPlan:
+    """How one forward call runs: head dims padded to ``dqk_pad``/``dv_pad``
+    in shared memory, ``warps`` warps of 16 q rows (``block_q`` rows per
+    block), ``block_k`` keys per k tile, ``smem_bytes`` per block."""
+    dqk_pad: int
+    dv_pad: int
+    warps: int
+    block_q: int
+    block_k: int
+    smem_bytes: int
+
+
+def fwd_warps(dqk_pad: int) -> int:
+    """Warps per block (csrc/flash_attention.cu ``warps_for``): six at head
+    dims up to 80, four above."""
+    return 6 if dqk_pad <= 80 else 4
+
+
+def fwd_smem_bytes(dqk_pad: int, dv_pad: int, skv: int) -> int:
+    """Shared memory of one forward block (csrc/flash_attention.cu
+    ``smem_fixed`` plus the k-tile arrays): FWD_STAGES stages of k and v
+    tiles in bf16 with 8 elements of row padding, the q tile likewise (a
+    64-row one shares the last k stage), as many stages of key segment ids,
+    the q rows' segment ids and positions, 8 reduction slots, and four ints
+    per k tile (its smallest and largest key segment, whether it holds one
+    segment, and the list of visited tiles)."""
+    warps = fwd_warps(dqk_pad)
+    block_q = 16 * warps
+    q_tile = 0 if block_q == FWD_BLOCK_K else block_q * (dqk_pad + 8)
+    return (2 * (q_tile + FWD_STAGES * FWD_BLOCK_K * (dqk_pad + 8)
+                 + FWD_STAGES * FWD_BLOCK_K * (dv_pad + 8))
+            + 4 * (FWD_STAGES * FWD_BLOCK_K + 2 * block_q + 8) + 16 * -(-skv // FWD_BLOCK_K))
+
+
+@functools.lru_cache(maxsize=1024)
+def plan_flash(dqk: int, dv: int, skv: int) -> FlashPlan:
+    """The forward kernel's plan for one shape, or ValueError if the kernel
+    refuses it. The head dims take the first built pair that holds them.
+    Neither the q tile nor the k tile depends on Sq or on where the q rows
+    sit in the sequence: the k tile is FWD_BLOCK_K keys, so each row visits
+    the same k tiles in the same order in a shard as in the whole sequence,
+    which K9's bit equality needs."""
+    if not (0 < dqk <= MAX_DQK and 0 < dv <= MAX_DV):
+        raise ValueError(f"flash_attention: unsupported head dims {dqk}/{dv}")
+    dqk_pad, dv_pad = next((a, b) for a, b in FWD_DIMS if a >= dqk and b >= dv)
+    warps = fwd_warps(dqk_pad)
+    smem = fwd_smem_bytes(dqk_pad, dv_pad, skv)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"flash_attention: {skv} keys need {smem} bytes of shared memory "
+                         f"per block, over the card's {SMEM_LIMIT}")
+    return FlashPlan(dqk_pad, dv_pad, warps, 16 * warps, FWD_BLOCK_K, smem)
 
 
 def flavour(causal: bool, dense: bool, dqk: int, dv: int, qpos: bool = False) -> str:
@@ -165,12 +236,20 @@ def flash_attention_backward_reference(
 
 
 def _strides(t: torch.Tensor, name: str):
-    if t.stride(-1) != 1:
+    st = t.stride()
+    if st[3] != 1:
         raise ValueError(f"flash_attention: {name} needs a contiguous last dim")
-    st = t.stride()[:3]
     if max(st) >= 2 ** 31:
         raise ValueError(f"flash_attention: {name} strides exceed int32")
-    return st
+    return st[:3]
+
+
+def _int32(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """t as a contiguous int32 tensor on ``like``'s device (t itself if it
+    is one)."""
+    if t.dtype == torch.int32 and t.get_device() == like.get_device() and t.is_contiguous():
+        return t
+    return t.to(device=like.device, dtype=torch.int32).contiguous()
 
 
 def _check(q, k, v, q_segment_ids, kv_segment_ids, causal, dense, q_positions=None):
@@ -183,21 +262,20 @@ def _check(q, k, v, q_segment_ids, kv_segment_ids, causal, dense, q_positions=No
                          f"k{tuple(k.shape)} v{tuple(v.shape)} do not match")
     qpos = None
     if q_positions is not None:
-        qpos = q_positions.to(device=q.device, dtype=torch.int32).contiguous()
+        qpos = _int32(q_positions, q)
         if qpos.shape != (b, sq):
             raise ValueError("flash_attention: q_positions must be [B, Sq]")
     elif causal and sq != skv:
         raise ValueError("flash_attention: causal needs Sq == Skv without q_positions")
-    if not (0 < dqk <= MAX_DQK and 0 < dv <= MAX_DV):
-        raise ValueError(f"flash_attention: unsupported head dims {dqk}/{dv}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.dtype != torch.bfloat16 or t.device != q.device:
-            raise ValueError(f"flash_attention: {name} must be bf16 on {q.device}")
+    plan_flash(dqk, dv, skv)  # raises on a shape the kernel refuses
+    if not (q.dtype == k.dtype == v.dtype == torch.bfloat16
+            and q.get_device() == k.get_device() == v.get_device()):
+        raise ValueError(f"flash_attention: q, k and v must be bf16 on {q.device}")
     qpos_ptr = None if qpos is None else qpos.data_ptr()
     if dense:
         return (None, None, qpos_ptr), (qpos,)
-    qseg = q_segment_ids.to(device=q.device, dtype=torch.int32).contiguous()
-    kseg = kv_segment_ids.to(device=q.device, dtype=torch.int32).contiguous()
+    qseg = _int32(q_segment_ids, q)
+    kseg = _int32(kv_segment_ids, q)
     if qseg.shape != (b, sq) or kseg.shape != (b, skv):
         raise ValueError("flash_attention: segment ids must be [B, Sq] and [B, Skv]")
     return (qseg.data_ptr(), kseg.data_ptr(), qpos_ptr), (qseg, kseg, qpos)
@@ -216,27 +294,40 @@ def _device_of(q: torch.Tensor, dense: bool, q_segment_ids, kv_segment_ids,
 
 def _launch_forward(q, k, v, q_segment_ids, kv_segment_ids, causal, dense, with_lse,
                     q_positions=None):
-    """One launch of csrc/flash_attention.cu -> (out, lse or None)."""
+    """One launch of the tensor-core forward in csrc/flash_attention.cu ->
+    (out, lse or None)."""
     b, hq, sq, dqk = q.shape
     _, hkv, skv, dv = v.shape
     seg_ptrs, _keep = _check(q, k, v, q_segment_ids, kv_segment_ids, causal, dense,
                              q_positions)
-    strides = _strides(q, "q") + _strides(k, "k") + _strides(v, "v")
-    out = torch.empty((b, sq, hq, dv), dtype=q.dtype, device=q.device).transpose(1, 2)
+    qst, kst, vst = _strides(q, "q"), _strides(k, "k"), _strides(v, "v")
+    # out: a [B, Hq, Sq, Dv] view of a fresh [B, Sq, Hq, Dv] buffer
+    ost = (sq * hq * dv, dv, hq * dv)
+    out = torch.empty_strided((b, hq, sq, dv), (*ost, 1), dtype=q.dtype, device=q.device)
     lse = (torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
            if with_lse else None)
     if out.numel() == 0:
         return out, lse
-    fn = load_library("flash_attention").flash_attention_bf16
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 20 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            None if lse is None else lse.data_ptr(), *seg_ptrs,
-            b, hq, hkv, sq, skv, dqk, dv, *strides, *out.stride()[:3],
-            int(causal), stream)
+    plan = plan_flash(dqk, dv, skv)
+    qp, kp, vp = q.data_ptr(), k.data_ptr(), v.data_ptr()
+    # which rows may move as 16-byte chunks: q, k, v as given; out's strides
+    # are multiples of Dv
+    vec = (_rows16(qp, qst) | _rows16(kp, kst) << 1 | _rows16(vp, vst) << 2
+           | (dv % 8 == 0) << 3)
+    # the ints travel as one array: a ctypes call costs ~0.3 us per argument
+    ints = array.array("i", (b, hq, hkv, sq, skv, dqk, dv, plan.dqk_pad, plan.dv_pad,
+                             plan.smem_bytes, *qst, *kst, *vst, *ost, int(causal), vec))
+    fn = kernel_function("flash_attention", "flash_attention_bf16", [ctypes.c_void_p] * 10)
+    rc = fn(qp, kp, vp, out.data_ptr(), None if lse is None else lse.data_ptr(), *seg_ptrs,
+            ints.buffer_info()[0], current_stream(q.device))
     check_launch(rc, "flash_attention")
     return out, lse
+
+
+def _rows16(ptr: int, strides) -> bool:
+    """Whether every row of a bf16 [B, H, S, D] view at ``ptr`` with these
+    strides (its last dim contiguous) starts on a 16-byte boundary."""
+    return ptr % 16 == 0 and (strides[0] | strides[1] | strides[2]) % 8 == 0
 
 
 def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -298,10 +389,9 @@ def flash_attention_backward(
     strides = (_strides(q, "q") + _strides(k, "k") + _strides(v, "v")
                + _strides(dout, "dout") + dq.stride()[:3] + dk.stride()[:3]
                + dvv.stride()[:3])
-    fn = load_library("flash_attention_bwd").flash_attention_bwd_bf16
-    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 29 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    stream = torch.cuda.current_stream(q.device).cuda_stream
+    fn = kernel_function("flash_attention_bwd", "flash_attention_bwd_bf16",
+                         [ctypes.c_void_p] * 12 + [ctypes.c_int] * 29 + [ctypes.c_void_p])
+    stream = current_stream(q.device)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
             dsum.data_ptr(), *seg_ptrs, dq.data_ptr(), dk.data_ptr(), dvv.data_ptr(),
             b, hq, hkv, sq, skv, dqk, dv, *strides, int(causal), stream)
@@ -422,13 +512,12 @@ def flash_attention_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return out
     strides = _strides(q8, "q") + _strides(k8, "k") + _strides(v, "v")
     qsc, ksc = qsc.contiguous(), ksc.contiguous()  # indexed as [B, H, S]
-    fn = load_library("flash_attention").flash_attention_i8
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 21 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = kernel_function("flash_attention", "flash_attention_i8",
+                         [ctypes.c_void_p] * 9 + [ctypes.c_int] * 21 + [ctypes.c_void_p])
     rc = fn(q8.data_ptr(), k8.data_ptr(), v.data_ptr(), out.data_ptr(), qsc.data_ptr(),
             ksc.data_ptr(), *seg_ptrs, b, hq, hkv, sq, skv, dqk, dv, *strides,
             *out.stride()[:3], int(causal), int(pv_int8),
-            torch.cuda.current_stream(q.device).cuda_stream)
+            current_stream(q.device))
     check_launch(rc, "flash_attention_int8")
     fl = flavour(causal, dense, dqk, dv, q_positions is not None) + ("+pv8" if pv_int8 else "")
     flash_attention_int8.launches[fl] += 1

@@ -27,7 +27,7 @@ from typing import Optional
 
 import torch
 
-from glimpseprune_torch.ops.cuda.build import check_launch, load_library
+from glimpseprune_torch.ops.cuda.build import check_launch, current_stream, kernel_function
 from glimpseprune_torch.ops.kv_cache import quantize_kv
 
 # the Pallas kernels' tiles, which the routing gates are written in
@@ -147,12 +147,10 @@ def matmul_int4(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
     ksplit, per = k4_split(k, n, g)
     part = torch.empty((ksplit, m, n), dtype=torch.float32, device=x.device)
     out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
-    fn = load_library("int4_matmul").int4_gemv_bf16
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = kernel_function("int4_matmul", "int4_gemv_bf16",
+                         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     rc = fn(x2.data_ptr(), packed.data_ptr(), scales.data_ptr(), part.data_ptr(),
-            out.data_ptr(), m, k, n, g, ksplit, per,
-            torch.cuda.current_stream(x.device).cuda_stream)
+            out.data_ptr(), m, k, n, g, ksplit, per, current_stream(x.device))
     check_launch(rc, "matmul_int4")
     matmul_int4.launches[launch_key(k, n)] += 1
     return out.reshape(x.shape[:-1] + (n,))
@@ -232,11 +230,11 @@ def matmul_int4_prefill(x: torch.Tensor, packed: torch.Tensor, scales: torch.Ten
 
 def _launch_gemm(entry: str, ops, m: int, k: int, n: int, g: int) -> torch.Tensor:
     out = torch.empty((m, n), dtype=torch.bfloat16, device=ops[0].device)
-    fn = getattr(load_library("int4_matmul"), entry)
-    fn.argtypes = [ctypes.c_void_p] * (len(ops) + 1) + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = kernel_function("int4_matmul", entry,
+                         [ctypes.c_void_p] * (len(ops) + 1) + [ctypes.c_int] * 4
+                         + [ctypes.c_void_p])
     rc = fn(*(t.data_ptr() for t in ops), out.data_ptr(), m, k, n, g,
-            torch.cuda.current_stream(out.device).cuda_stream)
+            current_stream(out.device))
     check_launch(rc, "matmul_int4_prefill")
     return out
 

@@ -11,8 +11,9 @@ one kernel body, whose header says what bounds it on the H100 and how the
 design answers.
 
 The Pallas version merges W=2 windows per grid step, which was TPU tuning;
-here one block handles one (window, head) pair, so the grouping question
-does not arise.
+here one block handles one window and a group of heads, as ``plan_window``
+(the pure host-side plan: padded head dim, heads per block, shared-memory
+bytes) chooses.
 
 Dispatch is by device: a CPU tensor takes the plain PyTorch version below,
 a CUDA tensor launches the kernel (or raises).
@@ -21,15 +22,58 @@ a CUDA tensor launches the kernel (or raises).
 from __future__ import annotations
 
 import ctypes
+import functools
+from dataclasses import dataclass
 
 import torch
 
-from glimpseprune_torch.ops.cuda.build import check_launch, load_library
+from glimpseprune_torch.ops.cuda.build import check_launch, current_stream, kernel_function
 from glimpseprune_torch.ops.rope import rotate_half
 
 NEG_INF = -1e30
-MAX_WP = 64
+MAX_WP = 64  # rows and keys of a window tile
 MAX_DIM = 128
+# the padded head dims csrc/window_attention.cu is built for
+WINDOW_DIMS = (16, 64, 80, 128)
+
+
+@dataclass(frozen=True)
+class WindowPlan:
+    """How one K1/K8 call runs: the head dim padded to ``dim_pad`` in shared
+    memory, ``heads_per_block`` heads per (window, head group) block,
+    ``smem_bytes`` per block."""
+    dim_pad: int
+    heads_per_block: int
+    smem_bytes: int
+
+
+@functools.lru_cache(maxsize=256)
+def plan_window(dim: int, wp: int, heads: int, rope: bool) -> WindowPlan:
+    """The window kernel's plan, or ValueError if it refuses the shape.
+    Shared memory holds q, k and v (and with rope cos and sin) as
+    [64][dim_pad + 8] bf16 tiles and 64 validity flags. Four heads share a
+    block where the head count allows: the 7B's 80 windows then give 320
+    blocks, and cos and sin are read once per block."""
+    if not 0 < wp <= MAX_WP or not 0 < dim <= MAX_DIM or (rope and dim % 2):
+        raise ValueError(f"window_attention: unsupported wp={wp}, D={dim}")
+    dim_pad = next(d for d in WINDOW_DIMS if d >= dim)
+    hg = next(g for g in (4, 2, 1) if heads % g == 0)
+    smem = 2 * MAX_WP * (dim_pad + 8) * (5 if rope else 3) + 4 * MAX_WP
+    return WindowPlan(dim_pad, hg, smem)
+
+
+def _launch(entry: str, pointers, out, p, h, d, wp, rope, vec) -> None:
+    plan = plan_window(d, wp, h, rope)
+    fn = kernel_function("window_attention", entry,
+                         [ctypes.c_void_p] * len(pointers) + [ctypes.c_int] * 8
+                         + [ctypes.c_void_p])
+    rc = fn(*pointers, p, h, d, wp, plan.dim_pad, plan.heads_per_block, plan.smem_bytes, vec,
+            current_stream(out.device))
+    check_launch(rc, entry)
+
+
+def _aligned(*tensors) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
 def window_attention_fused_reference(qkv: torch.Tensor, cos: torch.Tensor,
@@ -73,8 +117,9 @@ def window_attention_fused(qkv: torch.Tensor, cos: torch.Tensor,
     p, three, h, d = qkv.shape
     if three != 3 or qkv.dtype != torch.bfloat16 or not qkv.is_contiguous():
         raise ValueError("window_attention_fused: qkv must be contiguous bf16 [P, 3, H, D]")
-    if not 0 < wp <= MAX_WP or p % wp or d % 2 or d > MAX_DIM:
-        raise ValueError(f"window_attention_fused: unsupported wp={wp}, P={p}, D={d}")
+    if p % wp:
+        raise ValueError(f"window_attention_fused: P={p} is not a multiple of wp={wp}")
+    plan_window(d, wp, h, True)  # raises on a shape the kernel refuses
     for name, t in (("cos", cos), ("sin", sin)):
         if t.shape != (p, d) or t.dtype != torch.bfloat16 or not t.is_contiguous() \
                 or t.device != qkv.device:
@@ -85,13 +130,12 @@ def window_attention_fused(qkv: torch.Tensor, cos: torch.Tensor,
     out = torch.empty((p, h, d), dtype=qkv.dtype, device=qkv.device)
     if p == 0:
         return out
-    fn = load_library("window_attention").window_attention_fused_bf16
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    stream = torch.cuda.current_stream(qkv.device).cuda_stream
-    rc = fn(qkv.data_ptr(), cos.data_ptr(), sin.data_ptr(), valid.data_ptr(),
-            out.data_ptr(), p, h, d, wp, stream)
-    check_launch(rc, "window_attention_fused")
+    rows16 = d % 8 == 0
+    vec = (int(rows16 and _aligned(qkv)) + 2 * int(rows16 and _aligned(cos, sin))
+           + 4 * int(rows16 and _aligned(out)))
+    _launch("window_attention_fused_bf16",
+            (qkv.data_ptr(), cos.data_ptr(), sin.data_ptr(), valid.data_ptr(), out.data_ptr()),
+            out, p, h, d, wp, True, vec)
     window_attention_fused.launches += 1
     return out
 
@@ -134,21 +178,20 @@ def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 or t.device != q.device:
             raise ValueError(f"window_attention: {name} must be contiguous bf16 [P, H, D] "
                              "on q's device")
-    if not 0 < wp <= MAX_WP or p % wp or d > MAX_DIM:
-        raise ValueError(f"window_attention: unsupported wp={wp}, P={p}, D={d}")
+    if p % wp:
+        raise ValueError(f"window_attention: P={p} is not a multiple of wp={wp}")
+    plan_window(d, wp, h, False)  # raises on a shape the kernel refuses
     if valid.shape != (p,) or valid.dtype != torch.bool or not valid.is_contiguous() \
             or valid.device != q.device:
         raise ValueError("window_attention: valid must be contiguous bool [P]")
     out = torch.empty((p, h, d), dtype=q.dtype, device=q.device)
     if p == 0:
         return out
-    fn = load_library("window_attention").window_attention_bf16
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(), out.data_ptr(),
-            p, h, d, wp, stream)
-    check_launch(rc, "window_attention")
+    rows16 = d % 8 == 0
+    vec = int(rows16 and _aligned(q, k, v)) + 4 * int(rows16 and _aligned(out))
+    _launch("window_attention_bf16",
+            (q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(), out.data_ptr()),
+            out, p, h, d, wp, False, vec)
     window_attention.launches += 1
     return out
 
