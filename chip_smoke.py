@@ -18,13 +18,17 @@ Phases, each of which raises on failure (the script then exits non-zero):
      site: ViT dense and segmented, LLM causal GQA, fuser Dqk != Dv, also
      relative to the output's size (controls that must fail: the plain
      version with P in 4 bits, and without key tile 0); then
-     K2 and K2-lse on edge cases: Sq and Skv that are no multiple of a
+     K2, K2-lse and K3 on edge cases: Sq and Skv that are no multiple of a
      tile, the tiny config's head dims (8, 16, 8/4), GQA group 7 with
      left-padded rows and a q tile that is all padding, and rows with no
-     allowed key (output exactly 0, LSE exactly -1e30);
+     allowed key (output exactly 0, LSE exactly -1e30, dq exactly 0; dk and
+     dv exactly 0 for keys no query sees);
   5. K2-lse (flash attention with the per-row LSE) and K3 (its backward)
      against their plain versions at the training batch's LLM causal GQA
-     and fuser Dqk != Dv shapes, and at a small dense case;
+     and fuser Dqk != Dv shapes, and at a small dense case: K3's dq, dk,
+     dv each within GRAD_RTOL and relative to their size (2^-7 max, 2^-8
+     RMS), with controls that must fail (the plain backward with dS in 4
+     bits, and without key tile 0), and bit-identical over two calls;
   6. the serving path: Qwen2.5-VL-7B with the GlimpsePrune config and
      random bf16 weights, pruned and unpruned ``generate`` on a two-row
      batch and a one-row batch, with the kernels' launch counts; then the
@@ -63,9 +67,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
      forward, LSE, backward, int8) on batch (a)'s causal shape with the q
      rows cut into 2 and 4 shards and one unaligned shard, against its plain
      versions and the monolithic K2 / K2-lse / K3 / K7 (with a control that
-     must fail); then SP_WORLD ranks on this one card over gloo, started by
-     the port's launcher, each building the 7B from seed 0 (checked by a
-     checksum all-gather): SP generate pruned and unpruned on batches (a)
+     must fail; the backward held as in phase 5); then SP_WORLD ranks on
+     this one card over gloo, started by the port's launcher, each
+     building the 7B from seed 0 (checked by a checksum all-gather): SP
+     generate pruned and unpruned on batches (a)
      and (b) against rank 0's single-process run (first-logit and mask-logit
      distance, keep counts, tokens, K9 launches per prefill by the
      per-call-site rule), the training batch's gradients under SP against
@@ -73,7 +78,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
      attention in int8 (K9-int8), and the tiny config under SP on the card
      against the CPU; times from CUDA events and peaks per rank.
 Every kernel row carries its time (CUDA events over 10 calls; for K1, K8,
-K2, K2-lse and K9 also ``device_ms``, the card's own time from
+K2, K2-lse, K3 and K9 also ``device_ms``, the card's own time from
 torch.profiler, without the host's launch cost), its plain version's time, one PyTorch
 call's time where one computes the same function (``library_ms``: SDPA
 with the same boolean mask, or its autograd backward; a yardstick the port
@@ -84,7 +89,7 @@ its bytes over the card's memory rate and its operations over the tensor
 peak of their type (bf16, or int8 for the int8 products), counted from this
 run's inputs. Before the summary, one "speed" line per kernel row gives its
 time beside the time PERF.md records for it before the tensor-core
-redesign of K1, K8 and K2 (``RECORDED_MS``), the rate it reached and its
+redesign of K1, K8, K2 and K3 (``RECORDED_MS``), the rate it reached and its
 share of the bound. The line before the last is a JSON object with one
 entry per kernel flavour; the last line is {"ok": true, "device": {...}}.
 """
@@ -167,15 +172,16 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
 PEAK_HBM_BYTES = 3.35e12
 # Each kernel's time as PERF.md's kernel table records it for the CUDA-core
-# kernels that the tensor-core K1, K8 and K2 flavours replace (and for the
-# kernels kept as they are), mean ms of 10 calls on an NVIDIA H100 80GB HBM3
+# kernels that the tensor-core K1, K8, K2 and K3 flavours replace (K3's and
+# K9 backward's from the last run before their redesign) and for the
+# kernels kept as they are, mean ms of 10 calls on an NVIDIA H100 80GB HBM3
 # at 700 W at the same shapes: printed beside this run's time.
 RECORDED_MS = {
     "window_attention_fused": 0.2946, "window_attention": 0.3016,
     "flash_attention[dense]": 3.7256, "flash_attention[segmented]": 5.4423,
     "flash_attention[causal]": 0.6203, "flash_attention[dqk_ne_dv]": 0.3383,
     "flash_attention_lse[causal]": 0.9003, "flash_attention_lse[dqk_ne_dv]": 0.3417,
-    "flash_attention_backward[causal]": 4.5586, "flash_attention_backward[dqk_ne_dv]": 0.9605,
+    "flash_attention_backward[causal]": 4.4222, "flash_attention_backward[dqk_ne_dv]": 0.8967,
     "matmul_int4[3584x3584]": 0.0434, "matmul_int4[3584x512]": 0.0554,
     "matmul_int4[3584x18944]": 0.0745, "matmul_int4[18944x3584]": 0.0793,
     "matmul_int4[3584x152064]": 0.9781,
@@ -188,7 +194,7 @@ RECORDED_MS = {
     "flash_attention_int8[segmented]": 4.5792, "flash_attention_int8[segmented+pv8]": 6.2714,
     "flash_attention_int8[causal]": 0.6453, "flash_attention_int8[causal+pv8]": 0.8228,
     "flash_attention[causal+qpos]": 0.5879, "flash_attention_lse[causal+qpos]": 0.5886,
-    "flash_attention_backward[causal+qpos]": 2.5082, "flash_attention_int8[causal+qpos]": 0.5461,
+    "flash_attention_backward[causal+qpos]": 2.5345, "flash_attention_int8[causal+qpos]": 0.5461,
 }
 # sequence parallelism on the one card: two ranks over gloo (NCCL refuses
 # two ranks on one device)
@@ -615,15 +621,19 @@ def check_flash_attention(cfg, prep_a, prep_b, gen):
 
 
 def check_flash_edges(gen):
-    """K2 and K2-lse against their plain versions on shapes the main path
-    does not reach: Sq and Skv that are no multiple of a tile, the tiny
+    """K2, K2-lse and K3 against their plain versions on shapes the main
+    path does not reach: Sq and Skv that are no multiple of a tile, the tiny
     config's head dims (8, 16, 8/4), GQA group 7 with left-padded rows and
     a q tile that is all padding, and rows with no allowed key (output
-    exactly 0, LSE exactly -1e30). K2 and K2-lse must agree bit for bit."""
+    exactly 0, LSE exactly -1e30). K2 and K2-lse must agree bit for bit.
+    K3 runs on K2-lse's output and LSE (check_backward's limits, no
+    controls); its dq is exactly 0 on rows with no allowed key (pad rows
+    among them), its dk and dv exactly 0 for keys that no query sees."""
     import torch
 
     from glimpseprune_torch.ops.cuda.flash_attention import (
         NEG_INF,
+        allowed_mask,
         flash_attention,
         flash_attention_lse,
         flash_attention_lse_reference,
@@ -681,7 +691,19 @@ def check_flash_edges(gen):
                 and r["their_output_zero"] and r["their_lse_-1e30"] and r["k2_equals_k2_lse"]
                 and torch.equal(lse <= -1e29, ~seen)):
             raise AssertionError(f"K2 edge case {name} fails: {r}")
-    print("K2/K2-lse edge cases against the plain version: " + json.dumps(report))
+        dout = rand(sq, hq, d_v)
+        bwd = check_backward(f"K3 edge case {name}", q, k, v, qseg, kseg, out_l, lse, dout,
+                             causal, dense, with_controls=False)
+        dq, dk, dv = bwd.pop("grads")
+        unseen_keys = ~allowed_mask(qseg, kseg, b, sq, skv, causal, dense, "cuda").any(1)
+        bwd["dq_zero_on_rows_without_key"] = bool((dq[~seen] == 0).all())
+        bwd["keys_no_query_sees"] = int(unseen_keys.sum())
+        bwd["dk_dv_zero_there"] = bool((dk.transpose(1, 2)[unseen_keys] == 0).all()
+                                       and (dv.transpose(1, 2)[unseen_keys] == 0).all())
+        r["backward"] = bwd
+        if not (bwd["dq_zero_on_rows_without_key"] and bwd["dk_dv_zero_there"]):
+            raise AssertionError(f"K3 edge case {name}: no exact zeros where due: {bwd}")
+    print("K2/K2-lse/K3 edge cases against the plain version: " + json.dumps(report))
     return report
 
 
@@ -691,6 +713,112 @@ def rel_err(got, ref, rows=None) -> float:
     if rows is not None:
         g, r = g[rows], r[rows]
     return ((g - r).abs().max() / r.abs().max().clamp(min=1e-30)).item()
+
+
+def control_backward(q, k, v, qseg, kseg, out, lse, dout, causal, dense, q_positions=None,
+                     round_ds: bool = False, drop_keys: int = 0):
+    """A wrong plain backward that the relative check must refuse: the fp32
+    backward with dS rounded to 4 significant bits (round_ds), or without
+    keys [0, drop_keys) (a dropped k tile, the LSE kept). Same arguments and
+    result as flash_attention_backward_reference."""
+    import torch
+
+    from glimpseprune_torch.ops.cuda.flash_attention import LOG2E, NEG_INF, allowed_mask
+
+    b, hq, sq, dqk = q.shape
+    hkv, skv, dv = v.shape[1], v.shape[2], v.shape[3]
+    g = hq // hkv
+    qf, kf, vf = q.float(), k.float().repeat_interleave(g, 1), v.float().repeat_interleave(g, 1)
+    allowed = allowed_mask(qseg, kseg, b, sq, skv, causal, dense, q.device, q_positions)[:, None]
+    allowed = allowed & (lse > NEG_INF / 2)[..., None]
+    if drop_keys:
+        allowed[..., :drop_keys] = False
+    p = torch.exp2(qf @ kf.transpose(-1, -2) * (LOG2E / dqk ** 0.5) - lse[..., None])
+    p = p.masked_fill(~allowed, 0.0)
+    del allowed
+    dof = dout.float()
+    ds = p * (dof @ vf.transpose(-1, -2) - (dof * out.float()).sum(-1)[..., None])
+    if round_ds:
+        mant, exp = torch.frexp(ds)
+        ds = torch.ldexp(torch.round(mant * 16) / 16, exp)
+    dq = ds @ kf / dqk ** 0.5
+    dk = (ds.transpose(-1, -2) @ qf / dqk ** 0.5).reshape(b, hkv, g, skv, dqk).sum(2)
+    dvv = (p.transpose(-1, -2) @ dof).reshape(b, hkv, g, skv, dv).sum(2)
+    return dq, dk, dvv
+
+
+def check_backward(name, q, k, v, qseg, kseg, out, lse, dout, causal, dense, q_positions=None,
+                   with_controls: bool = True):
+    """K3 (K9's backward with q_positions) against its plain version on one
+    input: each of dq, dk, dv within GRAD_RTOL of max |ref| and within the
+    relative limits K7_MAX_RTOL / K7_RMS_RTOL (k7_errors); with_controls,
+    two controls (dS in 4 bits, key tile 0 dropped) must miss both limits
+    on the gradients they change; a second call gives bit-identical dq, dk,
+    dv.
+    -> the errors (and, under "grads", the kernel's gradients); raises on a
+    failure."""
+    import torch
+
+    from glimpseprune_torch.ops.cuda.flash_attention import (
+        flash_attention_backward,
+        flash_attention_backward_reference,
+    )
+
+    def call():
+        return flash_attention_backward(q, k, v, qseg, kseg, out, lse, dout, causal=causal,
+                                        dense=dense, q_positions=q_positions)
+
+    grads, again = call(), call()
+    torch.cuda.synchronize()
+    args = (q.float(), k.float(), v.float(), qseg, kseg, out.float(), lse, dout.float(),
+            causal, dense, q_positions)
+    refs = flash_attention_backward_reference(*args)
+    rel = [rel_err(g, r) for g, r in zip(grads, refs)]
+    errs = [k7_errors(g, r) for g, r in zip(grads, refs)]
+    abs_err = max((g.float() - r).abs().max().item() for g, r in zip(grads, refs))
+    del refs
+    controls = {}
+    for control, kw in ((("ds_4_bits", dict(round_ds=True)),
+                         ("k_tile_0_dropped", dict(drop_keys=64))) if with_controls else ()):
+        ctrl = control_backward(*args, **kw)
+        e = [k7_errors(g, c) for g, c in zip(grads, ctrl)]
+        del ctrl
+        controls[control] = (max(x[0] for x in e), max(x[1] for x in e))
+    r = {"max_abs_err": abs_err, "rel_err": max(rel), "rel_err_dq_dk_dv": rel,
+         "k7_errs_dq_dk_dv": errs, "controls": controls,
+         "deterministic": all(torch.equal(a, b) for a, b in zip(grads, again))}
+    if not (max(rel) <= GRAD_RTOL and all(k7_within(e) for e in errs)):
+        raise AssertionError(f"{name} disagrees with its plain version: {r}")
+    passed = [c for c, e in controls.items() if e[0] <= K7_MAX_RTOL or e[1] <= K7_RMS_RTOL]
+    if passed:
+        raise AssertionError(f"{name}: the check cannot tell the kernel from {passed}: {r}")
+    if not r["deterministic"]:
+        raise AssertionError(f"{name}: two calls on the same inputs differ")
+    r["grads"] = grads
+    return r
+
+
+def bwd_summary(r) -> str:
+    """One line of check_backward's errors."""
+    return ("rel_err dq/dk/dv " + "/".join(f"{e:.2e}" for e in r["rel_err_dq_dk_dv"])
+            + ", max/rms rel " + ", ".join(f"{e[0]:.2e}/{e[1]:.2e}" for e in r["k7_errs_dq_dk_dv"])
+            + "; controls (max/rms rel) "
+            + ", ".join(f"{c} {e[0]:.2e}/{e[1]:.2e}" for c, e in r["controls"].items())
+            + f"; deterministic {r['deterministic']}")
+
+
+def sdpa_backward_ms(q, k, v, mask, dout):
+    """(event ms, device ms) of SDPA's autograd backward with the same
+    boolean mask: the yardstick of K3 and K9's backward."""
+    import torch
+
+    qr, kr, vr = (x.detach().requires_grad_(True) for x in (q, k, v))
+    lib_out = sdpa(qr, kr, vr, mask)
+
+    def call():
+        return torch.autograd.grad(lib_out, (qr, kr, vr), dout, retain_graph=True)
+
+    return cuda_ms(call), device_ms(call)
 
 
 def check_flash_training(cfg, batch, gen):
@@ -758,42 +886,39 @@ def check_flash_training(cfg, batch, gen):
                    "library_device_ms": lib_dev_ms, "shape": shape}
 
         # K3: dq, dk, dv against the plain fp32 backward on the same
-        # inputs (the kernel's own forward output and LSE)
+        # inputs (the kernel's own forward output and LSE), per gradient
+        # within GRAD_RTOL and relative to its size, with controls that
+        # must fail, and bit-identical from call to call
         dout = torch.randn(out.transpose(1, 2).shape, generator=gen,
                            device="cuda").bfloat16().transpose(1, 2)
-        grads = flash_attention_backward(q, k, v, segs, segs, out, lse, dout, causal=causal,
-                                         dense=dense)
-        torch.cuda.synchronize()
-        refs = flash_attention_backward_reference(q.float(), k.float(), v.float(), segs, segs,
-                                                  out.float(), lse, dout.float(),
-                                                  causal=causal, dense=dense)
-        errs = [rel_err(g, r) for g, r in zip(grads, refs)]
-        abs_err = max((g.float() - r).abs().max().item() for g, r in zip(grads, refs))
-        if not max(errs) <= GRAD_RTOL:
-            raise AssertionError(f"K3 {name} disagrees with its plain version: "
-                                 f"dq, dk, dv max err / max |ref| = {errs}")
-        ms = cuda_ms(lambda: flash_attention_backward(q, k, v, segs, segs, out, lse, dout,
-                                                      causal=causal, dense=dense))
+        bwd = check_backward(f"K3 {name}", q, k, v, segs, segs, out, lse, dout, causal, dense)
+        grads = bwd.pop("grads")
+
+        def call():
+            return flash_attention_backward(q, k, v, segs, segs, out, lse, dout, causal=causal,
+                                            dense=dense)
+
+        ms = cuda_ms(call)
+        # the dkv chunks and fp32 workspace of the launches just timed
+        split = dict(flash_attention_backward.last_split)
+        dev_ms = device_ms(call)
         plain_ms = cuda_ms(lambda: flash_attention_backward_reference(
             q, k, v, segs, segs, out, lse, dout, causal=causal, dense=dense))
-        qr, kr, vr = (x.detach().requires_grad_(True) for x in (q, k, v))
-        lib_out = sdpa(qr, kr, vr, mask)
-        lib_ms = cuda_ms(lambda: torch.autograd.grad(lib_out, (qr, kr, vr), dout,
-                                                     retain_graph=True))
-        del lib_out
+        lib_ms, lib_dev_ms = sdpa_backward_ms(q, k, v, mask, dout)
         bound_ms, bound_by = bound(2.0 * pairs * hq * (3 * d_qk + 2 * d_v),
                                    nbytes(q, k, v, out, lse, dout, *grads) + seg_bytes)
-        print(f"K3 flash_attention_backward[{fl}] {shape}: max_abs_err={abs_err:.3e} "
-              f"rel_err dq/dk/dv={errs[0]:.2e}/{errs[1]:.2e}/{errs[2]:.2e} kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms, sdpa backward {lib_ms} ms, "
-              f"bound {bound_ms:.4f} ms ({bound_by})")
+        print(f"K3 flash_attention_backward[{fl}] {shape}: {bwd_summary(bwd)}; kernel {ms:.4f} ms "
+              f"(card {fmt_ms(dev_ms)}), plain {plain_ms:.4f} ms, sdpa backward {lib_ms:.4f} ms "
+              f"(card {fmt_ms(lib_dev_ms)}), bound {bound_ms:.4f} ms ({bound_by}); dkv split "
+              f"{split['splits']}x ({split['workspace_bytes']} bytes of workspace)")
         bwd_row = {"name": f"flash_attention_backward[{fl}]", "route": "cuda",
-                   "source": K3_SRC, "replaces": K3_REPLACES, "max_abs_err": abs_err,
-                   "rel_err": max(errs), "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                   "bound_by": bound_by, "library_ms": lib_ms, "shape": shape}
+                   "source": K3_SRC, "replaces": K3_REPLACES, **bwd, **split, "ms": ms,
+                   "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                   "bound_by": bound_by, "library_ms": lib_ms,
+                   "library_device_ms": lib_dev_ms, "shape": shape}
         if dense:  # not on the training path: checked, not listed
-            dense_check = {"lse_rel_err": lse_err, "grad_rel_err": max(errs),
-                           "lse_ms": lse_row["ms"], "bwd_ms": ms}
+            dense_check = {"lse_rel_err": lse_err, **bwd, "lse_ms": lse_row["ms"], "bwd_ms": ms,
+                           "bwd_device_ms": dev_ms}
         else:
             rows += [lse_row, bwd_row]
     return rows, dense_check
@@ -1646,6 +1771,7 @@ def check_flash_qpos(cfg, prep_a, gen):
         r = {"fwd_err": (got.float() - ref_o).abs().max().item(),
              "lse_rel_err": rel_err(lse, ref_lse, seen),
              "bwd_rel_err": [rel_err(g, rr) for g, rr in zip(grads, ref_grads)],
+             "bwd_k7_errs": [k7_errors(g, rr) for g, rr in zip(grads, ref_grads)],
              "bwd_abs_err": max((g.float() - rr).abs().max().item()
                                 for g, rr in zip(grads, ref_grads)),
              "int8_errs": {pv: k7_errors(i8[pv], i8_refs[pv]) for pv in (False, True)},
@@ -1663,6 +1789,7 @@ def check_flash_qpos(cfg, prep_a, gen):
         bad = [key for key, ok in r["equal_to_monolithic"].items() if not ok]
         if not (r["fwd_err"] <= KERNEL_ATOL and r["lse_rel_err"] <= LSE_RTOL
                 and torch.equal(lse <= -1e29, ~seen) and max(r["bwd_rel_err"]) <= GRAD_RTOL
+                and all(k7_within(e) for e in r["bwd_k7_errs"])
                 and all(k7_within(e) for e in r["int8_errs"].values()) and not bad):
             raise AssertionError(f"K9 shard {name} [{lo}:{hi}] fails: {r}")
     for n, (dk, dv) in dkv_sums.items():
@@ -1723,21 +1850,26 @@ def check_flash_qpos(cfg, prep_a, gen):
         device_ms=device_ms(lambda: flash_attention_lse(qs, k, v, qseg, seg, causal=True,
                                                         q_positions=qpos)),
         library_device_ms=sdpa_dev_ms)
-    qr, kr, vr = (x.detach().requires_grad_(True) for x in (qs, k, v))
-    lib_out = sdpa(qr, kr, vr, mask)
-    grads = flash_attention_backward(qs, k, v, qseg, seg, out, lse, ds, causal=True,
-                                     q_positions=qpos)
-    row("flash_attention_backward",
-        cuda_ms(lambda: flash_attention_backward(qs, k, v, qseg, seg, out, lse, ds, causal=True,
-                                                 q_positions=qpos)),
+    # the backward's controls and determinism at this shard
+    bwd = check_backward("K9 backward", qs, k, v, qseg, seg, out, lse, ds, True, False, qpos)
+    grads = bwd.pop("grads")
+    print(f"K9 backward rows {lo}:{hi}: {bwd_summary(bwd)}")
+
+    def bwd_call():
+        return flash_attention_backward(qs, k, v, qseg, seg, out, lse, ds, causal=True,
+                                        q_positions=qpos)
+
+    lib_ms, lib_dev_ms = sdpa_backward_ms(qs, k, v, mask, ds)
+    row("flash_attention_backward", cuda_ms(bwd_call),
         cuda_ms(lambda: flash_attention_backward_reference(qs, k, v, qseg, seg, out, lse, ds,
                                                            causal=True, q_positions=qpos)),
-        cuda_ms(lambda: torch.autograd.grad(lib_out, (qr, kr, vr), ds, retain_graph=True)),
-        2.0 * pairs * hq * 5 * d, nbytes(qs, k, v, out, lse, ds, *grads),
+        lib_ms, 2.0 * pairs * hq * 5 * d, nbytes(qs, k, v, out, lse, ds, *grads),
         max_abs_err=half["bwd_abs_err"], rel_err=max(half["bwd_rel_err"]),
+        k7_errs_dq_dk_dv=bwd["k7_errs_dq_dk_dv"], controls=bwd["controls"],
+        deterministic=bwd["deterministic"],
         dk_dv_sum_rel_err=report["dk_dv_sum_over_2_shards_rel_err"],
-        equal_to_monolithic=half["equal_to_monolithic"]["dq"])
-    del lib_out
+        equal_to_monolithic=half["equal_to_monolithic"]["dq"],
+        device_ms=device_ms(bwd_call), library_device_ms=lib_dev_ms)
     q8, qsc = quantize_kv(qs)
     got = flash_attention_int8(qs, k, v, qseg, seg, causal=True, q_positions=qpos)
     row("flash_attention_int8",

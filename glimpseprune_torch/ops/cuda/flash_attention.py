@@ -25,10 +25,11 @@ Replaces the Pallas kernels of glimpseprune_tpu/ops/pallas/flash_attention.py:
   the flavour ``"causal+qpos"``.
 The CUDA sources are ``glimpseprune_torch/csrc/flash_attention.cu`` (K2,
 K2-lse and K9 on tensor cores; K7 and K9-int8 on their own scalar kernel)
-and ``flash_attention_bwd.cu`` (K3); their headers say what bounds them on
-the H100 and how the design answers. ``plan_flash`` is the forward's
-host-side plan: the padded head-dim pair it is built for, the q tile, the
-k tile and the shared-memory bytes.
+and ``flash_attention_bwd.cu`` (K3 and K9's backward on tensor cores);
+their headers say what bounds them on the H100 and how the design answers.
+``plan_flash`` and ``plan_flash_bwd`` are the host-side plans: the padded
+head-dim pair a kernel is built for, its tiles and its shared-memory
+bytes, which the C launchers check.
 
 The TPU tuning does not carry over: there are no 1024x1024 blocks and no
 head-dim padding to 128. The qk head dim and the v head dim are separate
@@ -130,6 +131,80 @@ def plan_flash(dqk: int, dv: int, skv: int) -> FlashPlan:
         raise ValueError(f"flash_attention: {skv} keys need {smem} bytes of shared memory "
                          f"per block, over the card's {SMEM_LIMIT}")
     return FlashPlan(dqk_pad, dv_pad, warps, 16 * warps, FWD_BLOCK_K, smem)
+
+
+# The backward (K3, K9's backward), csrc/flash_attention_bwd.cu: built for
+# the forward's head-dim pairs, so training never reaches a forward that it
+# refuses; four warps of 16 rows, q and k tiles of 64 rows whatever the
+# shape, two-stage rings; the dkv kernel's work cut into at most
+# BWD_MAX_SPLITS chunks per block.
+BWD_DIMS = FWD_DIMS
+BWD_BLOCK = 64
+BWD_STAGES = 2
+BWD_WARPS = 4
+BWD_MAX_SPLITS = 8
+
+
+@dataclass(frozen=True)
+class FlashBwdPlan:
+    """How one backward call runs: head dims padded to ``dqk_pad``/``dv_pad``
+    in shared memory, ``warps`` warps of 16 rows, q and k tiles of ``block``
+    rows, ``smem_dq`` and ``smem_dkv`` bytes per block of the two kernels."""
+    dqk_pad: int
+    dv_pad: int
+    warps: int
+    block: int
+    smem_dq: int
+    smem_dkv: int
+
+
+def bwd_smem_bytes(dqk_pad: int, dv_pad: int, n_tiles: int) -> int:
+    """Shared memory of one block of either backward kernel
+    (csrc/flash_attention_bwd.cu ``smem_fixed`` plus its tile list): three
+    tiles of each head dim in bf16 with 8 elements of row padding (the
+    resident one and a two-stage ring), nine 64-entry row vectors (the dkv
+    kernel's ring of q-row LSE, dsum, segments and positions, and its key
+    segments), 8 slots, and one int per tile of the list (k tiles for dq, q
+    tiles for dkv)."""
+    return (2 * 3 * BWD_BLOCK * (dqk_pad + 8 + dv_pad + 8) + 4 * (9 * BWD_BLOCK + 8)
+            + 4 * n_tiles)
+
+
+@functools.lru_cache(maxsize=1024)
+def plan_flash_bwd(dqk: int, dv: int, sq: int, skv: int) -> FlashBwdPlan:
+    """The backward kernels' plan for one shape, or ValueError if they
+    refuse it. The head dims take the first built pair that holds them, as
+    the forward's do; the k tile is BWD_BLOCK keys whatever Sq, so a q
+    shard's rows visit the same k tiles in the same order as in the whole
+    sequence (K9's dq equals the monolithic call's bit for bit)."""
+    if not (0 < dqk <= MAX_DQK and 0 < dv <= MAX_DV):
+        raise ValueError(f"flash_attention_backward: unsupported head dims {dqk}/{dv}")
+    dqk_pad, dv_pad = next((a, b) for a, b in BWD_DIMS if a >= dqk and b >= dv)
+    smem_dq = bwd_smem_bytes(dqk_pad, dv_pad, -(-skv // BWD_BLOCK))
+    smem_dkv = bwd_smem_bytes(dqk_pad, dv_pad, -(-sq // BWD_BLOCK))
+    if max(smem_dq, smem_dkv) > SMEM_LIMIT:
+        raise ValueError(f"flash_attention_backward: {sq} queries and {skv} keys need "
+                         f"{max(smem_dq, smem_dkv)} bytes of shared memory per block, over "
+                         f"the card's {SMEM_LIMIT}")
+    return FlashBwdPlan(dqk_pad, dv_pad, BWD_WARPS, BWD_BLOCK, smem_dq, smem_dkv)
+
+
+def bwd_splits(b: int, hkv: int, skv: int, sms: int, causal: bool) -> int:
+    """Chunks of each dkv block's (q head, q tile) list, one block each, at
+    most BWD_MAX_SPLITS. Under causal masking, whose blocks walk from 1 to
+    all q tiles, enough for about four blocks per SM; otherwise every block
+    walks the same number and a split only adds its workspace, so none. A
+    function of the shape alone, so the same inputs are summed in the same
+    order."""
+    if not causal:
+        return 1
+    blocks = b * hkv * -(-skv // BWD_BLOCK)
+    return max(1, min(BWD_MAX_SPLITS, -(-4 * sms // blocks)))
+
+
+@functools.lru_cache(maxsize=16)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def flavour(causal: bool, dense: bool, dqk: int, dv: int, qpos: bool = False) -> str:
@@ -362,11 +437,14 @@ def flash_attention_backward(
     the forward's output and LSE. With q_positions, dk and dv are the part
     of this q shard; summing them over the shards gives the whole.
 
-    On the card dsum = rowsum(dO * O) is one PyTorch reduction (the JAX
-    package computes it outside Pallas too, :818), then one launch of
-    csrc/flash_attention_bwd.cu writes dq, dk, dv as [B, H, S, D] views of
-    [B, S, H, D] buffers. ``flash_attention_backward.launches[flavour]``
-    counts kernel launches."""
+    On the card one call of csrc/flash_attention_bwd.cu launches the dq
+    kernel (whose prologue also computes dsum = rowsum(dO * O), which the
+    JAX package computes outside Pallas, :818), the dkv kernel and, when
+    the dkv work is split, the kernel that sums its fp32 parts (the
+    workspaces are allocated here); it writes dq, dk, dv as [B, H, S, D]
+    views of [B, S, H, D] buffers. ``flash_attention_backward.launches[flavour]``
+    counts these calls; ``flash_attention_backward.last_split`` holds the
+    last launch's dkv chunks (``bwd_splits``) and workspace bytes."""
     if _device_of(q, dense, q_segment_ids, kv_segment_ids, causal, q_positions) == "cpu":
         return flash_attention_backward_reference(q, k, v, q_segment_ids, kv_segment_ids,
                                                   out, lse, dout, causal, dense, q_positions)
@@ -376,26 +454,39 @@ def flash_attention_backward(
                              q_positions)
     if out.shape != (b, hq, sq, dv) or dout.shape != out.shape or lse.shape != (b, hq, sq):
         raise ValueError("flash_attention_backward: out, dout or lse has the wrong shape")
-    dout = dout.to(torch.bfloat16)
-    if dout.stride(-1) != 1:
-        dout = dout.contiguous()
+    plan = plan_flash_bwd(dqk, dv, sq, skv)
+    dout, out = (x if x.dtype == torch.bfloat16 and x.stride(-1) == 1
+                 else x.to(torch.bfloat16).contiguous() for x in (dout, out))
     lse = lse.to(torch.float32).contiguous()
-    dsum = (dout.float() * out.float()).sum(-1).contiguous()
+    dsum = torch.empty_like(lse)  # rowsum(dO * O), the dq kernel writes it
     dq = torch.empty((b, sq, hq, dqk), dtype=q.dtype, device=q.device).transpose(1, 2)
     dk = torch.empty((b, skv, hkv, dqk), dtype=k.dtype, device=q.device).transpose(1, 2)
     dvv = torch.empty((b, skv, hkv, dv), dtype=v.dtype, device=q.device).transpose(1, 2)
     if dq.numel() == 0 or dk.numel() == 0:
         return dq.zero_(), dk.zero_(), dvv.zero_()
-    strides = (_strides(q, "q") + _strides(k, "k") + _strides(v, "v")
-               + _strides(dout, "dout") + dq.stride()[:3] + dk.stride()[:3]
-               + dvv.stride()[:3])
+    splits = bwd_splits(b, hkv, skv, _sm_count(q.get_device()), causal)
+    ws = (torch.empty((b, hkv, splits, skv, plan.dqk_pad + plan.dv_pad), dtype=torch.float32,
+                      device=q.device) if splits > 1 else None)
+    qst, kst, vst, dost, ost = (_strides(q, "q"), _strides(k, "k"), _strides(v, "v"),
+                                _strides(dout, "dout"), _strides(out, "out"))
+    qp, kp, vp, dop, op = q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), out.data_ptr()
+    # rows that may move as 16-byte chunks (q, k, v, dO, O), outputs whose
+    # rows take 4-byte pairs (dq and dk, dv: even widths of fresh buffers)
+    vec = (_rows16(qp, qst) | _rows16(kp, kst) << 1 | _rows16(vp, vst) << 2
+           | _rows16(dop, dost) << 3 | (dqk % 2 == 0) << 4 | (dv % 2 == 0) << 5
+           | _rows16(op, ost) << 6)
+    ints = array.array("i", (b, hq, hkv, sq, skv, dqk, dv, plan.dqk_pad, plan.dv_pad,
+                             plan.smem_dq, plan.smem_dkv, splits, *qst, *kst, *vst, *dost,
+                             *ost, *dq.stride()[:3], *dk.stride()[:3], *dvv.stride()[:3],
+                             int(causal), vec))
     fn = kernel_function("flash_attention_bwd", "flash_attention_bwd_bf16",
-                         [ctypes.c_void_p] * 12 + [ctypes.c_int] * 29 + [ctypes.c_void_p])
-    stream = current_stream(q.device)
-    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-            dsum.data_ptr(), *seg_ptrs, dq.data_ptr(), dk.data_ptr(), dvv.data_ptr(),
-            b, hq, hkv, sq, skv, dqk, dv, *strides, int(causal), stream)
+                         [ctypes.c_void_p] * 16)
+    rc = fn(qp, kp, vp, dop, op, lse.data_ptr(), dsum.data_ptr(), *seg_ptrs, dq.data_ptr(),
+            dk.data_ptr(), dvv.data_ptr(), None if ws is None else ws.data_ptr(),
+            ints.buffer_info()[0], current_stream(q.device))
     check_launch(rc, "flash_attention_backward")
+    flash_attention_backward.last_split = {"splits": splits,
+                                           "workspace_bytes": 0 if ws is None else ws.nbytes}
     flash_attention_backward.launches[flavour(causal, dense, dqk, dv,
                                               q_positions is not None)] += 1
     return dq, dk, dvv
@@ -573,4 +664,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_attention.launches = dict.fromkeys(FLAVOURS, 0)
 flash_attention_lse.launches = dict.fromkeys(FLAVOURS, 0)
 flash_attention_backward.launches = dict.fromkeys(FLAVOURS, 0)
+flash_attention_backward.last_split = {"splits": 0, "workspace_bytes": 0}
 flash_attention_int8.launches = dict.fromkeys(INT8_FLAVOURS, 0)
