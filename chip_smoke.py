@@ -39,7 +39,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
      weights; then one tiny-config train step on the card against the CPU;
   8. K4 (int4 decode product) at the 7B decode shapes, K5 and K6 (int4
      prefill products, W4A16 and W4A8) at the 7B decoder shapes with
-     M = 1664, and K7 (int8 flash attention) dense, segmented and causal,
+     M = 1664 (K6 also bit-equal to its plain version in bf16, each output
+     of its prep pass equal to its plain version's, at M = 1664 and, for
+     gate/up and k/v, at M = 1662 and 256, with q8 truncated instead of
+     rounded as the control that must fail; its prep and GEMM timed apart
+     on the card), and K7 (int8 flash attention) dense, segmented and causal,
      with and without the int8 PV product, each against its plain version
      (K7 also against the other PV flavour and bf16 attention, which it
      must not pass: the check tells the int8 tiers apart);
@@ -78,7 +82,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
      attention in int8 (K9-int8), and the tiny config under SP on the card
      against the CPU; times from CUDA events and peaks per rank.
 Every kernel row carries its time (CUDA events over 10 calls; for K1, K8,
-K2, K2-lse, K3 and K9 also ``device_ms``, the card's own time from
+K2, K2-lse, K3, K6 and K9 also ``device_ms``, the card's own time from
 torch.profiler, without the host's launch cost), its plain version's time, one PyTorch
 call's time where one computes the same function (``library_ms``: SDPA
 with the same boolean mask, or its autograd backward; a yardstick the port
@@ -88,8 +92,8 @@ same shape that the unquantized path pays) and ``bound_ms``: the larger of
 its bytes over the card's memory rate and its operations over the tensor
 peak of their type (bf16, or int8 for the int8 products), counted from this
 run's inputs. Before the summary, one "speed" line per kernel row gives its
-time beside the time PERF.md records for it before the tensor-core
-redesign of K1, K8, K2 and K3 (``RECORDED_MS``), the rate it reached and its
+time beside the time PERF.md records for it before the redesign of K1,
+K8, K2, K3 and K6 (``RECORDED_MS``), the rate it reached and its
 share of the bound. The line before the last is a JSON object with one
 entry per kernel flavour; the last line is {"ok": true, "device": {...}}.
 """
@@ -103,6 +107,7 @@ import subprocess
 import sys
 import time
 import zlib
+from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -171,11 +176,12 @@ K7_RMS_RTOL = 2 ** -8
 PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
 PEAK_HBM_BYTES = 3.35e12
-# Each kernel's time as PERF.md's kernel table records it for the CUDA-core
-# kernels that the tensor-core K1, K8, K2 and K3 flavours replace (K3's and
-# K9 backward's from the last run before their redesign) and for the
-# kernels kept as they are, mean ms of 10 calls on an NVIDIA H100 80GB HBM3
-# at 700 W at the same shapes: printed beside this run's time.
+# Each kernel's time as PERF.md's kernel table records it for the kernels
+# that the tensor-core K1, K8, K2 and K3 flavours and the two-pass K6
+# replace (K3's and K9 backward's from the last run before their redesign,
+# K6's from its first, unpipelined version) and for the kernels kept as
+# they are, mean ms of 10 calls on an NVIDIA H100 80GB HBM3 at 700 W at
+# the same shapes: printed beside this run's time.
 RECORDED_MS = {
     "window_attention_fused": 0.2946, "window_attention": 0.3016,
     "flash_attention[dense]": 3.7256, "flash_attention[segmented]": 5.4423,
@@ -206,6 +212,10 @@ COMPRESSED_NEW_TOKENS = 8
 # the image-token budget of divprune, cdpruner and vscan (the papers' 128
 # setting): under every row's image-token count, so each row really prunes
 VISUAL_TOKEN_NUM = 128
+# device_ms_by_kernel: warm-up calls inside a trace, then the card idles
+# this long before the timed ones
+TRACE_WARMUP_CALLS = 3
+IDLE_S = 0.02
 # full attention at three of the 7B's four blocks: the last one is windowed,
 # so its importance goes through K8 (a config that is not in configs/)
 WINDOWED_LAST_FULLATT = (7, 15, 23)
@@ -253,30 +263,60 @@ def cuda_ms(fn, warmup: int = 2, iters: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int = 10, tries: int = 3):
-    """Mean device time of the CUDA kernels one call of ``fn`` launches, from
-    torch.profiler: the card's own time, without the host's launch cost,
-    which cuda_ms includes when the host is slower than the card. A trace
-    that recorded no device time is taken again, up to ``tries`` times;
-    then the time is None (not measured), never 0."""
+def device_ms_by_kernel(fn, iters: int = 10, tries: int = 3):
+    """{kernel name: mean device ms per call} of the CUDA kernels that one
+    call of ``fn`` launches, from torch.profiler: the card's own time,
+    without the host's launch cost, which cuda_ms includes when the host is
+    slower than the card. A trace can miss the launches of its first
+    fraction of a millisecond, so TRACE_WARMUP_CALLS run first inside it and
+    the card idles for IDLE_S before the ``iters`` calls that count: the
+    kernels after the card's longest idle gap. Each kernel's count there
+    must be a whole number per call (``fn`` launches the same kernels every
+    call), and its total is divided by ``iters``. A trace that falls short
+    of that, or recorded no device time, is taken again, up to ``tries``
+    times; then the result is None (not measured)."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-
-    def self_us(e):  # the attribute's name in PyTorch >= 2.4, and before
-        t = getattr(e, "self_device_time_total", None)
-        return e.self_cuda_time_total if t is None else t
 
     fn()
     torch.cuda.synchronize()
     for _ in range(tries):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(TRACE_WARMUP_CALLS):
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(IDLE_S)
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        total_us = sum(self_us(e) for e in prof.key_averages())
-        if total_us > 0:
-            return total_us / iters / 1e3
+        kernels = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
+                          and e.time_range.elapsed_us() > 0), key=lambda e: e.time_range.start)
+        first, gap, end = 0, 0.0, None
+        for i, e in enumerate(kernels):
+            if end is not None and e.time_range.start - end > gap:
+                first, gap = i, e.time_range.start - end
+            end = e.time_range.end if end is None else max(end, e.time_range.end)
+        total, count = Counter(), Counter()
+        for e in kernels[first:] if gap >= IDLE_S * 1e6 / 2 else ():
+            total[e.name] += e.time_range.elapsed_us()
+            count[e.name] += 1
+        short = [(k[:60], c) for k, c in count.items() if c % iters]
+        if short:
+            print(f"device_ms: the trace of {iters} calls counted {short} launches; again")
+        elif total:
+            return {k: t / iters / 1e3 for k, t in total.items()}
+        else:
+            print(f"device_ms: no kernel after an idle gap in a trace of {len(kernels)} "
+                  f"kernels (longest gap {gap:.0f} us); again")
     return None
+
+
+def device_ms(fn, iters: int = 10, tries: int = 3):
+    """Mean device ms of one call of ``fn`` (device_ms_by_kernel summed), or
+    None where not measured, never 0."""
+    by = device_ms_by_kernel(fn, iters, tries)
+    return None if by is None else sum(by.values())
 
 
 def bound(flops: float, nbytes: float, int8_ops: float = 0.0):
@@ -977,7 +1017,6 @@ def check_outputs(cfg, prep, pre, res, do_selection):
 
 
 def reset_launches():
-    from collections import Counter
 
     from glimpseprune_torch.ops.cuda.flash_attention import (
         FLAVOURS,
@@ -1538,9 +1577,86 @@ def int4_row(name, key, replaces, x, packed, scales, got, ref, ms, plain_ms, out
             "shape": shape}
 
 
+def k6_plain(x, packed, scales, trunc: bool = False):
+    """K6's plain version on the card from the same bf16 x, in bf16: x
+    quantized by quantize_kv, the weights requantized by requant_ratios,
+    the exact integer product and the rescale. ``trunc`` truncates q4 * r
+    instead of rounding it: the control that must fail."""
+    import torch
+
+    from glimpseprune_torch.ops.cuda.int4_matmul import (
+        int4_prefill_a8_reference,
+        requant_ratios,
+        unpack_int4,
+    )
+    from glimpseprune_torch.ops.kv_cache import quantize_kv
+
+    xq, xs = quantize_kv(x)
+    s8, r = requant_ratios(scales)
+    if not trunc:
+        return int4_prefill_a8_reference(xq, xs[:, None], packed, r, s8, torch.bfloat16)
+    g = x.shape[1] // scales.shape[0]
+    q8 = torch.trunc(unpack_int4(packed).float() * r.repeat_interleave(g, dim=0))
+    return ((xq.double() @ q8.double()).float() * xs[:, None] * s8).to(torch.bfloat16)
+
+
+def check_k6_bits(x, packed, scales):
+    """K6 (prep and GEMM, one call) on x against its plain versions on the
+    same inputs: the output equal to k6_plain's bit for bit, and each prep
+    output (xq, xs, W8^T, s8) equal to int4_a8_prep_reference's; raises
+    otherwise. Returns the output."""
+    import torch
+
+    from glimpseprune_torch.ops.cuda.int4_matmul import int4_a8_kernels, int4_a8_prep_reference
+
+    got, prep = int4_a8_kernels(x, packed, scales)
+    torch.cuda.synchronize()
+    want_prep = int4_a8_prep_reference(x, packed, scales)
+    bad = [n for n, a, b in zip(("xq", "xs", "w8t", "s8"), prep, want_prep)
+           if not torch.equal(a, b)]
+    if bad:
+        raise AssertionError(f"K6's prep differs from its plain version in {bad}")
+    want = k6_plain(x, packed, scales)
+    if not torch.equal(got, want):
+        raise AssertionError(f"K6 at M={x.shape[0]} differs from its plain version in "
+                             f"{(got != want).sum().item()} of {got.numel()} outputs")
+    return got
+
+
+def host_ms(fn, iters: int = 20) -> float:
+    """Mean host ms to issue one call of ``fn`` (the card's work is not
+    waited for): the launch cost inside a kernel's event time."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    issued = (time.perf_counter() - t0) / iters * 1e3
+    torch.cuda.synchronize()
+    return issued
+
+
+def k6_stage_ms(x, packed, scales):
+    """(prep, GEMM) device ms of one K6 call, each None if not measured."""
+    from glimpseprune_torch.ops.cuda.int4_matmul import int4_a8_kernels
+
+    by = device_ms_by_kernel(lambda: int4_a8_kernels(x, packed, scales)) or {}
+
+    def stage(tag):
+        ms = [v for key, v in by.items() if tag in key]
+        return sum(ms) if ms else None
+
+    return stage("prep_kernel"), stage("gemm_kernel")
+
+
 def check_int4_kernels(cfg, gen, decode_m: int, prefill_m: int):
     """K4 at the decode shapes (M = decode_m), K5 and K6 at the decoder
-    shapes with M = prefill_m, each against its plain version."""
+    shapes with M = prefill_m, each against its plain version. K6 is also
+    held bit for bit to its plain version in bf16, its prep outputs to
+    theirs, at M = prefill_m, and (gate/up, k/v) at the unpruned prefill's
+    ragged M and the resume layers' M = 256; a plain version that truncates
+    the requantized weights must fail INT4_RTOL. -> (rows, K6 report)"""
     import torch
 
     from glimpseprune_torch.ops.cuda.int4_matmul import (
@@ -1550,11 +1666,12 @@ def check_int4_kernels(cfg, gen, decode_m: int, prefill_m: int):
         matmul_int4,
         matmul_int4_prefill,
         matmul_int4_reference,
+        plan_int4_a8,
         requant_ratios,
     )
     from glimpseprune_torch.ops.kv_cache import quantize_kv
 
-    rows = []
+    rows, k6_report = [], {}
     for name, (k, n) in decoder_shapes(cfg).items():
         packed, scales = int4_weight(k, n, gen)
         x = torch.randn((decode_m, k), generator=gen, device="cuda").bfloat16()
@@ -1579,21 +1696,43 @@ def check_int4_kernels(cfg, gen, decode_m: int, prefill_m: int):
                              packed, scales, got, ref, ms, plain_ms, 2 * prefill_m * n,
                              flops=2.0 * prefill_m * k * n, extra=(x,)))
         # K6 (W4A8): the same int8 operands as the plain version, exact sums
-        got = matmul_int4_prefill(x, packed, scales, a8=True)
-        torch.cuda.synchronize()
+        got = check_k6_bits(x, packed, scales)
         xq, xs = quantize_kv(x)
         xs = xs[:, None]
         s8, r = requant_ratios(scales)
         ref = int4_prefill_a8_reference(xq, xs, packed, r, s8, torch.float32)
+        control = rel_err(got, k6_plain(x, packed, scales, trunc=True))
+        if not control > INT4_RTOL:
+            raise AssertionError(f"K6's control (q8 truncated) passes INT4_RTOL: {control}")
         ms = cuda_ms(lambda: matmul_int4_prefill(x, packed, scales, a8=True))
-        plain_ms = cuda_ms(lambda: int4_prefill_a8_reference(xq, xs, packed, r, s8,
-                                                             torch.bfloat16))
-        rows.append(int4_row("matmul_int4_prefill", launch_key(k, n, True), K56_REPLACES, x,
-                             packed, r, got, ref, ms, plain_ms, 2 * prefill_m * n,
-                             int8_ops=2.0 * prefill_m * k * n, extra=(xq, xs, s8)))
+        plain_ms = cuda_ms(lambda: k6_plain(x, packed, scales))
+        row = int4_row("matmul_int4_prefill", launch_key(k, n, True), K56_REPLACES, x,
+                       packed, r, got, ref, ms, plain_ms, 2 * prefill_m * n,
+                       int8_ops=2.0 * prefill_m * k * n, extra=(xq, xs, s8))
+        plan = plan_int4_a8(prefill_m, k, n)
+        prep_ms, gemm_ms = k6_stage_ms(x, packed, scales)
+        row.update(bit_equal=True, control_rel_err=control,
+                   device_ms=None if None in (prep_ms, gemm_ms) else prep_ms + gemm_ms,
+                   prep_device_ms=prep_ms, gemm_device_ms=gemm_ms,
+                   host_ms=host_ms(lambda: matmul_int4_prefill(x, packed, scales, a8=True)),
+                   tile=f"{plan.bm}x{plan.bn}")
+        print(f"K6[{name}] M={prefill_m}: bit-equal to its plain version, prep outputs equal; "
+              f"control (q8 truncated) rel_err={control:.3e} > {INT4_RTOL}; device prep "
+              f"{fmt_ms(prep_ms)} + GEMM {fmt_ms(gemm_ms)} (tile {row['tile']}); host "
+              f"{row['host_ms']:.4f} ms to issue a call")
+        rows.append(row)
+        k6_report[name] = {"M": [prefill_m], "control_rel_err": control}
+        if name in ("gate_up", "k_v"):
+            # the unpruned prefill's rows (831 slots a row of batch (a)), the
+            # resume layers' (out_len 128 a row)
+            for m in (prefill_m - 2, 256):
+                check_k6_bits(torch.randn((m, k), generator=gen, device="cuda").bfloat16(),
+                              packed, scales)
+                k6_report[name]["M"].append(m)
+                print(f"K6[{name}] M={m}: bit-equal to its plain version, prep outputs equal")
         del packed, scales, x, xq, ref, got
     torch.cuda.empty_cache()
-    return rows
+    return rows, k6_report
 
 
 def k7_errors(got, ref):
@@ -2394,8 +2533,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # phase 8: the quantized tiers' kernels at the main path's shapes
-    quant_kernels = check_int4_kernels(cfg, gen, decode_m=prep_a.input_ids.shape[0],
-                                       prefill_m=int(prep_a.valid.size))
+    quant_kernels, k6_report = check_int4_kernels(cfg, gen, decode_m=prep_a.input_ids.shape[0],
+                                                  prefill_m=int(prep_a.valid.size))
     quant_kernels += check_flash_int8(cfg, prep_a, prep_b, gen)
     # phase 9: the quantized serving path
     t_quant = time.perf_counter()
@@ -2442,7 +2581,7 @@ def main() -> int:
                       "train_path_s": train_s, "tiny_train_err": small_train,
                       "training_launches": train_launches, "quantized_runs": quant_runs,
                       "quantized_launches": quant_launches, "quantized_path_s": quant_s,
-                      "tiny_quantized_err": small_quant,
+                      "tiny_quantized_err": small_quant, "k6_bit_equal": k6_report,
                       "compressed_runs": compressed_runs,
                       "compressed_launches": compressed_launches,
                       "importance_variant": importance_variant,

@@ -7,14 +7,14 @@
 // - K5, `matmul_int4_prefill(a8=False)` :283 (body `_kernel_prefill_a16`
 //   :191): each weight scaled by its group scale in fp32, rounded to bf16,
 //   then a bf16 product with an fp32 accumulator;
-// - K6, `matmul_int4_prefill(a8=True)` (body `_kernel_prefill_a8` :219):
-//   int8 activations (quantized per row outside, as in JAX :336-344)
-//   against weights requantized to per-column int8, q8 = rint(q4 * r) with
-//   r = s_group / s8_col computed outside in fp32 as JAX does, an int32
-//   accumulator, and out = acc * x_scale[row] * s8[col].
+// - K6, `matmul_int4_prefill(a8=True)` (body `_kernel_prefill_a8` :219,
+//   wrapper :335-354): x quantized per row to int8 (JAX :336-339), the
+//   weights requantized to per-column int8, q8 = rint(q4 * r) with
+//   s8 = max_g(s) * 7/127 and r = s_group / s8_col (JAX :341-342,
+//   :232-237), an int32 accumulator, and out = acc * x_scale[row] * s8[col].
 // Weights are packed as quantization.quantize_int4 packs them: int8
 // [K/2, N], row r in the low nibble and row r + K/2 in the high nibble; the
-// scales (or ratios) are f32 [K/g, N], lo groups first.
+// scales are f32 [K/g, N], lo groups first.
 //
 // What bounds them on the H100. K4 reads 0.5 byte per weight for 2 * M
 // flops: at decode batch it is bound by bytes, like a GEMV. Threads own 4
@@ -24,16 +24,33 @@
 // give few column blocks, so K is split across blocks in whole groups, and
 // a second pass sums the splits in a fixed order (no atomics: runs repeat
 // bit for bit). K5 and K6 at prefill M (a few thousand rows) are bound by
-// operations. Both unpack the nibble tile into shared memory at each 64-row
-// k step (scaled to bf16 for K5, requantized to int8 for K6). K5, which no
-// path routes to, is the simple version: 64 x 64 output tiles and fp32
-// FMAs on CUDA cores. K6 multiplies on the int8 tensor cores with legacy
-// mma.sync (m16n8k32) on 128 x 128 tiles; loads are not pipelined yet, and
-// wgmma with TMA is later work.
+// operations. K5, which no path routes to, is the simple version: it
+// unpacks the nibble tile into shared memory at each 64-row k step, scaled
+// to bf16, on 64 x 64 output tiles with fp32 FMAs on CUDA cores.
+//
+// K6 is two kernels behind one entry point (namespace k6). A prep pass
+// turns x into int8 rows with their scales (row blocks) and the packed
+// weights into W8^T, int8 [N, K] with K contiguous, plus s8 (column
+// blocks): the requantization runs once per weight, not once per output
+// row tile, and the transpose goes through shared memory so that global
+// reads and writes are 16 bytes a thread. The GEMM then multiplies
+// xq [M, K] by W8^T on the int8 tensor cores (mma.sync m16n8k32, int32
+// sums) from a cp.async ring of kStages k tiles, XOR-swizzled so that
+// ldmatrix.x4 reads both operands without bank conflicts, one barrier per
+// k tile; the M-tile index runs fastest in the grid, so the M tiles in
+// flight share each column panel of W8^T through L2. The host plan
+// (ops/cuda/int4_matmul.py `plan_int4_a8`) picks the tile: 128 x 128, or
+// 64 x 64 where the wide tile gives under two blocks per SM (the k/v
+// projection's N = 512). The int32 sums are exact and the epilogue is the
+// plain version's two fp32 multiplies, so K6 equals its plain version bit
+// for bit. wgmma, TMA and dequantizing in registers inside the GEMM (no
+// W8^T round trip) are later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "tensor_core.cuh"
 
 namespace {
 
@@ -139,20 +156,18 @@ __global__ void int4_gemv_reduce_kernel(const float* part, __nv_bfloat16* out, l
   }
 }
 
-// ------------------------------------------------------------- K5, K6
-// Both walk K in steps of 32 packed rows (64 unpacked rows: 32 lo, 32 hi),
+// ---------------------------------------------------------------- K5
+// K5 walks K in steps of 32 packed rows (64 unpacked rows: 32 lo, 32 hi),
 // unpacking the nibble tile into shared memory k-contiguous per column. A
 // step lies inside one group on each half (32 divides g), so each half
-// needs one row of s (or r) per column.
+// needs one row of s per column.
 constexpr int kBKP = 32;
 constexpr int kBK = 2 * kBKP;
 
 struct GemmArgs {
-  const void* x;          // [M, K]: bf16 (K5) or int8 (K6)
-  const float* xs;        // [M] row scales (K6)
+  const void* x;          // [M, K] bf16
   const int8_t* w;        // [K/2, N]
-  const float* s;         // [K/g, N]: group scales (K5) or requant ratios r (K6)
-  const float* s8;        // [N] per-column int8 scale (K6)
+  const float* s;         // [K/g, N] group scales
   __nv_bfloat16* out;     // [M, N]
   int m, k, n, g;
 };
@@ -223,109 +238,297 @@ __global__ void __launch_bounds__(kFThreads) int4_gemm_a16_kernel(GemmArgs a) {
   }
 }
 
-// K6: 128 x 128 output tiles, 8 warps of 64 x 32, int8 tensor-core products
-// (mma.sync m16n8k32 s8, int32 accumulators). Fragments are read from
-// shared memory as 32-bit words; a row stride of 80 bytes (20 words) puts
-// the 8 rows x 4 words of one fragment load on 32 distinct banks.
-constexpr int kMBM = 128;
-constexpr int kMBN = 128;
-constexpr int kMThreads = 256;
-constexpr int kLd8 = kBK + 16;
+// ---------------------------------------------------------------- K6
+namespace k6 {
 
-__device__ __forceinline__ void mma_s8(int (&d)[4], const unsigned (&a)[4],
-                                       const unsigned (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+// The prep: 256 threads a block; a row block quantizes kPrepRows rows of x,
+// one warp each; a column block requantizes kPrepCols columns of the
+// weights, kPrepTile packed rows at a time, over its share of K.
+constexpr int kPrepThreads = 256;
+constexpr int kPrepRows = 8;
+constexpr int kPrepCols = 64;
+constexpr int kPrepTile = 64;
+
+// The GEMM's tiles, in the order the host plan tries them: X(index, BM, BN,
+// warps along M, warps along N, bytes of K per stage, stages in the ring)
+#define GP_A8_TILES(X) X(0, 128, 128, 2, 4, 128, 3) X(1, 64, 64, 2, 2, 128, 3)
+
+inline int smem_bytes(int bm, int bn, int bk, int stages) { return stages * (bm + bn) * bk; }
+
+struct PrepArgs {
+  const __nv_bfloat16* x;  // [M, K]
+  const int8_t* w;         // [K/2, N] packed int4
+  const float* s;          // [K/g, N] group scales
+  int8_t* xq;              // [M, K]
+  float* xs;               // [M]
+  int8_t* w8t;             // [N, K]
+  float* s8;               // [N]
+  int m, k, n, g, row_blocks, col_slices, tiles_per_block;
+};
+
+// x rows -> int8 as ops/kv_cache.quantize_kv computes them on the card: the
+// amax in bf16 (exact as fp32), floored at 1e-8, times the fp32 reciprocal
+// of 127 (PyTorch's CUDA division of a tensor by a Python scalar multiplies
+// by its reciprocal), then x / scale as an IEEE division, rounded half to
+// even and clamped to +-127.
+__device__ __forceinline__ void prep_rows(const PrepArgs& a) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row = blockIdx.x * kPrepRows + warp;
+  if (row >= a.m) return;
+  const __nv_bfloat16* xr = a.x + (long)row * a.k;
+  float amax = 0.f;
+#pragma unroll 4
+  for (int c = lane * 8; c < a.k; c += 256) {
+    const uint4 v = *reinterpret_cast<const uint4*>(xr + c);
+    const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&v);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) amax = fmaxf(amax, fabsf(__bfloat162float(e[i])));
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+  const float scale = __fmul_rn(fmaxf(amax, 1e-8f), 1.0f / 127.0f);
+  if (lane == 0) a.xs[row] = scale;
+  int8_t* qr = a.xq + (long)row * a.k;
+#pragma unroll 4
+  for (int c = lane * 8; c < a.k; c += 256) {
+    const uint4 v = *reinterpret_cast<const uint4*>(xr + c);
+    const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&v);
+    uint32_t q[2] = {0u, 0u};
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float r = rintf(__fdiv_rn(__bfloat162float(e[i]), scale));
+      const int qi = (int)fminf(fmaxf(r, -127.f), 127.f);
+      q[i >> 2] |= (uint32_t)(qi & 0xff) << (8 * (i & 3));
+    }
+    *reinterpret_cast<uint2*>(qr + c) = make_uint2(q[0], q[1]);
+  }
 }
 
-__global__ void __launch_bounds__(kMThreads) int4_gemm_a8_kernel(GemmArgs a) {
-  __shared__ __align__(16) int8_t as[kMBM * kLd8];  // x rows, k contiguous
-  __shared__ __align__(16) int8_t bs[kMBN * kLd8];  // weight columns, k contiguous
-  __shared__ float sc[2][kMBN];                     // this step's lo and hi rows of r
+// Weights -> W8^T and s8, as requant_ratios and the plain version compute
+// them: s8 = max(max_g s, 1e-12) * (float)(7/127), r = s / s8 (IEEE), and
+// q8 = rint(q4 * r) in fp32, rounded half to even. Each tile of 64 packed
+// rows lies in one group on each half (64 divides g). The tile goes into
+// shared memory with 16-byte stores, its 16-byte row chunks XOR-swizzled by
+// (row / 16) so that the column reads below hit 8 distinct banks a warp;
+// a thread then owns 16 packed rows of one column and writes 16 lo and 16
+// hi bytes of that column's W8^T row, four threads 64 contiguous bytes.
+__device__ __forceinline__ void prep_cols(const PrepArgs& a) {
+  __shared__ __align__(16) int8_t tile[kPrepTile * kPrepCols];
+  __shared__ float part[kPrepThreads];
+  __shared__ float s8s[kPrepCols];
+  __shared__ float rs[2][kPrepCols];
   const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int grp = lane >> 2, tig = lane & 3;    // mma fragment coordinates
-  const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;
-  const int m0 = blockIdx.y * kMBM, n0 = blockIdx.x * kMBN;
-  const int kh = a.k / 2;
-  const int8_t* xq = reinterpret_cast<const int8_t*>(a.x);
+  const int b = blockIdx.x - a.row_blocks;
+  const int slice = b % a.col_slices, split = b / a.col_slices;
+  const int n0 = slice * kPrepCols;
+  const int groups = a.k / a.g, kh = a.k / 2;
 
-  int acc[4][4][4];
+  {  // s8 of the slice's columns: four partial maxima per column
+    const int c = tid % kPrepCols;
+    float mx = __int_as_float(0xff800000);  // -inf
+    for (int gi = tid / kPrepCols; gi < groups; gi += kPrepThreads / kPrepCols)
+      mx = fmaxf(mx, a.s[(long)gi * a.n + n0 + c]);
+    part[tid] = mx;
+  }
+  __syncthreads();
+  if (tid < kPrepCols) {
+    float mx = part[tid];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+    for (int p = 1; p < kPrepThreads / kPrepCols; ++p) mx = fmaxf(mx, part[p * kPrepCols + tid]);
+    const float s8 = __fmul_rn(fmaxf(mx, 1e-12f), (float)(7.0 / 127.0));
+    s8s[tid] = s8;
+    if (split == 0) a.s8[n0 + tid] = s8;
+  }
+
+  const int tiles = kh / kPrepTile;
+  const int t0 = split * a.tiles_per_block;
+  const int t1 = min(tiles, t0 + a.tiles_per_block);
+  const int lr = tid >> 2, lq = tid & 3;                          // the tile load
+  const int c = (tid >> 5) * 8 + ((tid & 31) >> 2), j = tid & 3;  // the transpose
+  const int8_t* wsrc = a.w + (long)lr * a.n + n0 + 16 * lq;
+  int4 v = make_int4(0, 0, 0, 0);
+  if (t0 < t1) v = *reinterpret_cast<const int4*>(wsrc + (long)t0 * kPrepTile * a.n);
+  for (int t = t0; t < t1; ++t) {
+    const int kp0 = t * kPrepTile;
+    __syncthreads();  // s8s is written; the previous tile is no longer read
+    *reinterpret_cast<int4*>(tile + lr * kPrepCols + 16 * (lq ^ ((lr >> 4) & 3))) = v;
+    // the next tile's load is in flight during this one's transpose
+    if (t + 1 < t1) v = *reinterpret_cast<const int4*>(wsrc + (long)(t + 1) * kPrepTile * a.n);
+    if (tid < 2 * kPrepCols) {
+      const int half = tid / kPrepCols, cc = tid % kPrepCols;
+      const int gi = (half * kh + kp0) / a.g;
+      rs[half][cc] = __fdiv_rn(a.s[(long)gi * a.n + n0 + cc], s8s[cc]);
+    }
+    __syncthreads();
+    const float rlo = rs[0][c], rhi = rs[1][c];
+    uint32_t lo[4] = {0u, 0u, 0u, 0u}, hi[4] = {0u, 0u, 0u, 0u};
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+    for (int i = 0; i < 16; ++i) {
+      const int8_t p = tile[(16 * j + i) * kPrepCols + 16 * ((c >> 4) ^ j) + (c & 15)];
+      const int ql = __float2int_rn(__fmul_rn(lo_nibble(p), rlo));
+      const int qh = __float2int_rn(__fmul_rn(hi_nibble(p), rhi));
+      lo[i >> 2] |= (uint32_t)(ql & 0xff) << (8 * (i & 3));
+      hi[i >> 2] |= (uint32_t)(qh & 0xff) << (8 * (i & 3));
+    }
+    int8_t* dst = a.w8t + (long)(n0 + c) * a.k + kp0 + 16 * j;
+    *reinterpret_cast<uint4*>(dst) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+    *reinterpret_cast<uint4*>(dst + kh) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+  }
+}
+
+__global__ void __launch_bounds__(kPrepThreads) prep_kernel(PrepArgs a) {
+  if ((int)blockIdx.x < a.row_blocks)
+    prep_rows(a);
+  else
+    prep_cols(a);
+}
+
+struct GemmArgs {
+  const int8_t* xq;    // [M, K]
+  const float* xs;     // [M]
+  const int8_t* w8t;   // [N, K]
+  const float* s8;     // [N]
+  __nv_bfloat16* out;  // [M, N]
+  int m, k, n;
+};
+
+// Byte offset of 16-byte chunk `ch` of row `row` in a stage's tile of
+// BK-byte rows, with no padding: the chunk is XORed with the row's index
+// among the rows that share a bank line (row % 8 at BK = 128, row / 2 % 4
+// at 64), so the 8 rows x 16 bytes that one ldmatrix phase reads fall on
+// 32 distinct banks.
+template <int BK>
+__device__ __forceinline__ int swz(int row, int ch) {
+  constexpr int kChunks = BK / 16;
+  return row * BK + ((ch ^ ((row / (8 / kChunks)) & (kChunks - 1))) << 4);
+}
+
+// d += a (16 x 32 s8, row) * b (32 x 8 s8, col). Not volatile: the
+// scheduler may interleave the next k step's ldmatrix with these.
+__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                       uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// out tile [BM, BN] = xq [BM, K] . W8^T [BN, K]^T, rescaled, over a ring of
+// STAGES k tiles of BK bytes. Warps hold (BM / WM) x (BN / WN) of the tile:
+// MT m16 by NT n8 mma tiles. Rows at or past M are read as zeros (cp.async
+// with no source bytes) and not written.
+template <int BM, int BN, int WM, int WN, int BK, int STAGES>
+__global__ void __launch_bounds__(32 * WM * WN, WM * WN == 8 ? 2 : 4) gemm_kernel(GemmArgs a) {
+  constexpr int kThreads = 32 * WM * WN;
+  constexpr int kChunks = BK / 16;
+  constexpr int MT = BM / WM / 16, NT = BN / WN / 8;
+  static_assert(NT % 2 == 0, "B fragments load two n8 tiles at a time");
+  extern __shared__ __align__(128) int8_t smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = (warp / WN) * (BM / WM), wn = (warp % WN) * (BN / WN);
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  const int nk = a.k / BK;
+
+  auto load_stage = [&](int stage, int kt) {
+    int8_t* sa = smem + stage * (BM + BN) * BK;
+    int8_t* sb = sa + BM * BK;
+    const long k0 = (long)kt * BK;
+#pragma unroll
+    for (int idx = tid; idx < BM * kChunks; idx += kThreads) {
+      const int r = idx / kChunks, ch = idx % kChunks;
+      const bool in = m0 + r < a.m;
+      gp_tc::cp_async16(sa + swz<BK>(r, ch),
+                        a.xq + (in ? (long)(m0 + r) * a.k + k0 + 16 * ch : 0), in ? 16 : 0);
+    }
+#pragma unroll
+    for (int idx = tid; idx < BN * kChunks; idx += kThreads) {
+      const int r = idx / kChunks, ch = idx % kChunks;
+      gp_tc::cp_async16(sb + swz<BK>(r, ch), a.w8t + (long)(n0 + r) * a.k + k0 + 16 * ch, 16);
+    }
+  };
+
+  int acc[MT][NT][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
 
-  for (int kp = 0; kp < kh; kp += kBKP) {
-    __syncthreads();  // the previous step's tiles are no longer read
-    {
-      const int half = tid / kMBN, c = tid % kMBN;  // 256 threads: both halves
-      sc[half][c] = a.s[(long)((half * kh + kp) / a.g) * a.n + n0 + c];
-    }
-    // x tile: 128 rows x (32 lo + 32 hi) int8 in 16-byte chunks
-    for (int idx = tid; idx < kMBM * 4; idx += kMThreads) {
-      const int r = idx >> 2, ch = idx & 3;
-      const int kk = ch < 2 ? kp + 16 * ch : kh + kp + 16 * (ch - 2);
-      const int row = m0 + r;
-      int4 v = make_int4(0, 0, 0, 0);
-      if (row < a.m) v = *reinterpret_cast<const int4*>(xq + (long)row * a.k + kk);
-      *reinterpret_cast<int4*>(as + r * kLd8 + 16 * ch) = v;
-    }
-    __syncthreads();  // sc is ready
-    for (int idx = tid; idx < kBKP * kMBN; idx += kMThreads) {
-      const int r = idx / kMBN, c = idx % kMBN;
-      const int8_t b = a.w[(long)(kp + r) * a.n + n0 + c];
-      // requantized to per-column int8: |q4 * r| <= 7 * s_max / s8 = 127
-      // by construction (JAX :232-237); rint rounds half to even as jnp.round
-      bs[c * kLd8 + r] = (int8_t)__float2int_rn(lo_nibble(b) * sc[0][c]);
-      bs[c * kLd8 + kBKP + r] = (int8_t)__float2int_rn(hi_nibble(b) * sc[1][c]);
-    }
-    __syncthreads();
 #pragma unroll
-    for (int k0 = 0; k0 < kBK; k0 += 32) {
-      unsigned af[4][4];
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nk) load_stage(s, s);
+    gp_tc::cp_async_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    gp_tc::cp_async_wait<STAGES - 2>();
+    __syncthreads();  // stage kt has landed; stage kt - 1 is no longer read
+    const int pf = kt + STAGES - 1;
+    if (pf < nk) load_stage(pf % STAGES, pf);
+    gp_tc::cp_async_commit();
+    const int8_t* sa = smem + (kt % STAGES) * (BM + BN) * BK;
+    const int8_t* sb = sa + BM * BK;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int8_t* p = as + (wm + 16 * i + grp) * kLd8 + k0 + 4 * tig;
-        af[i][0] = *reinterpret_cast<const unsigned*>(p);
-        af[i][1] = *reinterpret_cast<const unsigned*>(p + 8 * kLd8);
-        af[i][2] = *reinterpret_cast<const unsigned*>(p + 16);
-        af[i][3] = *reinterpret_cast<const unsigned*>(p + 8 * kLd8 + 16);
+    for (int kk = 0; kk < BK / 32; ++kk) {
+      uint32_t af[MT][4], bf[NT][2];
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        const int r = wm + 16 * i + (lane & 15);
+        gp_tc::ldsm_x4(af[i], sa + swz<BK>(r, 2 * kk + (lane >> 4)));
       }
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int8_t* p = bs + (wn + 8 * j + grp) * kLd8 + k0 + 4 * tig;
-        const unsigned bf[2] = {*reinterpret_cast<const unsigned*>(p),
-                                *reinterpret_cast<const unsigned*>(p + 16)};
-#pragma unroll
-        for (int i = 0; i < 4; ++i) mma_s8(acc[i][j], af[i], bf);
+      for (int j = 0; j < NT; j += 2) {
+        const int r = wn + 8 * j + (lane & 7) + ((lane >> 4) << 3);
+        uint32_t t[4];
+        gp_tc::ldsm_x4(t, sb + swz<BK>(r, 2 * kk + ((lane >> 3) & 1)));
+        bf[j][0] = t[0];
+        bf[j][1] = t[1];
+        bf[j + 1][0] = t[2];
+        bf[j + 1][1] = t[3];
       }
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int j = 0; j < NT; ++j) mma_s8(acc[i][j], af[i], bf[j][0], bf[j][1]);
     }
   }
+  gp_tc::cp_async_wait<0>();
 
-  // out = acc * x_scale[row] * s8[col] in fp32, then bf16 (JAX :247-248)
+  // out = (float)acc * xs[row] * s8[col], two fp32 multiplies in the plain
+  // version's order (JAX :247-248), rounded to bf16
+  const int grp = lane >> 2, tig = lane & 3;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < MT; ++i)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int row = m0 + wm + 16 * i + grp + 8 * h;
       if (row >= a.m) continue;
       const float xs = a.xs[row];
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int col = n0 + wn + 8 * j + 2 * tig + e;
-          a.out[(long)row * a.n + col] =
-              __float2bfloat16((float)acc[i][j][2 * h + e] * xs * a.s8[col]);
-        }
+      for (int j = 0; j < NT; ++j) {
+        const int col = n0 + wn + 8 * j + 2 * tig;
+        const float v0 = __fmul_rn(__fmul_rn(__int2float_rn(acc[i][j][2 * h]), xs), a.s8[col]);
+        const float v1 =
+            __fmul_rn(__fmul_rn(__int2float_rn(acc[i][j][2 * h + 1]), xs), a.s8[col + 1]);
+        *reinterpret_cast<__nv_bfloat162*>(a.out + (long)row * a.n + col) =
+            __floats2bfloat162_rn(v0, v1);
+      }
     }
 }
+
+template <int BM, int BN, int WM, int WN, int BK, int STAGES>
+int launch_gemm(const GemmArgs& a, int smem, int grid_m, int grid_n, cudaStream_t stream) {
+  if (smem != smem_bytes(BM, BN, BK, STAGES) || a.k % BK != 0 ||
+      grid_m != (a.m + BM - 1) / BM || grid_n * BN != a.n)
+    return (int)cudaErrorInvalidValue;
+  const int err = gp_tc::raise_smem_cap<gemm_kernel<BM, BN, WM, WN, BK, STAGES>>(smem);
+  if (err != 0) return err;
+  gemm_kernel<BM, BN, WM, WN, BK, STAGES>
+      <<<dim3(grid_m, grid_n), 32 * WM * WN, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace k6
 
 bool gemm_shapes_ok(int m, int k, int n, int g, int bn) {
   return m > 0 && g > 0 && g % kBKP == 0 && k % (2 * g) == 0 && n % bn == 0;
@@ -369,21 +572,41 @@ extern "C" int int4_gemv_bf16(const void* x, const void* w, const void* s, void*
 extern "C" int int4_gemm_a16_bf16(const void* x, const void* w, const void* s, void* out,
                                   int m, int k, int n, int g, void* stream) {
   if (!gemm_shapes_ok(m, k, n, g, kFBN)) return (int)cudaErrorInvalidValue;
-  GemmArgs a{x, nullptr, (const int8_t*)w, (const float*)s, nullptr, (__nv_bfloat16*)out,
-             m, k, n, g};
+  GemmArgs a{x, (const int8_t*)w, (const float*)s, (__nv_bfloat16*)out, m, k, n, g};
   dim3 grid(n / kFBN, (m + kFBM - 1) / kFBM);
   int4_gemm_a16_kernel<<<grid, kFThreads, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-extern "C" int int4_gemm_a8_bf16(const void* xq, const void* xs, const void* w,
-                                 const void* r, const void* s8, void* out, int m, int k,
-                                 int n, int g, void* stream) {
-  // 16-byte loads of x rows: K a multiple of 16 (the routing gate gives 512)
-  if (!gemm_shapes_ok(m, k, n, g, kMBN) || k % 16 != 0) return (int)cudaErrorInvalidValue;
-  GemmArgs a{xq, (const float*)xs, (const int8_t*)w, (const float*)r, (const float*)s8,
-             (__nv_bfloat16*)out, m, k, n, g};
-  dim3 grid(n / kMBN, (m + kMBM - 1) / kMBM);
-  int4_gemm_a8_kernel<<<grid, kMThreads, 0, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+// K6: the prep pass, then the GEMM, on `stream`. p holds the ints of the
+// host plan (ops/cuda/int4_matmul.py `plan_int4_a8`): m, k, n, g, the tile's
+// index in GP_A8_TILES, its shared-memory bytes, the grid's M and N tiles,
+// the prep's row blocks, K splits and tiles per split. A plan that
+// disagrees with this file's own formulas is refused.
+extern "C" int int4_a8_bf16(const void* x, const void* w, const void* s, void* xq, void* xs,
+                            void* w8t, void* s8, void* out, const int* p, void* stream) {
+  const int m = p[0], k = p[1], n = p[2], g = p[3], tile = p[4], smem = p[5];
+  const int grid_m = p[6], grid_n = p[7], row_blocks = p[8], ksplit = p[9], per = p[10];
+  const int tiles = k / 2 / k6::kPrepTile;
+  if (m <= 0 || g <= 0 || g % k6::kPrepTile != 0 || k % (2 * g) != 0 ||
+      n % k6::kPrepCols != 0 || row_blocks != (m + k6::kPrepRows - 1) / k6::kPrepRows ||
+      ksplit <= 0 || per <= 0 || (long)ksplit * per < tiles || (long)(ksplit - 1) * per >= tiles)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  k6::PrepArgs pa{(const __nv_bfloat16*)x, (const int8_t*)w, (const float*)s, (int8_t*)xq,
+                  (float*)xs, (int8_t*)w8t, (float*)s8, m, k, n, g, row_blocks,
+                  n / k6::kPrepCols, per};
+  k6::prep_kernel<<<row_blocks + pa.col_slices * ksplit, k6::kPrepThreads, 0, st>>>(pa);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const k6::GemmArgs ga{(const int8_t*)xq, (const float*)xs, (const int8_t*)w8t,
+                        (const float*)s8, (__nv_bfloat16*)out, m, k, n};
+  switch (tile) {
+#define GP_A8_CASE(I, BM, BN, WM, WN, BK, STAGES) \
+  case I:                                         \
+    return k6::launch_gemm<BM, BN, WM, WN, BK, STAGES>(ga, smem, grid_m, grid_n, st);
+    GP_A8_TILES(GP_A8_CASE)
+#undef GP_A8_CASE
+  }
+  return (int)cudaErrorInvalidValue;
 }

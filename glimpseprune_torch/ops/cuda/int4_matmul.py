@@ -12,6 +12,15 @@ shape gates (``kernel_applicable`` :91, ``prefill_applicable`` :261,
 ``prefill_routable`` :268) are copied exactly, so
 ``quantization.matmul_int4_auto`` routes a shape as the JAX package does.
 
+K6 on the card is two kernels behind one C call: a prep pass (x to int8
+rows and their scales; the packed weights to W8^T, int8 [N, K], and the
+per-column scales s8) and an int8 tensor-core GEMM with the rescale in its
+epilogue. ``plan_int4_a8`` is its host plan (tile, warps, stages,
+shared-memory bytes, grids), which the C launcher checks against its own
+formulas. ``int4_a8_prep_reference`` and ``int8_gemm_tn_reference`` are
+the plain versions of the two stages; composed, they equal
+``int4_prefill_a8_reference`` bit for bit, and so does the card.
+
 Weights: packed int8 [K/2, N] (row r in the low nibble, row r + K/2 in the
 high nibble) and f32 group scales [K/g, N]. Dispatch is by device: a CPU
 tensor takes the plain PyTorch version beside each kernel, a CUDA tensor
@@ -21,9 +30,12 @@ launches the kernel (or raises). Each wrapper counts its launches in
 
 from __future__ import annotations
 
+import array
 import ctypes
+import functools
 from collections import Counter
-from typing import Optional
+from dataclasses import dataclass
+from typing import Optional, Tuple
 
 import torch
 
@@ -188,16 +200,157 @@ def int4_prefill_a8_reference(xq: torch.Tensor, xs: torch.Tensor, packed: torch.
     return (acc.float() * xs.float() * s8.float()).to(out_dtype)
 
 
+# K6 on the card (csrc/int4_matmul.cu, namespace k6). The GEMM's tiles, in
+# the order the plan tries them (``GP_A8_TILES``): (BM, BN, warps along M,
+# warps along N, bytes of K per stage, stages in the cp.async ring). The
+# prep's blocks are 256 threads: a row block quantizes A8_PREP_ROWS rows of
+# x, a column block requantizes A8_PREP_COLS columns, A8_PREP_TILE packed
+# rows at a time.
+A8_TILES = ((128, 128, 2, 4, 128, 3), (64, 64, 2, 2, 128, 3))
+A8_PREP_ROWS = 8
+A8_PREP_COLS = 64
+A8_PREP_TILE = 64
+# the H100's SMs; the wide tile is taken where its grid gives two blocks
+# per SM, and the prep's column blocks split K until they do
+A8_SMS = 132
+A8_MIN_BLOCKS = 2 * A8_SMS
+
+
+@dataclass(frozen=True)
+class A8Plan:
+    """How one K6 call runs: GEMM tile ``tile`` of A8_TILES (``bm`` x ``bn``
+    outputs, ``warps`` warps, ``stages`` k tiles in flight,
+    ``smem_bytes`` per block) on a ``grid_m`` x ``grid_n`` grid, M tiles
+    fastest; the prep on ``prep_row_blocks`` row blocks and N / A8_PREP_COLS
+    x ``prep_ksplit`` column blocks of ``prep_tiles`` packed-row tiles."""
+    tile: int
+    bm: int
+    bn: int
+    warps: int
+    stages: int
+    smem_bytes: int
+    grid_m: int
+    grid_n: int
+    prep_row_blocks: int
+    prep_ksplit: int
+    prep_tiles: int
+
+    @property
+    def blocks(self) -> int:
+        return self.grid_m * self.grid_n
+
+    @property
+    def prep_blocks(self) -> int:
+        return self.prep_row_blocks + self.grid_n * self.bn // A8_PREP_COLS * self.prep_ksplit
+
+
+def a8_smem_bytes(tile: int) -> int:
+    """Shared memory of one GEMM block of tile ``tile`` (csrc/int4_matmul.cu
+    ``k6::smem_bytes``): its stages of a [BM, BK] x tile and a [BN, BK]
+    W8^T tile, int8, swizzled without padding."""
+    bm, bn, _, _, bk, stages = A8_TILES[tile]
+    return stages * (bm + bn) * bk
+
+
+def a8_fits(k: int, n: int):
+    """The A8_TILES that divide a [k, n] weight (the narrow one divides every
+    shape the prep takes)."""
+    return [i for i, t in enumerate(A8_TILES) if n % t[1] == 0 and k % t[4] == 0]
+
+
+def a8_tile(m: int, k: int, n: int) -> int:
+    """K6's GEMM tile for x [m, k] @ W [k, n]: the first of A8_TILES whose
+    grid has at least A8_MIN_BLOCKS blocks, else the last that divides the
+    shape. ``tools/torch_int4_a8_tile_ab.py`` replaces this function to time
+    the other tile."""
+    fits = a8_fits(k, n)
+    return next((i for i in fits if -(-m // A8_TILES[i][0]) * (n // A8_TILES[i][1])
+                 >= A8_MIN_BLOCKS), fits[-1])
+
+
+@functools.lru_cache(maxsize=1024)
+def plan_int4_a8(m: int, k: int, n: int) -> A8Plan:
+    """K6's plan for x [m, k] @ W [k, n], or ValueError for a shape the
+    kernels refuse: the GEMM tile from ``a8_tile``, its grid, and the
+    prep's row blocks and K split."""
+    if not (m > 0 and k > 0 and k % (2 * A8_PREP_TILE) == 0 and n % A8_PREP_COLS == 0):
+        raise ValueError(f"matmul_int4_prefill: K6 takes no shape M={m} K={k} N={n}")
+    tile = a8_tile(m, k, n)
+    if tile not in a8_fits(k, n):
+        raise ValueError(f"matmul_int4_prefill: K6's tile {tile} does not divide N={n}")
+    bm, bn, wm, wn, _, stages = A8_TILES[tile]
+    tiles = k // 2 // A8_PREP_TILE
+    slices = n // A8_PREP_COLS
+    per = -(-tiles // min(tiles, -(-A8_MIN_BLOCKS // slices)))
+    return A8Plan(tile, bm, bn, wm * wn, stages, a8_smem_bytes(tile), -(-m // bm), n // bn,
+                  -(-m // A8_PREP_ROWS), -(-tiles // per), per)
+
+
+def int4_a8_prep_reference(x2: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor
+                           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of K6's prep: x [M, K] -> xq int8 [M, K] and xs f32 [M]
+    (``quantize_kv``, JAX :336-339); the packed weights -> W8^T int8 [N, K],
+    q8 = round(q4 * r) transposed, and s8 f32 [N] (``requant_ratios``, JAX
+    :341-342, :232-237)."""
+    k, n, g = _check(x2, packed, scales, "matmul_int4_prefill")
+    xq, xs = quantize_kv(x2)
+    s8, r = requant_ratios(scales)
+    q8 = torch.round(unpack_int4(packed).float() * r.repeat_interleave(g, dim=0))
+    return xq, xs, q8.to(torch.int8).t().contiguous(), s8[0]
+
+
+def int8_gemm_tn_reference(xq: torch.Tensor, xs: torch.Tensor, w8t: torch.Tensor,
+                           s8: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
+    """Plain version of K6's GEMM: xq [M, K] . W8^T [N, K]^T as an exact
+    integer sum (float64 holds every int32 sum), then acc * xs[row] *
+    s8[col] in fp32."""
+    acc = xq.double() @ w8t.double().t()
+    return (acc.float() * xs.float()[:, None] * s8.float()[None, :]).to(out_dtype)
+
+
+def int4_a8_kernels(x2: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor):
+    """K6 on the card, uncounted: x2 bf16 [M, K] -> (out bf16 [M, N],
+    (xq, xs, w8t, s8)), the prep's outputs kept for checks. One ctypes call
+    launches the prep and the GEMM on the current stream; W8^T is scratch
+    of N x K bytes."""
+    k, n, g = _check(x2, packed, scales, "matmul_int4_prefill")
+    m = x2.shape[0]
+    if x2.dtype != torch.bfloat16 or scales.dtype != torch.float32:
+        raise ValueError("matmul_int4_prefill: K6 takes bf16 x and f32 scales on the card")
+    x2, packed, scales = _cuda_operands("matmul_int4_prefill", torch.bfloat16, x2, packed,
+                                        scales)
+    if x2.data_ptr() % 16:  # the prep reads x in 16-byte chunks
+        x2 = x2.clone()
+    plan = plan_int4_a8(m, k, n)
+    dev = x2.device
+    xq = torch.empty((m, k), dtype=torch.int8, device=dev)
+    xs = torch.empty((m,), dtype=torch.float32, device=dev)
+    w8t = torch.empty((n, k), dtype=torch.int8, device=dev)
+    s8 = torch.empty((n,), dtype=torch.float32, device=dev)
+    out = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
+    # the ints travel as one array: a ctypes call costs ~0.3 us per argument
+    ints = array.array("i", (m, k, n, g, plan.tile, plan.smem_bytes, plan.grid_m, plan.grid_n,
+                             plan.prep_row_blocks, plan.prep_ksplit, plan.prep_tiles))
+    fn = kernel_function("int4_matmul", "int4_a8_bf16", [ctypes.c_void_p] * 10)
+    rc = fn(x2.data_ptr(), packed.data_ptr(), scales.data_ptr(), xq.data_ptr(), xs.data_ptr(),
+            w8t.data_ptr(), s8.data_ptr(), out.data_ptr(), ints.buffer_info()[0],
+            current_stream(dev))
+    check_launch(rc, "matmul_int4_prefill")
+    return out, (xq, xs, w8t, s8)
+
+
 def matmul_int4_prefill(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
                         out_dtype: torch.dtype = torch.bfloat16,
                         a8: bool = False) -> torch.Tensor:
     """x [..., K] @ int4 [K/2, N] -> [..., N] at prefill M (> 128 rows).
 
-    a8=False is K5 (W4A16), a8=True is K6 (W4A8): x quantized per row to
-    int8 and the weights requantized per column, both prepared here in
-    plain PyTorch as the JAX package prepares them outside its kernel. The
-    caller checks ``prefill_applicable``; this function raises where it
-    does not hold."""
+    a8=False is K5 (W4A16). a8=True is K6 (W4A8): x quantized per row to
+    int8 and the weights requantized per column. On the CPU both are
+    prepared in plain PyTorch, as the JAX package prepares them outside its
+    kernel, and ``int4_prefill_a8_reference`` multiplies; on the card K6's
+    prep kernel prepares them and its GEMM multiplies (``int4_a8_kernels``),
+    bf16 x and out only. The caller checks ``prefill_applicable``; this
+    function raises where it does not hold."""
     k, n, g = _check(x, packed, scales, "matmul_int4_prefill")
     m = x.numel() // k
     if not prefill_applicable(m, k, n, g):
@@ -206,14 +359,14 @@ def matmul_int4_prefill(x: torch.Tensor, packed: torch.Tensor, scales: torch.Ten
     x2 = x.reshape(m, k)
     cpu = _device(x, "matmul_int4_prefill") == "cpu"
     if a8:
-        xq, xs = quantize_kv(x2)  # per-row int8 activations (JAX :336-339)
-        xs = xs[:, None]
-        s8, r = requant_ratios(scales)
         if cpu:
-            out = int4_prefill_a8_reference(xq, xs, packed, r, s8, out_dtype)
+            xq, xs = quantize_kv(x2)  # per-row int8 activations (JAX :336-339)
+            s8, r = requant_ratios(scales)
+            out = int4_prefill_a8_reference(xq, xs[:, None], packed, r, s8, out_dtype)
         else:
-            ops = _cuda_operands("matmul_int4_prefill", out_dtype, xq, xs, packed, r, s8)
-            out = _launch_gemm("int4_gemm_a8_bf16", ops, m, k, n, g)
+            if out_dtype != torch.bfloat16:
+                raise ValueError("matmul_int4_prefill: the kernel writes bf16")
+            out, _ = int4_a8_kernels(x2, packed, scales)
     else:
         if cpu:
             out = int4_prefill_a16_reference(x2, packed, scales, out_dtype)

@@ -43,21 +43,30 @@ def event_ms(fn, iters=20):
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters=10):
+def device_ms(fn, iters=10, tries=3):
+    """Device ms per call from torch.profiler: each kernel's total over the
+    launches the trace counted, times its launches per call; None when no
+    trace counted a whole number of launches per call of every kernel."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total_us = 0.0
-    for e in prof.key_averages():
-        t = getattr(e, "self_device_time_total", None)
-        total_us += e.self_cuda_time_total if t is None else t
-    return total_us / iters / 1e3 if total_us > 0 else None
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total_us, whole = 0.0, True
+        for e in prof.key_averages():
+            t = getattr(e, "self_device_time_total", None)
+            t = e.self_cuda_time_total if t is None else t
+            if t > 0:
+                whole = whole and e.count % iters == 0
+                total_us += t / e.count * (e.count // iters)
+        if whole and total_us > 0:
+            return total_us / 1e3
+    return None
 
 
 def main() -> int:
