@@ -37,7 +37,12 @@ Phases, each of which raises on failure (the script then exits non-zero):
      same 7B model over a synthetic jsonl dataset, with the kernels' launch
      counts, finite losses, changed trainable and bit-identical frozen
      weights; then one tiny-config train step on the card against the CPU;
-  8. K4 (int4 decode product) at the 7B decode shapes, K5 and K6 (int4
+  8. K4 (int4 decode product) at the 7B decode shapes (M = 2 and 1; at
+     k/v and gate/up also every class of M up to 128), within INT4_RTOL of
+     its plain version, two calls bit-identical, a control that must fail
+     (the plain version without the last K split's groups), one kernel a
+     call, event and device ms warm and cold (weight copies rotated past the
+     L2) and host ms a call; K5 and K6 (int4
      prefill products, W4A16 and W4A8) at the 7B decoder shapes with
      M = 1664 (K6 also bit-equal to its plain version in bf16, each output
      of its prep pass equal to its plain version's, at M = 1664 and, for
@@ -81,9 +86,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
      one process and two SP train steps, one SP (q8) generate with the text
      attention in int8 (K9-int8), and the tiny config under SP on the card
      against the CPU; times from CUDA events and peaks per rank.
-Every kernel row carries its time (CUDA events over 10 calls; for K1, K8,
-K2, K2-lse, K3, K6 and K9 also ``device_ms``, the card's own time from
-torch.profiler, without the host's launch cost), its plain version's time, one PyTorch
+Every kernel row carries its time (CUDA events over 10 calls) and
+``device_ms``, the card's own time from torch.profiler, without the
+host's launch cost, its plain version's time, one PyTorch
 call's time where one computes the same function (``library_ms``: SDPA
 with the same boolean mask, or its autograd backward; a yardstick the port
 never calls; for the int4 products, where no PyTorch call computes the
@@ -93,7 +98,7 @@ its bytes over the card's memory rate and its operations over the tensor
 peak of their type (bf16, or int8 for the int8 products), counted from this
 run's inputs. Before the summary, one "speed" line per kernel row gives its
 time beside the time PERF.md records for it before the redesign of K1,
-K8, K2, K3 and K6 (``RECORDED_MS``), the rate it reached and its
+K8, K2, K3, K4 and K6 (``RECORDED_MS``), the rate it reached and its
 share of the bound. The line before the last is a JSON object with one
 entry per kernel flavour; the last line is {"ok": true, "device": {...}}.
 """
@@ -151,6 +156,12 @@ LSE_RTOL = 1e-4
 # plain version's, operation for operation. 4e-3 of max |ref| bounds both,
 # with ~2% over the worst-case rounding (measured 2.1e-3 to 3.4e-3).
 INT4_RTOL = 4e-3
+# K4 is checked at M = 1 and the decode batch at every shape, and at these
+# M (every class of its tiles, ragged and full) for k/v and gate/up; its
+# cold times rotate through weight copies of at least this many bytes, three
+# times the H100's 50 MB L2, as decode reads each layer's weights once.
+K4_CHECK_M = (8, 9, 16, 17, 33, 64, 100, 128)
+K4_COLD_BYTES = 150 * 10**6
 # K7 and its plain version run the same int8 arithmetic (exact integer
 # QK^T and, with pv_int8, PV sums) and differ by the kernel's bf16 output
 # rounding and the order of fp32 operations (exp2, the softmax sums, a
@@ -177,20 +188,20 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
 PEAK_HBM_BYTES = 3.35e12
 # Each kernel's time as PERF.md's kernel table records it for the kernels
-# that the tensor-core K1, K8, K2 and K3 flavours and the two-pass K6
-# replace (K3's and K9 backward's from the last run before their redesign,
-# K6's from its first, unpipelined version) and for the kernels kept as
-# they are, mean ms of 10 calls on an NVIDIA H100 80GB HBM3 at 700 W at
-# the same shapes: printed beside this run's time.
+# that the tensor-core K1, K8, K2 and K3 flavours, the two-pass K6 and the
+# one-launch K4 replace (K3's, K9 backward's and K4's from the last run
+# before their redesign, K6's from its first, unpipelined version) and for
+# the kernels kept as they are, mean ms of 10 calls on an NVIDIA H100 80GB
+# HBM3 at 700 W at the same shapes: printed beside this run's time.
 RECORDED_MS = {
     "window_attention_fused": 0.2946, "window_attention": 0.3016,
     "flash_attention[dense]": 3.7256, "flash_attention[segmented]": 5.4423,
     "flash_attention[causal]": 0.6203, "flash_attention[dqk_ne_dv]": 0.3383,
     "flash_attention_lse[causal]": 0.9003, "flash_attention_lse[dqk_ne_dv]": 0.3417,
     "flash_attention_backward[causal]": 4.4222, "flash_attention_backward[dqk_ne_dv]": 0.8967,
-    "matmul_int4[3584x3584]": 0.0434, "matmul_int4[3584x512]": 0.0554,
-    "matmul_int4[3584x18944]": 0.0745, "matmul_int4[18944x3584]": 0.0793,
-    "matmul_int4[3584x152064]": 0.9781,
+    "matmul_int4[3584x3584]": 0.0659, "matmul_int4[3584x512]": 0.0612,
+    "matmul_int4[3584x18944]": 0.0779, "matmul_int4[18944x3584]": 0.0834,
+    "matmul_int4[3584x152064]": 0.9810,
     "matmul_int4_prefill[a16,3584x3584]": 2.1540, "matmul_int4_prefill[a16,3584x512]": 0.5300,
     "matmul_int4_prefill[a16,3584x18944]": 10.4312,
     "matmul_int4_prefill[a16,18944x3584]": 12.0072,
@@ -212,9 +223,9 @@ COMPRESSED_NEW_TOKENS = 8
 # the image-token budget of divprune, cdpruner and vscan (the papers' 128
 # setting): under every row's image-token count, so each row really prunes
 VISUAL_TOKEN_NUM = 128
-# device_ms_by_kernel: warm-up calls inside a trace, then the card idles
-# this long before the timed ones
-TRACE_WARMUP_CALLS = 3
+# device_ms_by_kernel: calls inside a trace before and after the timed ones,
+# each group apart from them by this long an idle card
+TRACE_PAD_CALLS = 10
 IDLE_S = 0.02
 # full attention at three of the 7B's four blocks: the last one is windowed,
 # so its importance goes through K8 (a config that is not in configs/)
@@ -263,16 +274,18 @@ def cuda_ms(fn, warmup: int = 2, iters: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms_by_kernel(fn, iters: int = 10, tries: int = 3):
+def device_ms_by_kernel(fn, iters: int = 10, tries: int = 5, per_call=None):
     """{kernel name: mean device ms per call} of the CUDA kernels that one
     call of ``fn`` launches, from torch.profiler: the card's own time,
     without the host's launch cost, which cuda_ms includes when the host is
-    slower than the card. A trace can miss the launches of its first
-    fraction of a millisecond, so TRACE_WARMUP_CALLS run first inside it and
-    the card idles for IDLE_S before the ``iters`` calls that count: the
-    kernels after the card's longest idle gap. Each kernel's count there
-    must be a whole number per call (``fn`` launches the same kernels every
-    call), and its total is divided by ``iters``. A trace that falls short
+    slower than the card. A trace in a long-lived process can lose the
+    records of its first and its last kernels, up to several calls' worth,
+    so TRACE_PAD_CALLS calls run before and after the ``iters`` that count,
+    each group apart by IDLE_S of idle card: the kernels that count are
+    those between the trace's two longest idle gaps. Each kernel's count
+    there must be a whole number per call (``fn`` launches the same kernels
+    every call), and its total is divided by ``iters``; ``per_call``, a
+    dict, receives each kernel's launches per call. A trace that falls short
     of that, or recorded no device time, is taken again, up to ``tries``
     times; then the result is None (not measured)."""
     import torch
@@ -283,32 +296,33 @@ def device_ms_by_kernel(fn, iters: int = 10, tries: int = 3):
     torch.cuda.synchronize()
     for _ in range(tries):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(TRACE_WARMUP_CALLS):
-                fn()
-            torch.cuda.synchronize()
-            time.sleep(IDLE_S)
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
+            for calls in (TRACE_PAD_CALLS, iters, TRACE_PAD_CALLS):
+                for _ in range(calls):
+                    fn()
+                torch.cuda.synchronize()
+                time.sleep(IDLE_S)
         kernels = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
                           and e.time_range.elapsed_us() > 0), key=lambda e: e.time_range.start)
-        first, gap, end = 0, 0.0, None
+        gaps, end = [], None  # (idle us before kernel i, i)
         for i, e in enumerate(kernels):
-            if end is not None and e.time_range.start - end > gap:
-                first, gap = i, e.time_range.start - end
+            if end is not None:
+                gaps.append((e.time_range.start - end, i))
             end = e.time_range.end if end is None else max(end, e.time_range.end)
+        idle = sorted(i for gap, i in sorted(gaps)[-2:] if gap >= IDLE_S * 1e6 / 2)
         total, count = Counter(), Counter()
-        for e in kernels[first:] if gap >= IDLE_S * 1e6 / 2 else ():
+        for e in kernels[idle[0]:idle[1]] if len(idle) == 2 else ():
             total[e.name] += e.time_range.elapsed_us()
             count[e.name] += 1
         short = [(k[:60], c) for k, c in count.items() if c % iters]
         if short:
             print(f"device_ms: the trace of {iters} calls counted {short} launches; again")
         elif total:
+            if per_call is not None:
+                per_call.update({k: c // iters for k, c in count.items()})
             return {k: t / iters / 1e3 for k, t in total.items()}
         else:
-            print(f"device_ms: no kernel after an idle gap in a trace of {len(kernels)} "
-                  f"kernels (longest gap {gap:.0f} us); again")
+            print(f"device_ms: {len(idle)} of the 2 idle gaps in a trace of {len(kernels)} "
+                  "kernels; again")
     return None
 
 
@@ -957,7 +971,8 @@ def check_flash_training(cfg, batch, gen):
                    "bound_by": bound_by, "library_ms": lib_ms,
                    "library_device_ms": lib_dev_ms, "shape": shape}
         if dense:  # not on the training path: checked, not listed
-            dense_check = {"lse_rel_err": lse_err, **bwd, "lse_ms": lse_row["ms"], "bwd_ms": ms,
+            dense_check = {"lse_rel_err": lse_err, **bwd, "lse_ms": lse_row["ms"],
+                           "lse_device_ms": lse_row["device_ms"], "bwd_ms": ms,
                            "bwd_device_ms": dev_ms}
         else:
             rows += [lse_row, bwd_row]
@@ -1650,40 +1665,142 @@ def k6_stage_ms(x, packed, scales):
     return stage("prep_kernel"), stage("gemm_kernel")
 
 
+def k4_times(x, packed, scales, copies):
+    """K4's times at x: event and device ms warm (the same weights every
+    call) and cold (``copies`` rotated, more bytes than the L2 holds, as
+    decode reads each layer's weights once), event ms and host ms to issue
+    a call through ``matmul_int4`` and through ``matmul_int4_auto`` (the
+    decode path's lean launch), and the kernels one call launches (from the
+    cold trace)."""
+    import torch
+
+    from glimpseprune_torch.ops.cuda.int4_matmul import matmul_int4
+    from glimpseprune_torch.quantization import matmul_int4_auto
+
+    turn = [0]
+
+    def cold():
+        turn[0] += 1
+        return matmul_int4(x, *copies[turn[0] % len(copies)])
+
+    def warm():
+        return matmul_int4(x, packed, scales)
+
+    def auto():
+        return matmul_int4_auto(x, packed, scales, torch.bfloat16)
+
+    per_call = {}
+    by = device_ms_by_kernel(cold, per_call=per_call)
+    return {"ms": cuda_ms(warm), "cold_ms": cuda_ms(cold), "auto_ms": cuda_ms(auto),
+            "device_ms": device_ms(warm),
+            "cold_device_ms": None if by is None else sum(by.values()),
+            "host_ms": host_ms(warm), "auto_host_ms": host_ms(auto),
+            "kernels_per_call": per_call if by is not None else None}
+
+
+def check_k4(name, packed, scales, decode_m: int, gen):
+    """K4 at one weight shape: within INT4_RTOL of its plain version and
+    bit-identical over two calls at M = decode_m and 1 (and K4_CHECK_M for
+    k/v and gate/up); a control, the plain version without the last K
+    split's groups, must fail INT4_RTOL (every split is summed); one K4
+    kernel per call wherever the trace measured it; times at M = decode_m
+    and 1 (k4_times). -> (the kernels line's row, report)"""
+    import torch
+
+    from glimpseprune_torch.ops.cuda.int4_matmul import (
+        K4_GROUP_ROWS,
+        launch_key,
+        matmul_int4,
+        matmul_int4_reference,
+        plan_int4_decode,
+    )
+
+    k, n = 2 * packed.shape[0], packed.shape[1]
+    report, cases = {"rel_err": {}}, {}
+    for m in (decode_m, 1) + (K4_CHECK_M if name in ("k_v", "gate_up") else ()):
+        x = torch.randn((m, k), generator=gen, device="cuda").bfloat16()
+        got, again = matmul_int4(x, packed, scales), matmul_int4(x, packed, scales)
+        torch.cuda.synchronize()
+        ref = matmul_int4_reference(x, packed, scales, torch.float32)
+        err = rel_err(got, ref)
+        if not err <= INT4_RTOL:
+            raise AssertionError(f"K4[{name}] at M={m} disagrees with its plain version: {err}")
+        if not torch.equal(got, again):
+            raise AssertionError(f"K4[{name}] at M={m}: two calls differ")
+        report["rel_err"][m] = err
+        cases[m] = (x, got, ref)
+    x, got, ref = cases[decode_m]
+    plan = plan_int4_decode(decode_m, k, n)
+    groups = k // 2 // K4_GROUP_ROWS
+    dropped = scales.clone()  # the last split's lo and hi groups
+    first = (plan.ksplit - 1) * plan.groups_per_split
+    dropped[first:groups] = 0
+    dropped[groups + first:] = 0
+    control = rel_err(got, matmul_int4_reference(x, packed, dropped, torch.float32))
+    if not control > INT4_RTOL:
+        raise AssertionError(f"K4[{name}]'s control (last split dropped) passes: {control}")
+    count = max(2, -(-K4_COLD_BYTES // nbytes(packed, scales)))
+    copies = [(packed, scales)] + [(packed.clone(), scales.clone()) for _ in range(count - 1)]
+    times = {m: k4_times(cases[m][0], packed, scales, copies) for m in (decode_m, 1)}
+    del copies
+    for m, t in times.items():
+        launched = t.pop("kernels_per_call")
+        if launched is not None and not (len(launched) == 1 and "decode_kernel" in
+                                         next(iter(launched)) and set(launched.values()) == {1}):
+            raise AssertionError(f"K4[{name}] at M={m} is not one kernel a call: {launched}")
+        t["one_kernel_per_call"] = None if launched is None else True
+    plain_ms = cuda_ms(lambda: matmul_int4_reference(x, packed, scales, torch.bfloat16))
+    main = times[decode_m]
+    row = int4_row("matmul_int4", launch_key(k, n), K4_REPLACES, x, packed, scales, got, ref,
+                   main.pop("ms"), plain_ms, 2 * decode_m * n, flops=2.0 * decode_m * k * n,
+                   extra=(x,))
+    row.update(main, M=decode_m, m1=times[1], bit_identical=True, control_rel_err=control,
+               checked_rel_err=report["rel_err"], cold_copies=count,
+               plan={"tile": plan.tile, "bn": plan.bn, "ksplit": plan.ksplit,
+                     "groups_per_split": plan.groups_per_split, "grid": plan.grid,
+                     "smem_bytes": plan.smem_bytes})
+    cold = row["cold_device_ms"]
+    print(f"K4[{name}] {row['shape']}: rel_err {report['rel_err']} within {INT4_RTOL}, two calls "
+          f"bit-identical; control (last of {plan.ksplit} splits dropped) {control:.3e}; "
+          f"tile {plan.bn} columns x {plan.ksplit} splits, {plan.grid} blocks; M={decode_m}: "
+          f"event {row['ms']:.4f} ms warm / {row['cold_ms']:.4f} cold / {row['auto_ms']:.4f} "
+          f"through matmul_int4_auto, device "
+          f"{fmt_ms(row['device_ms'])} / {fmt_ms(cold)} cold"
+          + ("" if cold is None else f" ({row['bound_ms'] / cold:.1%} of the bound)")
+          + f", host {row['host_ms']:.4f} ms a call ({row['auto_host_ms']:.4f} through "
+          f"matmul_int4_auto); M=1: event {times[1]['ms']:.4f} / {times[1]['cold_ms']:.4f}, "
+          f"device {fmt_ms(times[1]['device_ms'])} / {fmt_ms(times[1]['cold_device_ms'])}")
+    report.update(control_rel_err=control, plan=row["plan"])
+    return row, report
+
+
 def check_int4_kernels(cfg, gen, decode_m: int, prefill_m: int):
-    """K4 at the decode shapes (M = decode_m), K5 and K6 at the decoder
-    shapes with M = prefill_m, each against its plain version. K6 is also
-    held bit for bit to its plain version in bf16, its prep outputs to
-    theirs, at M = prefill_m, and (gate/up, k/v) at the unpruned prefill's
-    ragged M and the resume layers' M = 256; a plain version that truncates
-    the requantized weights must fail INT4_RTOL. -> (rows, K6 report)"""
+    """K4 at the decode shapes (check_k4), K5 and K6 at the decoder shapes
+    with M = prefill_m, each against its plain version. K6 is also held bit
+    for bit to its plain version in bf16, its prep outputs to theirs, at
+    M = prefill_m, and (gate/up, k/v) at the unpruned prefill's ragged M and
+    the resume layers' M = 256; a plain version that truncates the
+    requantized weights must fail INT4_RTOL. -> (rows, K4 report, K6
+    report)"""
     import torch
 
     from glimpseprune_torch.ops.cuda.int4_matmul import (
         int4_prefill_a8_reference,
         int4_prefill_a16_reference,
         launch_key,
-        matmul_int4,
         matmul_int4_prefill,
-        matmul_int4_reference,
         plan_int4_a8,
         requant_ratios,
     )
     from glimpseprune_torch.ops.kv_cache import quantize_kv
 
-    rows, k6_report = [], {}
+    rows, k4_report, k6_report = [], {}, {}
     for name, (k, n) in decoder_shapes(cfg).items():
         packed, scales = int4_weight(k, n, gen)
-        x = torch.randn((decode_m, k), generator=gen, device="cuda").bfloat16()
-        got = matmul_int4(x, packed, scales)
-        torch.cuda.synchronize()
-        ref = matmul_int4_reference(x, packed, scales, torch.float32)
-        ms = cuda_ms(lambda: matmul_int4(x, packed, scales))
-        plain_ms = cuda_ms(lambda: matmul_int4_reference(x, packed, scales, torch.bfloat16))
-        rows.append(int4_row("matmul_int4", launch_key(k, n), K4_REPLACES, x, packed, scales,
-                             got, ref, ms, plain_ms, 2 * decode_m * n,
-                             flops=2.0 * decode_m * k * n, extra=(x,)))
+        row, k4_report[name] = check_k4(name, packed, scales, decode_m, gen)
+        rows.append(row)
         if name == "head":
+            del packed, scales
             continue
         x = torch.randn((prefill_m, k), generator=gen, device="cuda").bfloat16()
         # K5 (W4A16): fp32 products of bf16-rounded scaled weights
@@ -1695,6 +1812,8 @@ def check_int4_kernels(cfg, gen, decode_m: int, prefill_m: int):
         rows.append(int4_row("matmul_int4_prefill", launch_key(k, n, False), K56_REPLACES, x,
                              packed, scales, got, ref, ms, plain_ms, 2 * prefill_m * n,
                              flops=2.0 * prefill_m * k * n, extra=(x,)))
+        rows[-1]["device_ms"] = device_ms(lambda: matmul_int4_prefill(x, packed, scales,
+                                                                      a8=False))
         # K6 (W4A8): the same int8 operands as the plain version, exact sums
         got = check_k6_bits(x, packed, scales)
         xq, xs = quantize_kv(x)
@@ -1732,7 +1851,7 @@ def check_int4_kernels(cfg, gen, decode_m: int, prefill_m: int):
                 print(f"K6[{name}] M={m}: bit-equal to its plain version, prep outputs equal")
         del packed, scales, x, xq, ref, got
     torch.cuda.empty_cache()
-    return rows, k6_report
+    return rows, k4_report, k6_report
 
 
 def k7_errors(got, ref):
@@ -1822,12 +1941,15 @@ def check_flash_int8(cfg, prep_a, prep_b, gen):
             if passed:
                 raise AssertionError(f"K7 {key}: the check cannot tell the kernel from "
                                      f"{passed} attention")
+            dev_ms = device_ms(lambda: flash_attention_int8(
+                q, k, vv, segs, segs, causal=causal, dense=dense, pv_int8=pv))
             rows.append({"name": f"flash_attention_int8[{key}]", "route": "cuda",
                          "source": K2_SRC, "replaces": K7_REPLACES[fl], "max_abs_err": err,
                          "rel_err": errs[0], "rms_rel_err": errs[1],
                          "control_rms_rel_err": min(e[1] for e in controls.values()),
-                         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                         "bound_by": bound_by, "library_ms": lib_ms, "shape": shape})
+                         "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+                         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
+                         "shape": shape})
         del q, k, vv, q8, k8, got, ref, refs
     torch.cuda.empty_cache()
     return rows
@@ -2019,7 +2141,9 @@ def check_flash_qpos(cfg, prep_a, gen):
         sdpa_ms, 2.0 * pairs * hq * d, nbytes(q8, k8, v, qsc, ksc, got),
         int8_ops=2.0 * pairs * hq * d, max_abs_err=half["int8_abs_err"],
         rel_err=half["int8_errs"][False][0], rms_rel_err=half["int8_errs"][False][1],
-        equal_to_monolithic=half["equal_to_monolithic"]["int8"])
+        equal_to_monolithic=half["equal_to_monolithic"]["int8"],
+        device_ms=device_ms(lambda: flash_attention_int8(qs, k, v, qseg, seg, causal=True,
+                                                         q_positions=qpos)))
     del q, k, v, dout, mono_grads, grads
     torch.cuda.empty_cache()
     return rows, report
@@ -2533,8 +2657,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # phase 8: the quantized tiers' kernels at the main path's shapes
-    quant_kernels, k6_report = check_int4_kernels(cfg, gen, decode_m=prep_a.input_ids.shape[0],
-                                                  prefill_m=int(prep_a.valid.size))
+    quant_kernels, k4_report, k6_report = check_int4_kernels(
+        cfg, gen, decode_m=prep_a.input_ids.shape[0], prefill_m=int(prep_a.valid.size))
     quant_kernels += check_flash_int8(cfg, prep_a, prep_b, gen)
     # phase 9: the quantized serving path
     t_quant = time.perf_counter()
@@ -2581,7 +2705,8 @@ def main() -> int:
                       "train_path_s": train_s, "tiny_train_err": small_train,
                       "training_launches": train_launches, "quantized_runs": quant_runs,
                       "quantized_launches": quant_launches, "quantized_path_s": quant_s,
-                      "tiny_quantized_err": small_quant, "k6_bit_equal": k6_report,
+                      "tiny_quantized_err": small_quant, "k4_checks": k4_report,
+                      "k6_bit_equal": k6_report,
                       "compressed_runs": compressed_runs,
                       "compressed_launches": compressed_launches,
                       "importance_variant": importance_variant,

@@ -16,17 +16,32 @@
 // [K/2, N], row r in the low nibble and row r + K/2 in the high nibble; the
 // scales are f32 [K/g, N], lo groups first.
 //
-// What bounds them on the H100. K4 reads 0.5 byte per weight for 2 * M
-// flops: at decode batch it is bound by bytes, like a GEMV. Threads own 4
-// neighbouring columns, so a warp reads 128 contiguous packed bytes per row;
-// the nibbles are sign-extended in registers; the block's slice of x sits
-// in shared memory as fp32. Narrow outputs (the k/v projections, N = 512)
-// give few column blocks, so K is split across blocks in whole groups, and
-// a second pass sums the splits in a fixed order (no atomics: runs repeat
-// bit for bit). K5 and K6 at prefill M (a few thousand rows) are bound by
-// operations. K5, which no path routes to, is the simple version: it
-// unpacks the nibble tile into shared memory at each 64-row k step, scaled
-// to bf16, on 64 x 64 output tiles with fp32 FMAs on CUDA cores.
+// What bounds them on the H100. K4 reads 0.5 byte per weight (plus 4 bytes
+// of scale per 64) for 2 * M flops: at decode batch it is bound by bytes,
+// like a GEMV, and its narrow shapes by latency. It is one launch that
+// streams each packed byte once for any M <= 128: a cp.async ring of
+// 16-byte copies holds, per stage, one packed group (64 packed rows: a lo
+// and a hi group) of the block's columns, the two groups' scales and x's
+// matching columns in bf16. Each nibble becomes a bf16 exactly (a LOP3 and
+// one bf16x2 fma for two of them), and mma.sync.m16n8k16 multiplies with
+// the output columns as A rows and x's rows as B columns, 8 per n8 slice,
+// so decode's M = 1 or 2 wastes the 8-row slice, not the weight stream.
+// fp32 partials per group are scaled at the group's end, as the Pallas body
+// does. K is split across the blocks of a thread-block cluster of up to 8,
+// toward four blocks an SM (every decoder shape but the head splits), and
+// the ranks sum each other's fp32 sums over distributed shared memory
+// in rank order and write bf16: no second kernel, no partials in device
+// memory, no atomics, so runs repeat bit for bit. Every address a thread
+// copies to or reads from is fixed up to a stage's base, so the loop is
+// the copies, the dequantization and the products. The host plan
+// (ops/cuda/int4_matmul.py `plan_int4_decode`) picks the tile by M and N,
+// the split and the grid; the launcher refuses a plan that disagrees with
+// its own formulas.
+//
+// K5 and K6 at prefill M (a few thousand rows) are bound by operations.
+// K5, which no path routes to, is the simple version: it unpacks the
+// nibble tile into shared memory at each 64-row k step, scaled to bf16, on
+// 64 x 64 output tiles with fp32 FMAs on CUDA cores.
 //
 // K6 is two kernels behind one entry point (namespace k6). A prep pass
 // turns x into int8 rows with their scales (row blocks) and the packed
@@ -46,6 +61,7 @@
 // for bit. wgmma, TMA and dequantizing in registers inside the GEMM (no
 // W8^T round trip) are later work.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -54,107 +70,303 @@
 
 namespace {
 
-// ---------------------------------------------------------------- K4
-constexpr int kVThreads = 128;
-constexpr int kVCols = 4;  // columns per thread: one 4-byte load per packed row
-constexpr int kVRows = 8;  // x rows per pass over the weights
-
-struct GemvArgs {
-  const __nv_bfloat16* x;  // [M, K]
-  const int8_t* w;         // [K/2, N]
-  const float* s;          // [K/g, N]
-  float* part;             // [ksplit, M, N]
-  int m, k, n, g, groups_per_split;
-};
-
+// The int4 values of a packed byte as fp32: the low nibble (row r) and the
+// high nibble (row r + K/2), sign-extended by arithmetic shifts.
 __device__ __forceinline__ float lo_nibble(int8_t b) {
   return (float)((int8_t)(b << 4) >> 4);
 }
 
 __device__ __forceinline__ float hi_nibble(int8_t b) { return (float)(b >> 4); }
 
-__global__ void __launch_bounds__(kVThreads) int4_gemv_kernel(GemvArgs a) {
-  extern __shared__ float xsm[];  // [kVRows][2 * span]: the lo slice, then the hi slice
-  const int col0 = (blockIdx.x * kVThreads + threadIdx.x) * kVCols;
-  const int kh = a.k / 2;
-  const int half_groups = kh / a.g;
-  const int g0 = blockIdx.y * a.groups_per_split;
-  const int g1 = min(half_groups, g0 + a.groups_per_split);
-  const int r0 = g0 * a.g;
-  const int span = (g1 - g0) * a.g;
-  const bool active = col0 < a.n;
+// ---------------------------------------------------------------- K4
+namespace k4 {
 
-  for (int m0 = 0; m0 < a.m; m0 += kVRows) {
-    const int mr = min(kVRows, a.m - m0);
-    __syncthreads();  // the previous pass no longer reads xsm
-    for (int idx = threadIdx.x; idx < kVRows * 2 * span; idx += kVThreads) {
-      const int i = idx / (2 * span), j = idx - i * 2 * span;
-      const int kk = j < span ? r0 + j : kh + r0 + (j - span);
-      xsm[idx] = i < mr ? __bfloat162float(a.x[(long)(m0 + i) * a.k + kk]) : 0.f;
+// A stage of the ring holds one packed group: kGroupRows packed rows of the
+// block's BN columns (the weights of lo group i and of hi group K/2g + i),
+// those two groups' scales, and x's matching 64 lo and 64 hi columns for
+// the block's MPAD rows in bf16 (rows at or past M are zeros). kStages
+// slots, loads kStages - 2 groups ahead: a slot is refilled two iterations
+// after it was read, so the copy is issued before the barrier that waits
+// for the current group.
+constexpr int kGroupRows = 64;
+constexpr int kStages = 4;
+constexpr int kMaxCluster = 8;
+
+// The tiles, in the order the host plan lists them: X(index, n8 slices of
+// x rows a warp holds, warps along M, warps along N, m16 column tiles a
+// warp holds). A block holds BN = 16 x tiles x warps along N columns and
+// MPAD = 8 x slices x warps along M rows of x. Each class of M (by its n8
+// slices: 1, 2, 3-4, 5-8, 9-16) has a wide tile and a narrow one of 16
+// columns a block, for outputs too narrow for the wide one to fill the
+// card (the k/v projections).
+#define GP_K4_TILES(X)                                                                  \
+  X(0, 1, 1, 4, 2) X(1, 1, 1, 1, 1) X(2, 2, 1, 4, 2) X(3, 2, 1, 1, 1) X(4, 4, 1, 4, 2) \
+  X(5, 4, 1, 1, 1) X(6, 4, 2, 2, 2) X(7, 4, 2, 1, 1) X(8, 4, 4, 1, 2) X(9, 4, 4, 1, 1)
+
+__host__ __device__ constexpr int stage_bytes(int bn, int mpad) {
+  return kGroupRows * bn + 8 * bn + 256 * mpad;
+}
+
+// the ring, or the fp32 sums [MPAD, BN] that reuse it after the last stage
+__host__ __device__ constexpr int smem_bytes(int bn, int mpad) {
+  return kStages * stage_bytes(bn, mpad) > 4 * mpad * bn ? kStages * stage_bytes(bn, mpad)
+                                                         : 4 * mpad * bn;
+}
+
+struct Args {
+  const __nv_bfloat16* x;  // [M, K]
+  const int8_t* w;         // [K/2, N] packed int4
+  const float* s;          // [K/64, N] group scales, lo groups first
+  __nv_bfloat16* out;      // [M, N]
+  int m, k, n, per;        // per: packed groups of one K split
+};
+
+// Byte offset of 16-byte chunk `ch` of packed row `r` in a stage's weight
+// tile of BN-byte rows. The chunk is XORed with 2 * (r / 2 % 4), within the
+// row's chunks, so that the four rows one word load of a warp reads,
+// 2t + {0, 1, 8, 9} for t = 0..3, fall on 32 distinct banks at BN = 128
+// (and at 16, unswizzled). The swizzle repeats every 8 rows.
+template <int BN>
+__device__ __forceinline__ int wswz(int r, int ch) {
+  return r * BN + ((ch ^ ((((r >> 1) & 3) << 1) & (BN / 16 - 1))) << 4);
+}
+
+// Two int4 values, two's complement in bits 0-3 and 16-19 of v, as two
+// bf16 in one register, exactly: (nibble ^ 8) | 0x4300 is the bf16 128 + q
+// + 8 (one LOP3: its constants go in registers, as a LOP3 takes one
+// immediate), and one bf16x2 fma subtracts 136. The Pallas body casts the
+// same values to x's dtype (JAX :66-67).
+__device__ __forceinline__ uint32_t int4x2_bf16(uint32_t v) {
+  uint32_t biased, r;
+  asm("lop3.b32 %0, %1, %2, %3, 0x6a;\n" : "=r"(biased) : "r"(v), "r"(0x000F000Fu),
+      "r"(0x43084308u));  // (v & mask) ^ magic
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(r) : "r"(biased), "r"(0x3F803F80u),
+      "r"(0xC308C308u));
+  return r;
+}
+
+// The A fragments of TW m16 tiles, lo and hi, from the words of packed
+// rows k and k + 1 (bytes: the thread's 2 TW columns): tile tl holds
+// columns 2 tl (fragment row g) and 2 tl + 1 (row g + 8); `h` picks
+// fragment registers 0/1 (k = 2t, 2t + 1) or 2/3 (k = 2t + 8, 2t + 9).
+template <int TW>
+__device__ __forceinline__ void a_frags(uint32_t w0, uint32_t w1, int h, uint32_t (&lo)[TW][4],
+                                        uint32_t (&hi)[TW][4]) {
+#pragma unroll
+  for (int tl = 0; tl < TW; ++tl) {
+    // bytes 0, 1: two columns of row k; bytes 2, 3: the same of row k + 1
+    const uint32_t p = __byte_perm(w0, w1, tl == 0 ? 0x5410 : 0x7632);
+    lo[tl][2 * h] = int4x2_bf16(p);
+    hi[tl][2 * h] = int4x2_bf16(p >> 4);
+    lo[tl][2 * h + 1] = int4x2_bf16(p >> 8);
+    hi[tl][2 * h + 1] = int4x2_bf16(p >> 12);
+  }
+}
+
+// out [M, N] = sum over the K splits (the blocks of one cluster, in rank
+// order) of sum over the split's groups of (x . q4) * s, per group and
+// column. The products run on mma.sync.m16n8k16 with the output columns as
+// A rows and x's rows as B columns (one n8 slice for M <= 8), fp32 group
+// partials, scaled at each group's end. Every address a thread copies to or
+// reads from is fixed per thread up to the stage's base: they are computed
+// once, before the loop.
+template <int SL, int WM, int WN, int TW>
+__global__ void __launch_bounds__(32 * WM * WN) decode_kernel(Args a) {
+  constexpr int kThreads = 32 * WM * WN;
+  constexpr int BN = 16 * TW * WN, MPAD = 8 * SL * WM;
+  constexpr int kW = kGroupRows * BN, kS = 8 * BN, kStage = stage_bytes(BN, MPAD);
+  constexpr int kRowChunks = BN / 16, kRowStep = kThreads / kRowChunks;
+  constexpr int kWCopies = (kGroupRows + kRowStep - 1) / kRowStep;
+  static_assert(kThreads % kRowChunks == 0 && kRowStep % 8 == 0 && BN / 2 <= kThreads,
+                "a thread's weight chunks share one swizzle, its scale chunk is one");
+  extern __shared__ __align__(128) uint8_t smem[];
+  cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
+  const int ksplit = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const int n0 = blockIdx.x / ksplit * BN;
+  const int kh = a.k / 2, groups = kh / kGroupRows;
+  const int g0 = rank * a.per, ng = min(groups, g0 + a.per) - g0;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp / WN, wn = warp % WN, g = lane >> 2, t = lane & 3;
+
+  // x's rows past M stay zero in every slot: written once
+  for (int slot = 0; slot < kStages; ++slot)
+    for (int c = tid; c < (MPAD - a.m) * 16; c += kThreads)
+      *reinterpret_cast<uint4*>(smem + slot * kStage + kW + kS + a.m * 256 + 16 * c) =
+          make_uint4(0u, 0u, 0u, 0u);
+
+  // the copies: weight chunk tid % kRowChunks of packed rows tid /
+  // kRowChunks + j kRowStep; scale chunk tid (lo row, then hi row)
+  const int wr0 = tid / kRowChunks;
+  const int w_dst = wswz<BN>(wr0, tid % kRowChunks);
+  const int8_t* w_src = a.w + (long)wr0 * a.n + n0 + 16 * (tid % kRowChunks);
+  const long w_step = (long)kRowStep * a.n, g_step = (long)kGroupRows * a.n;
+  const int s_half = tid / (BN / 4), s_ch = tid % (BN / 4);
+  const int s_dst = kW + 4 * (s_half * BN + 4 * s_ch);
+  const float* s_src = a.s + (long)s_half * groups * a.n + n0 + 4 * s_ch;
+  // x: chunk tid % 16 (0-7 the lo columns, 8-15 the hi ones) of rows
+  // tid / 16 + j kXRowStep, XOR-swizzled by row % 8 so that ldmatrix reads
+  // 8 rows on distinct banks
+  constexpr int kXRowStep = kThreads / 16, kXCopies = (MPAD + kXRowStep - 1) / kXRowStep;
+  const int x_ch = tid & 15, x_r0 = tid >> 4;
+  const __nv_bfloat16* x_src = a.x + (long)x_r0 * a.k + (x_ch & 8 ? kh : 0) + 8 * (x_ch & 7);
+  auto load_stage = [&](int slot, int gi) {
+    uint8_t* st = smem + slot * kStage;
+    const int8_t* wsrc = w_src + gi * g_step;
+#pragma unroll
+    for (int j = 0; j < kWCopies; ++j)
+      if (kWCopies * kRowStep == kGroupRows || wr0 + j * kRowStep < kGroupRows)
+        gp_tc::cp_async16(st + w_dst + j * kRowStep * BN, wsrc + j * w_step, 16);
+    if (tid < BN / 2) gp_tc::cp_async16(st + s_dst, s_src + (long)gi * a.n, 16);
+#pragma unroll
+    for (int j = 0; j < kXCopies; ++j) {
+      const int r = x_r0 + j * kXRowStep;
+      if (r < a.m)
+        gp_tc::cp_async16(st + kW + kS + r * 256 + ((x_ch ^ (r & 7)) << 4),
+                          x_src + (long)j * kXRowStep * a.k + gi * kGroupRows, 16);
     }
-    __syncthreads();
-    if (!active) continue;
+  };
 
-    float acc[kVRows][kVCols];
-#pragma unroll
-    for (int i = 0; i < kVRows; ++i)
-#pragma unroll
-      for (int c = 0; c < kVCols; ++c) acc[i][c] = 0.f;
+  // the reads: the thread's words of packed rows 16 ks + 2t + {0, 1, 8, 9}
+  // (their swizzle is 2t: one offset, then immediates), and the ldmatrix
+  // rows of x: matrices 0-1 the lo columns 16 ks .. +15, 2-3 the hi ones,
+  // chunk (lane / 16) * 8 + 2 ks + lane / 8 % 2, swizzled by row % 8 =
+  // lane % 8; ks adds bits 1-2 to the chunk, so it XORs into the offset
+  const int wcol = (wn * 8 + g) * 2 * TW;  // the thread's 2 TW columns in the tile
+  const int a_off = 2 * t * BN + (((wcol >> 4) ^ ((2 * t) & (kRowChunks - 1))) << 4) + (wcol & 15);
+  const int b_off = (wm * SL * 8 + (lane & 7)) * 256 +
+                    (((((lane >> 4) << 3) | ((lane >> 3) & 1)) ^ (lane & 7)) << 4);
 
-    for (int gi = g0; gi < g1; ++gi) {
-      float plo[kVRows][kVCols], phi[kVRows][kVCols];
+  float acc[TW][SL][4];
 #pragma unroll
-      for (int i = 0; i < kVRows; ++i)
+  for (int tl = 0; tl < TW; ++tl)
 #pragma unroll
-        for (int c = 0; c < kVCols; ++c) plo[i][c] = phi[i][c] = 0.f;
-#pragma unroll 4
-      for (int rr = 0; rr < a.g; ++rr) {
-        const int r = gi * a.g + rr;
-        const char4 b = *reinterpret_cast<const char4*>(a.w + (long)r * a.n + col0);
-        const float lo[kVCols] = {lo_nibble(b.x), lo_nibble(b.y), lo_nibble(b.z),
-                                  lo_nibble(b.w)};
-        const float hi[kVCols] = {hi_nibble(b.x), hi_nibble(b.y), hi_nibble(b.z),
-                                  hi_nibble(b.w)};
-        const int j = r - r0;
+    for (int sl = 0; sl < SL; ++sl)
 #pragma unroll
-        for (int i = 0; i < kVRows; ++i) {
-          const float xl = xsm[i * 2 * span + j];
-          const float xh = xsm[i * 2 * span + span + j];
+      for (int e = 0; e < 4; ++e) acc[tl][sl][e] = 0.f;
+
 #pragma unroll
-          for (int c = 0; c < kVCols; ++c) {
-            plo[i][c] += xl * lo[c];
-            phi[i][c] += xh * hi[c];
-          }
+  for (int s = 0; s < kStages - 2; ++s) {
+    if (s < ng) load_stage(s, g0 + s);
+    gp_tc::cp_async_commit();
+  }
+  for (int it = 0; it < ng; ++it) {
+    const int pf = it + kStages - 2;  // its slot was last read at it - 2
+    if (pf < ng) load_stage(pf % kStages, g0 + pf);
+    gp_tc::cp_async_commit();
+    gp_tc::cp_async_wait<kStages - 2>();
+    __syncthreads();  // group it has landed in every thread's copies
+    const uint8_t* st = smem + (it % kStages) * kStage;
+    const uint8_t* xs = st + kW + kS;
+
+    float plo[TW][SL][4], phi[TW][SL][4];  // this group's partial dots
+#pragma unroll
+    for (int tl = 0; tl < TW; ++tl)
+#pragma unroll
+      for (int sl = 0; sl < SL; ++sl)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) plo[tl][sl][e] = phi[tl][sl][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < kGroupRows / 16; ++ks) {
+      const uint8_t* wp = st + a_off + 16 * ks * BN;
+      auto word = [&](int row) -> uint32_t {  // the thread's 2 TW bytes of a packed row
+        return TW == 2 ? *reinterpret_cast<const uint32_t*>(wp + row * BN)
+                       : (uint32_t)*reinterpret_cast<const uint16_t*>(wp + row * BN);
+      };
+      uint32_t alo[TW][4], ahi[TW][4];
+      a_frags<TW>(word(0), word(1), 0, alo, ahi);
+      a_frags<TW>(word(8), word(9), 1, alo, ahi);
+#pragma unroll
+      for (int sl = 0; sl < SL; ++sl) {
+        if ((wm * SL + sl) * 8 >= a.m) break;  // the same for the whole warp
+        uint32_t b[4];
+        gp_tc::ldsm_x4(b, xs + sl * 8 * 256 + (b_off ^ (ks << 5)));
+#pragma unroll
+        for (int tl = 0; tl < TW; ++tl) {
+          gp_tc::mma_16816(plo[tl][sl], alo[tl], b[0], b[1]);
+          gp_tc::mma_16816(phi[tl][sl], ahi[tl], b[2], b[3]);
         }
       }
-      // the group scales multiply the partial dots, not the weights (:81-83)
-      const float4 slo = *reinterpret_cast<const float4*>(a.s + (long)gi * a.n + col0);
-      const float4 shi =
-          *reinterpret_cast<const float4*>(a.s + (long)(half_groups + gi) * a.n + col0);
-      const float sl[kVCols] = {slo.x, slo.y, slo.z, slo.w};
-      const float sh[kVCols] = {shi.x, shi.y, shi.z, shi.w};
-#pragma unroll
-      for (int i = 0; i < kVRows; ++i)
-#pragma unroll
-        for (int c = 0; c < kVCols; ++c) acc[i][c] += plo[i][c] * sl[c] + phi[i][c] * sh[c];
     }
-    for (int i = 0; i < mr; ++i) {
-      float* dst = a.part + ((long)blockIdx.y * a.m + m0 + i) * a.n + col0;
-      *reinterpret_cast<float4*>(dst) = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    // the group's end: each partial times its column's scale (JAX :81-83);
+    // fragment rows g and g + 8 of tile tl are columns 2 tl and 2 tl + 1
+    const float* ss = reinterpret_cast<const float*>(st + kW) + wcol;
+#pragma unroll
+    for (int tl = 0; tl < TW; ++tl) {
+      const float2 slo = *reinterpret_cast<const float2*>(ss + 2 * tl);
+      const float2 shi = *reinterpret_cast<const float2*>(ss + BN + 2 * tl);
+#pragma unroll
+      for (int sl = 0; sl < SL; ++sl)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          acc[tl][sl][e] = fmaf(plo[tl][sl][e], e < 2 ? slo.x : slo.y, acc[tl][sl][e]);
+          acc[tl][sl][e] = fmaf(phi[tl][sl][e], e < 2 ? shi.x : shi.y, acc[tl][sl][e]);
+        }
     }
   }
+  gp_tc::cp_async_wait<0>();
+  __syncthreads();  // every stage is read: the ring now holds the block's sums
+
+  // sums [MPAD, BN] in fp32: accumulator (g, 2t) of tile tl is column
+  // wcol + 2 tl at row 2t, (g + 8, 2t) column wcol + 2 tl + 1
+  float* red = reinterpret_cast<float*>(smem);
+#pragma unroll
+  for (int sl = 0; sl < SL; ++sl)
+#pragma unroll
+    for (int tl = 0; tl < TW; ++tl)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = (wm * SL + sl) * 8 + 2 * t + h;
+        *reinterpret_cast<float2*>(red + row * BN + wcol + 2 * tl) =
+            make_float2(acc[tl][sl][h], acc[tl][sl][h + 2]);
+      }
+  cluster.sync();  // every rank's sums are in its shared memory
+  // rank r writes pairs of outputs r, r + ksplit, ..., each the sum of the
+  // ranks' sums, read over distributed shared memory all at once and added
+  // in rank order: no atomics, so runs repeat bit for bit
+  for (int i = tid * ksplit + rank; i < a.m * (BN / 2); i += kThreads * ksplit) {
+    const int off = i / (BN / 2) * BN + 2 * (i % (BN / 2));
+    float2 part[kMaxCluster];
+#pragma unroll
+    for (int q = 0; q < kMaxCluster; ++q)
+      if (q < ksplit)
+        part[q] = *reinterpret_cast<const float2*>(cluster.map_shared_rank(red, q) + off);
+    float2 v = part[0];
+#pragma unroll
+    for (int q = 1; q < kMaxCluster; ++q)
+      if (q < ksplit) {
+        v.x += part[q].x;
+        v.y += part[q].y;
+      }
+    *reinterpret_cast<__nv_bfloat162*>(a.out + (long)(off / BN) * a.n + n0 + off % BN) =
+        __floats2bfloat162_rn(v.x, v.y);
+  }
+  cluster.sync();  // no block leaves while another reads its shared memory
 }
 
-// the splits summed in split order -> bf16
-__global__ void int4_gemv_reduce_kernel(const float* part, __nv_bfloat16* out, long mn,
-                                        int ksplit) {
-  for (long idx = blockIdx.x * (long)blockDim.x + threadIdx.x; idx < mn;
-       idx += (long)gridDim.x * blockDim.x) {
-    float sum = 0.f;
-    for (int sp = 0; sp < ksplit; ++sp) sum += part[sp * mn + idx];
-    out[idx] = __float2bfloat16(sum);
-  }
+template <int SL, int WM, int WN, int TW>
+int launch(const Args& a, int smem, int ksplit, int grid, cudaStream_t stream) {
+  constexpr int BN = 16 * TW * WN, MPAD = 8 * SL * WM;
+  if (a.m > MPAD || a.n % BN != 0 || smem != smem_bytes(BN, MPAD) ||
+      grid != a.n / BN * ksplit)
+    return (int)cudaErrorInvalidValue;
+  const int err = gp_tc::raise_smem_cap<decode_kernel<SL, WM, WN, TW>>(smem);
+  if (err != 0) return err;
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = ksplit;
+  cluster.val.clusterDim.y = 1;
+  cluster.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(32 * WM * WN);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = &cluster;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, decode_kernel<SL, WM, WN, TW>, a);
 }
+
+}  // namespace k4
 
 // ---------------------------------------------------------------- K5
 // K5 walks K in steps of 32 packed rows (64 unpacked rows: 32 lo, 32 hi),
@@ -536,37 +748,31 @@ bool gemm_shapes_ok(int m, int k, int n, int g, int bn) {
 
 }  // namespace
 
-extern "C" int int4_gemv_bf16(const void* x, const void* w, const void* s, void* part,
-                              void* out, int m, int k, int n, int g, int ksplit,
-                              int groups_per_split, void* stream) {
-  if (m <= 0 || g <= 0 || k % (2 * g) != 0 || n % kVCols != 0 || ksplit <= 0 ||
-      groups_per_split <= 0 ||
-      (long)ksplit * groups_per_split < (k / 2) / g)
+// K4 on `stream`, one launch. p holds the ints of the host plan
+// (ops/cuda/int4_matmul.py `plan_int4_decode`): m, k, n, the tile's index in
+// GP_K4_TILES, its shared-memory bytes, the K split (the cluster's size),
+// packed groups per split and the grid. A plan that disagrees with this
+// file's own formulas, or a pointer off 16 bytes, is refused.
+extern "C" int int4_decode_bf16(const void* x, const void* w, const void* s, void* out,
+                                const int* p, void* stream) {
+  const int m = p[0], k = p[1], n = p[2], tile = p[3], smem = p[4], ksplit = p[5];
+  const int per = p[6], grid = p[7];
+  const int groups = k / 2 / k4::kGroupRows;
+  if (m <= 0 || k <= 0 || k % (2 * k4::kGroupRows) != 0 || n <= 0 || ksplit < 1 ||
+      ksplit > k4::kMaxCluster || per <= 0 || (long)ksplit * per < groups ||
+      (long)(ksplit - 1) * per >= groups ||
+      (((uintptr_t)x | (uintptr_t)w | (uintptr_t)s | (uintptr_t)out) & 15) != 0)
     return (int)cudaErrorInvalidValue;
-  GemvArgs a;
-  a.x = (const __nv_bfloat16*)x;
-  a.w = (const int8_t*)w;
-  a.s = (const float*)s;
-  a.part = (float*)part;
-  a.m = m;
-  a.k = k;
-  a.n = n;
-  a.g = g;
-  a.groups_per_split = groups_per_split;
-  const size_t smem = (size_t)kVRows * 2 * groups_per_split * g * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(int4_gemv_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int cols_per_block = kVThreads * kVCols;
-  dim3 grid((n + cols_per_block - 1) / cols_per_block, ksplit);
-  int4_gemv_kernel<<<grid, kVThreads, smem, (cudaStream_t)stream>>>(a);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const long mn = (long)m * n;
-  const int blocks = (int)((mn + 255) / 256 < 1024 ? (mn + 255) / 256 : 1024);
-  int4_gemv_reduce_kernel<<<blocks, 256, 0, (cudaStream_t)stream>>>(
-      (const float*)part, (__nv_bfloat16*)out, mn, ksplit);
-  return (int)cudaGetLastError();
+  const k4::Args a{(const __nv_bfloat16*)x, (const int8_t*)w, (const float*)s,
+                   (__nv_bfloat16*)out, m, k, n, per};
+  switch (tile) {
+#define GP_K4_CASE(I, SL, WM, WN, TW) \
+  case I:                             \
+    return k4::launch<SL, WM, WN, TW>(a, smem, ksplit, grid, (cudaStream_t)stream);
+    GP_K4_TILES(GP_K4_CASE)
+#undef GP_K4_CASE
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int int4_gemm_a16_bf16(const void* x, const void* w, const void* s, void* out,

@@ -78,6 +78,7 @@ class QuantLinear(nn.Module):
     def _set_layout(self):
         if self.mode == "int4":
             self.kernel_q4 = self.kernel_q4.contiguous()
+            self.kernel_scale4 = self.kernel_scale4.contiguous()
         else:
             self.kernel_q = self.kernel_q.t().contiguous().t()
 

@@ -12,6 +12,17 @@ shape gates (``kernel_applicable`` :91, ``prefill_applicable`` :261,
 ``prefill_routable`` :268) are copied exactly, so
 ``quantization.matmul_int4_auto`` routes a shape as the JAX package does.
 
+K4 on the card is one launch (``int4_decode``): a cp.async ring streams
+each packed group of the weights once, with its scales and x's matching
+columns; the nibbles become bf16 and multiply on the tensor cores, fp32
+partials per group are scaled at its end, and K splits over the blocks of
+a thread-block cluster that sum their parts over distributed shared memory
+in rank order (deterministic, no second kernel, no partials in device
+memory). ``plan_int4_decode`` is its host plan (tile, split, cluster,
+stages, shared-memory bytes, grid, and the ints the C launcher takes and
+checks against its own formulas); ``quantization.matmul_int4_auto``, which
+checks the gate, launches through it directly.
+
 K6 on the card is two kernels behind one C call: a prep pass (x to int8
 rows and their scales; the packed weights to W8^T, int8 [N, K], and the
 per-column scales s8) and an int8 tensor-core GEMM with the rescale in its
@@ -34,7 +45,7 @@ import array
 import ctypes
 import functools
 from collections import Counter
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional, Tuple
 
 import torch
@@ -46,11 +57,7 @@ from glimpseprune_torch.ops.kv_cache import quantize_kv
 _BKP = 256      # packed-row tile
 _BN = 512       # output-column tile
 _M_MAX = 128    # the decode kernel's largest M
-# K4's launch: 512 columns per block; K split in whole groups so that the
-# grid has at least this many blocks, each split at most this many groups
-_K4_COLS_PER_BLOCK = 512
-_K4_MIN_BLOCKS = 264
-_K4_MAX_GROUPS = 32
+SMS = 132       # the H100's SMs, which K4's and K6's grids are sized to fill
 
 
 def kernel_applicable(m: int, kdim: int, n: int, g: int) -> bool:
@@ -131,13 +138,115 @@ def matmul_int4_reference(x: torch.Tensor, packed: torch.Tensor, scales: torch.T
     return y.to(out_dtype).reshape(x.shape[:-1] + (n,))
 
 
-def k4_split(k: int, n: int, g: int):
-    """(ksplit, groups per split) of K4's launch."""
-    half_groups = k // 2 // g
-    col_blocks = -(-n // _K4_COLS_PER_BLOCK)
-    want = max(-(-_K4_MIN_BLOCKS // col_blocks), -(-half_groups // _K4_MAX_GROUPS))
-    per = -(-half_groups // min(want, half_groups))
-    return -(-half_groups // per), per
+# K4 on the card (csrc/int4_matmul.cu, namespace k4). Its tiles, in the
+# order of ``GP_K4_TILES``: (n8 slices of x rows a warp holds, warps along
+# M, warps along N, m16 column tiles a warp holds). A block holds 16 x
+# tiles x (warps along N) columns and 8 x slices x (warps along M) rows of
+# x; a stage is one packed group of K4_GROUP_ROWS packed rows, K4_STAGES
+# slots. K4_CLASSES lists, for M of up to 8, 16, 32, 64 and 128 rows, its
+# wide and its narrow tile: the plan takes the wide one where its grid, K
+# split as far as a cluster of K4_MAX_CLUSTER goes, has a block for each of
+# the SMS SMs, else the narrow one, then splits K until the grid has
+# K4_SPLIT_BLOCKS blocks.
+K4_TILES = ((1, 1, 4, 2), (1, 1, 1, 1), (2, 1, 4, 2), (2, 1, 1, 1), (4, 1, 4, 2),
+            (4, 1, 1, 1), (4, 2, 2, 2), (4, 2, 1, 1), (4, 4, 1, 2), (4, 4, 1, 1))
+K4_CLASSES = ((8, (0, 1)), (16, (2, 3)), (32, (4, 5)), (64, (6, 7)), (128, (8, 9)))
+K4_GROUP_ROWS = 64
+K4_STAGES = 4
+K4_MAX_CLUSTER = 8
+K4_SPLIT_BLOCKS = 4 * SMS
+# int4_decode_bf16's arguments: x, packed, scales, out, the plan's ints, stream
+_K4_ARGTYPES = [ctypes.c_void_p] * 6
+
+
+@dataclass(frozen=True)
+class DecodePlan:
+    """How one K4 call runs: tile ``tile`` of K4_TILES (``bn`` columns and
+    ``mpad`` rows of x a block, ``warps`` warps, ``stages`` packed groups in
+    flight, ``smem_bytes`` per block) on ``grid`` blocks, K split
+    ``ksplit`` ways in ``groups_per_split`` packed groups over the blocks of
+    one thread-block cluster (its size is ``ksplit``). ``args`` holds the
+    ints the C launcher takes (at ``args_ptr``), ``key`` the launch-count
+    key."""
+    tile: int
+    bn: int
+    mpad: int
+    warps: int
+    stages: int
+    ksplit: int
+    groups_per_split: int
+    smem_bytes: int
+    grid: int
+    args: array.array = field(compare=False, repr=False)
+    args_ptr: int = field(compare=False, repr=False)
+    key: str = field(compare=False, repr=False)
+
+
+def k4_smem_bytes(tile: int) -> int:
+    """Shared memory of one K4 block of tile ``tile`` (csrc/int4_matmul.cu
+    ``k4::smem_bytes``): K4_STAGES stages, each a packed group of its
+    columns, the group's lo and hi scale rows and x's 64 lo and 64 hi bf16
+    columns, or the fp32 sums that reuse the ring, whichever is larger."""
+    bn, mpad = k4_block(tile)
+    return max(K4_STAGES * (K4_GROUP_ROWS * bn + 8 * bn + 256 * mpad), 4 * mpad * bn)
+
+
+def k4_block(tile: int) -> Tuple[int, int]:
+    """(columns, rows of x) of one K4 block of tile ``tile``."""
+    sl, wm, wn, tw = K4_TILES[tile]
+    return 16 * tw * wn, 8 * sl * wm
+
+
+def k4_split_groups(groups: int, want: int) -> Tuple[int, int]:
+    """(splits, packed groups a split) for ``groups`` packed groups cut into
+    at most ``want`` whole, non-empty splits."""
+    per = -(-groups // min(want, groups))
+    return -(-groups // per), per
+
+
+def k4_tile(m: int, k: int, n: int) -> int:
+    """K4's tile for x [m, k] @ W [k, n]: the wide tile of M's class where
+    its grid, K split as far as a cluster goes, reaches SMS blocks, else the
+    narrow one (the k/v projections: 16 columns a block)."""
+    wide, narrow = next(t for top, t in K4_CLASSES if m <= top)
+    ksplit, _ = k4_split_groups(k // 2 // K4_GROUP_ROWS, K4_MAX_CLUSTER)
+    return wide if n // k4_block(wide)[0] * ksplit >= SMS else narrow
+
+
+@functools.lru_cache(maxsize=1024)
+def plan_int4_decode(m: int, k: int, n: int) -> DecodePlan:
+    """K4's plan for x [m, k] @ W [k, n], or ValueError for a shape the
+    kernel refuses: the tile from ``k4_tile``, K split in whole packed
+    groups over the blocks of one cluster, and the grid."""
+    if not (0 < m <= _M_MAX and k > 0 and k % (2 * K4_GROUP_ROWS) == 0 and n > 0):
+        raise ValueError(f"matmul_int4: K4 takes no shape M={m} K={k} N={n}")
+    tile = k4_tile(m, k, n)
+    bn, mpad = k4_block(tile)
+    if n % bn:
+        raise ValueError(f"matmul_int4: K4's {bn}-column tile does not divide N={n}")
+    groups = k // 2 // K4_GROUP_ROWS
+    ksplit, per = k4_split_groups(groups, min(K4_MAX_CLUSTER, -(-K4_SPLIT_BLOCKS // (n // bn))))
+    _, wm, wn, _ = K4_TILES[tile]
+    smem, grid = k4_smem_bytes(tile), n // bn * ksplit
+    args = array.array("i", (m, k, n, tile, smem, ksplit, per, grid))
+    return DecodePlan(tile, bn, mpad, wm * wn, K4_STAGES, ksplit, per, smem, grid, args,
+                      args.buffer_info()[0], launch_key(k, n))
+
+
+def int4_decode(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """K4's launch on the card, counted, for callers that have checked
+    ``kernel_applicable`` and hold bf16 x (16-byte aligned), int8 packed
+    weights and f32 scales, contiguous, on one card: one plan lookup, the
+    output, one ctypes call on the current stream, no host sync."""
+    k, n = x.shape[-1], packed.shape[1]
+    plan = plan_int4_decode(x.numel() // k, k, n)
+    out = torch.empty(x.shape[:-1] + (n,), dtype=torch.bfloat16, device=x.device)
+    fn = kernel_function("int4_matmul", "int4_decode_bf16", _K4_ARGTYPES)
+    rc = fn(x.data_ptr(), packed.data_ptr(), scales.data_ptr(), out.data_ptr(),
+            plan.args_ptr, current_stream(x.device))
+    check_launch(rc, "matmul_int4")
+    matmul_int4.launches[plan.key] += 1
+    return out
 
 
 def matmul_int4(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
@@ -145,7 +254,7 @@ def matmul_int4(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
     """K4: x [..., K] @ int4 [K/2, N] (+ scales [K/g, N]) -> [..., N] for
     M <= 128 rows (M = the product of x's leading dims). The caller checks
     ``kernel_applicable``; this function raises where it does not hold. On
-    the card: one launch of the split-K kernel and its reduction pass."""
+    the card: one launch (``int4_decode``), bf16 x and out only."""
     k, n, g = _check(x, packed, scales, "matmul_int4")
     m = x.numel() // k
     if not kernel_applicable(m, k, n, g):
@@ -154,18 +263,10 @@ def matmul_int4(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
         return matmul_int4_reference(x, packed, scales, out_dtype)
     if x.dtype != torch.bfloat16:
         raise ValueError("matmul_int4: x must be bf16 on the card")
-    x2, packed, scales = _cuda_operands("matmul_int4", out_dtype, x.reshape(m, k), packed,
-                                        scales.float())
-    ksplit, per = k4_split(k, n, g)
-    part = torch.empty((ksplit, m, n), dtype=torch.float32, device=x.device)
-    out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
-    fn = kernel_function("int4_matmul", "int4_gemv_bf16",
-                         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
-    rc = fn(x2.data_ptr(), packed.data_ptr(), scales.data_ptr(), part.data_ptr(),
-            out.data_ptr(), m, k, n, g, ksplit, per, current_stream(x.device))
-    check_launch(rc, "matmul_int4")
-    matmul_int4.launches[launch_key(k, n)] += 1
-    return out.reshape(x.shape[:-1] + (n,))
+    x, packed, scales = _cuda_operands("matmul_int4", out_dtype, x, packed, scales.float())
+    if x.data_ptr() % 16:  # the kernel copies x in 16-byte chunks
+        x = x.clone()
+    return int4_decode(x, packed, scales)
 
 
 # ------------------------------------------------------------- K5, K6
@@ -210,9 +311,9 @@ A8_TILES = ((128, 128, 2, 4, 128, 3), (64, 64, 2, 2, 128, 3))
 A8_PREP_ROWS = 8
 A8_PREP_COLS = 64
 A8_PREP_TILE = 64
-# the H100's SMs; the wide tile is taken where its grid gives two blocks
-# per SM, and the prep's column blocks split K until they do
-A8_SMS = 132
+# the wide tile is taken where its grid gives two blocks per SM, and the
+# prep's column blocks split K until they do
+A8_SMS = SMS
 A8_MIN_BLOCKS = 2 * A8_SMS
 
 

@@ -29,6 +29,7 @@ from typing import Dict, Sequence
 import torch
 
 from glimpseprune_torch.ops.cuda.int4_matmul import (
+    int4_decode,
     kernel_applicable,
     matmul_int4,
     matmul_int4_prefill,
@@ -144,7 +145,10 @@ def matmul_int4_auto(x: torch.Tensor, kernel_q4: torch.Tensor, kernel_scale4: to
     ops/pallas/int4_matmul.py:91, :268), so a shape takes the same
     arithmetic in both packages:
 
-    - M <= 128 rows with the decode kernel's tiling: K4, ``matmul_int4``;
+    - M <= 128 rows with the decode kernel's tiling: K4, ``matmul_int4``
+      (on the card straight to its launch, ``int4_decode``, where x is
+      bf16 and 16-byte aligned and every operand contiguous on x's card:
+      the gate is checked here);
     - a8 with full 256-wide packed k-tiles (the decoder's widths): K6,
       ``matmul_int4_prefill(a8=True)``;
     - everything else: dequantize, then one matmul.
@@ -154,6 +158,11 @@ def matmul_int4_auto(x: torch.Tensor, kernel_q4: torch.Tensor, kernel_scale4: to
     g = k // kernel_scale4.shape[0]
     m = x.numel() // k
     if kernel_applicable(m, k, n, g):
+        if (x.is_cuda and x.dtype == dtype == torch.bfloat16 and x.is_contiguous()
+                and x.data_ptr() % 16 == 0 and kernel_scale4.dtype == torch.float32
+                and kernel_q4.is_contiguous() and kernel_scale4.is_contiguous()
+                and kernel_q4.device == x.device == kernel_scale4.device):
+            return int4_decode(x, kernel_q4, kernel_scale4)
         return matmul_int4(x, kernel_q4, kernel_scale4, out_dtype=dtype)
     if prefill_routable(m, k, n, g, a8):
         return matmul_int4_prefill(x, kernel_q4, kernel_scale4, out_dtype=dtype, a8=True)

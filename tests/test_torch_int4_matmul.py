@@ -138,7 +138,11 @@ def test_wrappers_refuse_shapes_off_their_gate():
     with pytest.raises(ValueError):
         tm4.matmul_int4_prefill(torch.zeros((8, K)), torch.as_tensor(packed),
                                 torch.as_tensor(scales))
-    assert tm4.k4_split(3584, 512, 64) == (28, 1)
-    assert tm4.k4_split(3584, 152064, 64) == (1, 28)
-    ks, per = tm4.k4_split(18944, 3584, 64)
-    assert ks * per >= 18944 // 2 // 64 and (ks - 1) * per < 18944 // 2 // 64 and per <= 32
+    # K4's split of K: whole packed groups over the blocks of one cluster
+    plan = tm4.plan_int4_decode(2, 3584, 512)
+    assert (plan.ksplit, plan.groups_per_split) == (7, 4)
+    plan = tm4.plan_int4_decode(2, 3584, 152064)
+    assert (plan.ksplit, plan.groups_per_split) == (1, 28)
+    plan = tm4.plan_int4_decode(2, 18944, 3584)
+    ks, per = plan.ksplit, plan.groups_per_split
+    assert ks * per >= 18944 // 2 // 64 and (ks - 1) * per < 18944 // 2 // 64 and ks <= 8
