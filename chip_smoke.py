@@ -51,7 +51,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
      on the card), and K7 (int8 flash attention) dense, segmented and causal,
      with and without the int8 PV product, each against its plain version
      (K7 also against the other PV flavour and bf16 attention, which it
-     must not pass: the check tells the int8 tiers apart);
+     must not pass: the check tells the int8 tiers apart), each output of
+     its prep kernel equal to its plain version's, two calls bit-identical,
+     one prep and one attention kernel a call, their device ms apart beside
+     K2's at the same shape;
   9. the quantized serving path: a fresh random 7B (``init_random``, seed
      0), quantized on the card with ``quantize_model``, in two tiers: (q8)
      int8 weights with W8A8 prefill and an int8 KV cache, pruned and
@@ -76,7 +79,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
      forward, LSE, backward, int8) on batch (a)'s causal shape with the q
      rows cut into 2 and 4 shards and one unaligned shard, against its plain
      versions and the monolithic K2 / K2-lse / K3 / K7 (with a control that
-     must fail; the backward held as in phase 5); then SP_WORLD ranks on
+     must fail; the backward held as in phase 5; K9-int8's prep outputs
+     equal to their plain versions and two calls bit-identical, its prep
+     and attention device ms apart beside K9's); then SP_WORLD ranks on
      this one card over gloo, started by the port's launcher, each
      building the 7B from seed 0 (checked by a checksum all-gather): SP
      generate pruned and unpruned on batches (a)
@@ -1865,17 +1870,64 @@ def k7_within(errs) -> bool:
     return errs[0] <= K7_MAX_RTOL and errs[1] <= K7_RMS_RTOL
 
 
+def k7_split_ms(call, k2_call):
+    """K7's device ms of one call, its prep kernel and its attention kernel
+    apart, beside K2's (or K9's) device ms at the same shape: {"prep",
+    "attention", "k2"} (None where not measured). Raises unless each K7
+    call launched one prep and one attention kernel."""
+    per_call = {}
+    by = device_ms_by_kernel(call, per_call=per_call)
+    k2 = device_ms(k2_call)
+    if by is None:
+        return {"prep": None, "attention": None, "k2": k2}
+    parts = {}
+    for part, tag in (("prep", "i8::prep_kernel"), ("attention", "i8::attn_kernel")):
+        names = [n for n in by if tag in n]
+        if len(names) != 1 or per_call[names[0]] != 1:
+            raise AssertionError(f"K7: {part} kernel launches per call {per_call}")
+        parts[part] = by[names[0]]
+    return {**parts, "k2": k2}
+
+
+def check_k7_prep(q, k, v, qseg, kseg, causal, dense, pv, q_positions=None):
+    """K7's prep kernel against its plain version: each output (q8, q_scale,
+    k8, k_scale and, with pv_int8, V8^T and v_scale) torch.equal; and two
+    calls of the whole kernel bit-identical. Raises otherwise."""
+    import torch
+
+    from glimpseprune_torch.ops.cuda.flash_attention import (
+        flash_attention_int8_kernels,
+        flash_int8_prep_reference,
+    )
+
+    got, prep = flash_attention_int8_kernels(q, k, v, qseg, kseg, causal, dense, pv, q_positions)
+    again, _ = flash_attention_int8_kernels(q, k, v, qseg, kseg, causal, dense, pv, q_positions)
+    torch.cuda.synchronize()
+    want = flash_int8_prep_reference(q, k, v, pv)
+    names = ("q8", "q_scale", "k8", "k_scale", "v8t", "v_scale")
+    bad = [n for n, a, b in zip(names, prep, want)
+           if (a is None) != (b is None) or (a is not None and not torch.equal(a, b))]
+    if bad:
+        raise AssertionError(f"K7's prep differs from its plain version in {bad}")
+    if not torch.equal(got, again):
+        raise AssertionError("K7: two calls on the same inputs differ")
+
+
 def check_flash_int8(cfg, prep_a, prep_b, gen):
     """K7 dense, segmented (the ViT's full attention on batches (b) and (a))
     and causal (the LLM's prefill on batch (a)), each with and without the
     int8 PV product, against the plain version at the kernel's kv tile.
     Controls: each output must fail the same check against the plain
     version of the other PV flavour and against bf16 attention (K2's plain
-    version), or the check could not tell the int8 tiers apart."""
+    version), or the check could not tell the int8 tiers apart. Each prep
+    output equals its plain version, two calls are bit-identical, and the
+    device ms of the prep and the attention kernel are printed apart beside
+    K2's at the same shape -> (rows, {flavour: checks and split times})."""
     import torch
 
     from glimpseprune_torch.ops.cuda.flash_attention import (
         KERNEL_BLOCK_K,
+        flash_attention,
         flash_attention_int8,
         flash_attention_int8_reference,
         flash_attention_reference,
@@ -1896,7 +1948,7 @@ def check_flash_int8(cfg, prep_a, prep_b, gen):
          t.num_key_value_heads, prep_a.valid.shape[1], t.head_dim,
          seg(np.where(prep_a.valid, 0, -1)), True),
     ]
-    rows = []
+    rows, report = [], {}
     for name, fl, b, hq, hkv, s, d, segs, causal in cases:
         q, k, vv, pairs, mask = attention_case(gen, b, hq, hkv, s, d, d, segs, causal)
         dense = segs is None
@@ -1909,6 +1961,7 @@ def check_flash_int8(cfg, prep_a, prep_b, gen):
         refs["bf16"] = flash_attention_reference(q.float(), k.float(), vv.float(), segs, segs,
                                                  causal=causal, dense=dense)
         for pv in (False, True):
+            check_k7_prep(q, k, vv, segs, segs, causal, dense, pv)
             got = flash_attention_int8(q, k, vv, segs, segs, causal=causal, dense=dense,
                                        pv_int8=pv)
             torch.cuda.synchronize()
@@ -1941,8 +1994,16 @@ def check_flash_int8(cfg, prep_a, prep_b, gen):
             if passed:
                 raise AssertionError(f"K7 {key}: the check cannot tell the kernel from "
                                      f"{passed} attention")
-            dev_ms = device_ms(lambda: flash_attention_int8(
-                q, k, vv, segs, segs, causal=causal, dense=dense, pv_int8=pv))
+            split = k7_split_ms(lambda: flash_attention_int8(
+                q, k, vv, segs, segs, causal=causal, dense=dense, pv_int8=pv),
+                lambda: flash_attention(q, k, vv, segs, segs, causal=causal, dense=dense))
+            dev_ms = (None if split["prep"] is None
+                      else split["prep"] + split["attention"])
+            report[key] = {"prep_equal": True, "bit_identical": True, "device_ms": split}
+            print(f"K7 flash_attention_int8[{key}] {shape}: on the card prep "
+                  f"{fmt_ms(split['prep'])} + attention {fmt_ms(split['attention'])}, K2 "
+                  f"{fmt_ms(split['k2'])}; prep outputs equal to the plain version's, two "
+                  "calls bit-identical")
             rows.append({"name": f"flash_attention_int8[{key}]", "route": "cuda",
                          "source": K2_SRC, "replaces": K7_REPLACES[fl], "max_abs_err": err,
                          "rel_err": errs[0], "rms_rel_err": errs[1],
@@ -1952,7 +2013,7 @@ def check_flash_int8(cfg, prep_a, prep_b, gen):
                          "shape": shape})
         del q, k, vv, q8, k8, got, ref, refs
     torch.cuda.empty_cache()
-    return rows
+    return rows, report
 
 
 def qpos_shards(s: int):
@@ -2018,6 +2079,8 @@ def check_flash_qpos(cfg, prep_a, gen):
                                          causal=True, q_positions=qpos)
         i8 = {pv: flash_attention_int8(qs, k, v, qseg, seg, causal=True, pv_int8=pv,
                                        q_positions=qpos) for pv in (False, True)}
+        for pv in (False, True):  # the prep's outputs, and two calls bit-identical
+            check_k7_prep(qs, k, v, qseg, seg, True, False, pv, qpos)
         torch.cuda.synchronize()
         ref_o, ref_lse = flash_attention_lse_reference(qs.float(), k.float(), v.float(), qseg,
                                                        seg, causal=True, q_positions=qpos)
@@ -2133,6 +2196,13 @@ def check_flash_qpos(cfg, prep_a, gen):
         device_ms=device_ms(bwd_call), library_device_ms=lib_dev_ms)
     q8, qsc = quantize_kv(qs)
     got = flash_attention_int8(qs, k, v, qseg, seg, causal=True, q_positions=qpos)
+    split = k7_split_ms(
+        lambda: flash_attention_int8(qs, k, v, qseg, seg, causal=True, q_positions=qpos),
+        lambda: flash_attention(qs, k, v, qseg, seg, causal=True, q_positions=qpos))
+    report["int8_device_ms"] = split
+    print(f"K9-int8 {shape}: on the card prep {fmt_ms(split['prep'])} + attention "
+          f"{fmt_ms(split['attention'])}, K9 {fmt_ms(split['k2'])}; prep outputs equal to the "
+          "plain version's and two calls bit-identical at every shard, int8 and int8+pv8")
     row("flash_attention_int8",
         cuda_ms(lambda: flash_attention_int8(qs, k, v, qseg, seg, causal=True, q_positions=qpos)),
         cuda_ms(lambda: flash_attention_int8_reference(q8, k8, v, qsc, ksc, qseg, seg, True,
@@ -2142,8 +2212,7 @@ def check_flash_qpos(cfg, prep_a, gen):
         int8_ops=2.0 * pairs * hq * d, max_abs_err=half["int8_abs_err"],
         rel_err=half["int8_errs"][False][0], rms_rel_err=half["int8_errs"][False][1],
         equal_to_monolithic=half["equal_to_monolithic"]["int8"],
-        device_ms=device_ms(lambda: flash_attention_int8(qs, k, v, qseg, seg, causal=True,
-                                                         q_positions=qpos)))
+        device_ms=None if split["prep"] is None else split["prep"] + split["attention"])
     del q, k, v, dout, mono_grads, grads
     torch.cuda.empty_cache()
     return rows, report
@@ -2659,7 +2728,8 @@ def main() -> int:
     # phase 8: the quantized tiers' kernels at the main path's shapes
     quant_kernels, k4_report, k6_report = check_int4_kernels(
         cfg, gen, decode_m=prep_a.input_ids.shape[0], prefill_m=int(prep_a.valid.size))
-    quant_kernels += check_flash_int8(cfg, prep_a, prep_b, gen)
+    k7_rows, k7_report = check_flash_int8(cfg, prep_a, prep_b, gen)
+    quant_kernels += k7_rows
     # phase 9: the quantized serving path
     t_quant = time.perf_counter()
     quant_runs, quant_launches, small_quant = [], {}, {}
@@ -2706,7 +2776,7 @@ def main() -> int:
                       "training_launches": train_launches, "quantized_runs": quant_runs,
                       "quantized_launches": quant_launches, "quantized_path_s": quant_s,
                       "tiny_quantized_err": small_quant, "k4_checks": k4_report,
-                      "k6_bit_equal": k6_report,
+                      "k6_bit_equal": k6_report, "k7_checks": k7_report,
                       "compressed_runs": compressed_runs,
                       "compressed_launches": compressed_launches,
                       "importance_variant": importance_variant,

@@ -615,16 +615,6 @@ __device__ __forceinline__ int swz(int row, int ch) {
   return row * BK + ((ch ^ ((row / (8 / kChunks)) & (kChunks - 1))) << 4);
 }
 
-// d += a (16 x 32 s8, row) * b (32 x 8 s8, col). Not volatile: the
-// scheduler may interleave the next k step's ldmatrix with these.
-__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                       uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // out tile [BM, BN] = xq [BM, K] . W8^T [BN, K]^T, rescaled, over a ring of
 // STAGES k tiles of BK bytes. Warps hold (BM / WM) x (BN / WN) of the tile:
 // MT m16 by NT n8 mma tiles. Rows at or past M are read as zeros (cp.async
@@ -701,7 +691,7 @@ __global__ void __launch_bounds__(32 * WM * WN, WM * WN == 8 ? 2 : 4) gemm_kerne
 #pragma unroll
       for (int i = 0; i < MT; ++i)
 #pragma unroll
-        for (int j = 0; j < NT; ++j) mma_s8(acc[i][j], af[i], bf[j][0], bf[j][1]);
+        for (int j = 0; j < NT; ++j) gp_tc::mma_s8(acc[i][j], af[i], bf[j][0], bf[j][1]);
     }
   }
   gp_tc::cp_async_wait<0>();

@@ -1,6 +1,7 @@
-// Tensor-core and asynchronous-copy helpers shared by the attention kernels
-// (flash_attention.cu, window_attention.cu): cp.async copies into shared
-// memory, ldmatrix loads, the mma.sync.m16n8k16 bf16 product with fp32
+// Tensor-core and asynchronous-copy helpers shared by the kernels
+// (flash_attention.cu, window_attention.cu, int4_matmul.cu): cp.async copies
+// into shared memory, ldmatrix loads, the mma.sync.m16n8k16 bf16 product
+// with fp32 accumulators, the mma.sync.m16n8k32 s8 product with int32
 // accumulators, and row copies into padded shared-memory tiles. sm_80 PTX,
 // built for sm_90a.
 //
@@ -8,6 +9,12 @@
 // row-major) a0 = (g, 2t..2t+1), a1 = (g+8, 2t..), a2 = (g, 2t+8..),
 // a3 = (g+8, 2t+8..); B (16x8, k by n) b0 = (2t..2t+1, g), b1 = (2t+8.., g);
 // C (16x8) c0, c1 = (g, 2t..2t+1), c2, c3 = (g+8, 2t..2t+1).
+// mma.m16n8k32 s8 holds four k per register: A (16x32) a0 = (g, 4t..4t+3),
+// a1 = (g+8, 4t..), a2 = (g, 16+4t..), a3 = (g+8, 16+4t..); B (32x8)
+// b0 = (4t..4t+3, g), b1 = (16+4t.., g); C as above, in int32. So an
+// ldmatrix (b16) 8x8 matrix read from 8 rows of 16 int8 bytes gives each
+// lane the 4 bytes (g, 4t..4t+3): the A or B fragment of rows stored
+// k-contiguous.
 
 #pragma once
 
@@ -57,6 +64,17 @@ __device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
       "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a (16 x 32 s8, row) * b (32 x 8 s8, col), int32 accumulators. Not
+// volatile: the scheduler may interleave the next k step's ldmatrix with
+// these.
+__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                       uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 

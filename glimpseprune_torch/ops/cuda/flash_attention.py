@@ -10,10 +10,14 @@ Replaces the Pallas kernels of glimpseprune_tpu/ops/pallas/flash_attention.py:
 - K3, the backward ``_flash_bwd_impl`` :808 (``_bwd_dq_kernel`` :697,
   ``_bwd_dkv_kernel`` :739), which recomputes the probabilities from that LSE;
 - K7, the int8 serving flavour (``_i8_kernel_adapter`` :175,
-  ``_i8_dense_kernel_adapter`` :200, with ``_quant_rows_i8`` :232 done here
-  in plain PyTorch as JAX does it outside its kernel): per-row int8 q and k,
-  an int32 QK^T with a rank-1 rescale, and with ``pv_int8`` an int8 PV
-  product per kv tile. Inference only, as in JAX.
+  ``_i8_dense_kernel_adapter`` :200, with ``_quant_rows_i8`` :232, which
+  JAX does outside its kernel): per-row int8 q and k, an int32 QK^T with a
+  rank-1 rescale, and with ``pv_int8`` an int8 PV product per kv tile;
+  without it P is rounded to v's dtype before the PV product, as Pallas
+  does (:157-160). On the card one call launches a prep kernel (q and k
+  rows to int8 as ``quantize_kv`` computes them, v's tiles to V8^T under
+  pv_int8) and the attention kernel; on the CPU the quantization is plain
+  PyTorch, as in JAX. Inference only, as in JAX.
 - K9, the ``q_positions`` flavour of K2, K2-lse, K3 and K7
   (``_qpos_kernel_adapter`` :183, ``_i8_qpos_kernel_adapter`` :191,
   ``_qpos_lse_kernel_adapter`` :216, the custom VJP
@@ -24,12 +28,13 @@ Replaces the Pallas kernels of glimpseprune_tpu/ops/pallas/flash_attention.py:
   slot. Sequence-parallel prefill calls it; its launches are counted under
   the flavour ``"causal+qpos"``.
 The CUDA sources are ``glimpseprune_torch/csrc/flash_attention.cu`` (K2,
-K2-lse and K9 on tensor cores; K7 and K9-int8 on their own scalar kernel)
-and ``flash_attention_bwd.cu`` (K3 and K9's backward on tensor cores);
-their headers say what bounds them on the H100 and how the design answers.
-``plan_flash`` and ``plan_flash_bwd`` are the host-side plans: the padded
-head-dim pair a kernel is built for, its tiles and its shared-memory
-bytes, which the C launchers check.
+K2-lse and K9 on bf16 tensor cores; K7 and K9-int8, a prep kernel and an
+int8 tensor-core kernel) and ``flash_attention_bwd.cu`` (K3 and K9's
+backward on tensor cores); their headers say what bounds them on the H100
+and how the design answers. ``plan_flash``, ``plan_flash_int8`` and
+``plan_flash_bwd`` are the host-side plans: the padded head-dim pair a
+kernel is built for, its tiles and its shared-memory bytes, which the C
+launchers check.
 
 The TPU tuning does not carry over: there are no 1024x1024 blocks and no
 head-dim padding to 128. The qk head dim and the v head dim are separate
@@ -52,6 +57,7 @@ from dataclasses import dataclass
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from glimpseprune_torch.ops.cuda.build import (
     SMEM_LIMIT,
@@ -70,6 +76,16 @@ FLAVOURS = ("causal", "causal+qpos", "dense", "dqk_ne_dv", "segmented")
 INT8_FLAVOURS = tuple(f + pv for f in FLAVOURS for pv in ("", "+pv8"))
 # the kv tile of csrc/flash_attention.cu, over which K7's pv_int8 quantizes v
 KERNEL_BLOCK_K = 64
+# K7 and K9-int8 (csrc/flash_attention.cu namespace i8): the padded (Dqk, Dv)
+# pairs the attention kernel is built for, in the order the plan tries them
+# (Dqk to a multiple of 32, the depth of mma.m16n8k32; Dv to one of 16); 16
+# q rows per warp; k tiles of KERNEL_BLOCK_K keys in a ring of two stages;
+# the prep kernel's blocks of I8_PREP_THREADS threads take I8_PREP_PASSES
+# passes of q or k rows a warp (``i8_prep_rows``).
+I8_DIMS = ((32, 16), (64, 64), (96, 80), (128, 128), (256, 128))
+I8_STAGES = 2
+I8_PREP_THREADS = 256
+I8_PREP_PASSES = 4
 # The forward (K2, K2-lse, K9): the padded (Dqk, Dv) pairs it is built for,
 # in the order the plan tries them (csrc/flash_attention.cu `dispatch`); 16 q
 # rows per warp; k tiles of 64 keys whatever the shape, in a ring of two
@@ -521,6 +537,90 @@ def default_block_k(skv: int) -> int:
     return 2048 if skv % 2048 == 0 else 1024
 
 
+@dataclass(frozen=True)
+class Int8Plan:
+    """How one K7 call runs: head dims padded to ``dqk_pad``/``dv_pad`` (the
+    prep writes q and k rows of ``dqk_pad`` int8 bytes and, under pv_int8,
+    ``kv_tiles`` V8^T tiles of ``dv_pad`` rows), ``warps`` warps of 16 q rows
+    (``block_q`` rows per block), ``block_k`` keys per k tile,
+    ``smem_bytes`` per attention block."""
+    dqk_pad: int
+    dv_pad: int
+    warps: int
+    block_q: int
+    block_k: int
+    kv_tiles: int
+    smem_bytes: int
+
+
+def i8_warps(dqk_pad: int) -> int:
+    """Warps per K7 block (csrc/flash_attention.cu ``i8::warps_for``): six
+    at padded qk head dims up to 96, four above."""
+    return 6 if dqk_pad <= 96 else 4
+
+
+def i8_prep_rows(dqk_pad: int) -> int:
+    """q or k rows one block of K7's prep kernel quantizes
+    (``i8::prep_rows``): each warp takes I8_PREP_PASSES passes of rows side
+    by side, 8 bytes of a padded row a lane (4, 8, 16 or 32 lanes a row)."""
+    lanes = 4 if dqk_pad <= 32 else 8 if dqk_pad <= 64 else 16 if dqk_pad <= 128 else 32
+    return I8_PREP_PASSES * (I8_PREP_THREADS // 32) * (32 // lanes)
+
+
+def i8_smem_bytes(dqk_pad: int, dv_pad: int, pv_int8: bool, skv: int) -> int:
+    """Shared memory of one K7 attention block (``i8::smem_fixed`` plus the
+    k-tile arrays): the q tile and I8_STAGES k tiles of int8 rows padded by
+    16 bytes; I8_STAGES v tiles (under pv_int8 V8^T rows of KERNEL_BLOCK_K
+    bytes padded by 16 and the tile's f32 column scales, else bf16 rows
+    padded by 8 elements); the stages' key scales and segments, the q rows'
+    segments and positions, 8 slots, and four ints per k tile."""
+    warps = i8_warps(dqk_pad)
+    v_tiles = (I8_STAGES * dv_pad * (KERNEL_BLOCK_K + 16) + 4 * I8_STAGES * dv_pad if pv_int8
+               else 2 * I8_STAGES * KERNEL_BLOCK_K * (dv_pad + 8))
+    return ((16 * warps + I8_STAGES * KERNEL_BLOCK_K) * (dqk_pad + 16) + v_tiles
+            + 4 * (2 * I8_STAGES * KERNEL_BLOCK_K + 2 * 16 * warps + 8)
+            + 16 * -(-skv // KERNEL_BLOCK_K))
+
+
+@functools.lru_cache(maxsize=1024)
+def plan_flash_int8(dqk: int, dv: int, skv: int, pv_int8: bool) -> Int8Plan:
+    """K7's plan for one shape, or ValueError if the kernel refuses it. The
+    head dims take the first built pair that holds them. As K2's, neither
+    tile depends on Sq or on where the q rows sit, so a K9-int8 shard's rows
+    visit the same k tiles in the same order as the whole sequence's."""
+    if not (0 < dqk <= MAX_DQK and 0 < dv <= MAX_DV):
+        raise ValueError(f"flash_attention_int8: unsupported head dims {dqk}/{dv}")
+    dqk_pad, dv_pad = next((a, b) for a, b in I8_DIMS if a >= dqk and b >= dv)
+    warps = i8_warps(dqk_pad)
+    smem = i8_smem_bytes(dqk_pad, dv_pad, pv_int8, skv)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"flash_attention_int8: {skv} keys need {smem} bytes of shared memory "
+                         f"per block, over the card's {SMEM_LIMIT}")
+    return Int8Plan(dqk_pad, dv_pad, warps, 16 * warps, KERNEL_BLOCK_K,
+                    -(-skv // KERNEL_BLOCK_K), smem)
+
+
+def k7_key_order() -> torch.Tensor:
+    """[32] int64: the key at each A position of a 32-key group in K7's int8
+    PV product (csrc/flash_attention.cu ``i8::key_at``). Position 16h + 4t + i
+    holds key 16h + 8(i // 2) + 2t + i % 2: thread t of a quad holds the
+    probabilities of keys 8n + 2t and 8n + 2t + 1 of each 8-key score tile,
+    and packs four of them, in this order, into one register of the A
+    operand. The prep stores V8^T's keys in the same order, so the int32 sum
+    over the group is the one of the natural order."""
+    pos = torch.arange(32)
+    return 16 * (pos >> 4) + 8 * ((pos & 3) >> 1) + 2 * ((pos >> 2) & 3) + (pos & 1)
+
+
+def quantize_v_tile(vt: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """v of one kv tile, fp32 [..., keys, Dv] -> (int8 values as fp32, the
+    per-column scales [..., 1, Dv]): amax over the tile's keys / 127 and
+    v / scale rounded half to even, clamped to +-127 (JAX :147-150). A
+    tile's missing keys would be zeros, which change no amax."""
+    vsc = vt.abs().amax(-2, keepdim=True).clamp(min=1e-8) / 127.0
+    return torch.clamp(torch.round(vt / vsc), -127, 127), vsc
+
+
 def flash_attention_int8_reference(
         q_i8: torch.Tensor, k_i8: torch.Tensor, v: torch.Tensor, q_scale: torch.Tensor,
         k_scale: torch.Tensor, q_segment_ids: Optional[torch.Tensor],
@@ -532,9 +632,11 @@ def flash_attention_int8_reference(
     keys, in fp32, as the kernel runs it. Scores are the exact integer
     q_i8 . k_i8 times (q_scale * sm_scale * log2 e) * k_scale; with pv_int8
     each tile's probabilities are rounded to p * 127 and its v quantized
-    per column (amax / 127 over the tile's rows), and the tile's product is
-    an exact integer sum times v_scale / 127. Rows with no allowed key
-    output 0. Returns [B, Hq, Sq, Dv] in out_dtype."""
+    per column (``quantize_v_tile``), and the tile's product is an exact
+    integer sum times v_scale / 127; without it the probabilities are
+    rounded to v's dtype before the PV product, as Pallas does (:157-160).
+    Rows with no allowed key output 0. Returns [B, Hq, Sq, Dv] in
+    out_dtype."""
     b, hq, sq, d = q_i8.shape
     skv = k_i8.shape[2]
     g = hq // k_i8.shape[1]
@@ -560,15 +662,89 @@ def flash_attention_int8_reference(
         l = l * alpha + p.sum(-1, keepdim=True)
         vt = vf[:, :, sl]
         if pv_int8:
-            vsc = vt.abs().amax(-2, keepdim=True).clamp(min=1e-8) / 127.0
-            v_i8 = torch.clamp(torch.round(vt / vsc), -127, 127)
+            v_i8, vsc = quantize_v_tile(vt)
             pv = (torch.round(p * 127.0).double() @ v_i8.double()).float()
             acc = acc * alpha + pv * (vsc * (1.0 / 127.0))
         else:
-            acc = acc * alpha + p @ vt
+            acc = acc * alpha + p.to(v.dtype).float() @ vt
         m = m_new
     out = acc / l.clamp(min=1e-30)
     return out.masked_fill(~(m > NEG_INF / 2), 0.0).to(out_dtype)
+
+
+def flash_int8_prep_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                              pv_int8: bool):
+    """Plain version of K7's prep kernel, in its output layouts -> (q8
+    [B, Hq, Sq, Dqk_pad] int8, q_scale [B, Hq, Sq] f32, k8, k_scale, v8t,
+    v_scale): q and k rows by ``quantize_kv`` (JAX's ``_quant_rows_i8``),
+    zero-padded to the plan's Dqk_pad; with pv_int8, v's tiles of
+    KERNEL_BLOCK_K keys (keys past Skv and columns past Dv zero) by
+    ``quantize_v_tile`` as V8^T int8 [B, Hkv, tiles, Dv_pad, KERNEL_BLOCK_K],
+    each 32-key group in ``k7_key_order``, and their scales [B, Hkv, tiles,
+    Dv_pad]; without it v8t and v_scale are None."""
+    b, hkv, skv, dv = v.shape
+    plan = plan_flash_int8(q.shape[-1], dv, skv, pv_int8)
+    q8, qsc = quantize_kv(q)
+    k8, ksc = quantize_kv(k)
+    pad_qk = (0, plan.dqk_pad - q.shape[-1])
+    q8, k8 = F.pad(q8, pad_qk), F.pad(k8, pad_qk)
+    if not pv_int8:
+        return q8, qsc, k8, ksc, None, None
+    n_kt, bk = plan.kv_tiles, KERNEL_BLOCK_K
+    vf = F.pad(v.float(), (0, plan.dv_pad - dv, 0, n_kt * bk - skv))
+    v_i8, vsc = quantize_v_tile(vf.reshape(b, hkv, n_kt, bk, plan.dv_pad))
+    order = (torch.arange(0, bk, 32)[:, None] + k7_key_order()).flatten().to(v.device)
+    v8t = v_i8[..., order, :].transpose(-1, -2).to(torch.int8).contiguous()
+    return q8, qsc, k8, ksc, v8t, vsc.squeeze(-2)
+
+
+def flash_attention_int8_kernels(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                 q_segment_ids: Optional[torch.Tensor],
+                                 kv_segment_ids: Optional[torch.Tensor], causal: bool,
+                                 dense: bool, pv_int8: bool,
+                                 q_positions: Optional[torch.Tensor] = None):
+    """K7 on the card, uncounted: bf16 q, k, v -> (out [B, Hq, Sq, Dv], a
+    view of a [B, Sq, Hq, Dv] buffer; the prep's outputs (q8, q_scale, k8,
+    k_scale, v8t, v_scale) as ``flash_int8_prep_reference`` lays them out,
+    kept for checks, or None when out is empty). One ctypes call launches
+    the prep kernel and the attention kernel on the current stream; each
+    prep buffer is the size of its input or smaller."""
+    b, hq, sq, dqk = q.shape
+    _, hkv, skv, dv = v.shape
+    seg_ptrs, _keep = _check(q, k, v, q_segment_ids, kv_segment_ids, causal, dense,
+                             q_positions)
+    plan = plan_flash_int8(dqk, dv, skv, pv_int8)
+    dev = q.device
+    out = torch.empty((b, sq, hq, dv), dtype=q.dtype, device=dev).transpose(1, 2)
+    if out.numel() == 0:
+        return out, None
+    q8 = torch.empty((b, hq, sq, plan.dqk_pad), dtype=torch.int8, device=dev)
+    qsc = torch.empty((b, hq, sq), dtype=torch.float32, device=dev)
+    k8 = torch.empty((b, hkv, skv, plan.dqk_pad), dtype=torch.int8, device=dev)
+    ksc = torch.empty((b, hkv, skv), dtype=torch.float32, device=dev)
+    v8t = vsc = None
+    if pv_int8:
+        v8t = torch.empty((b, hkv, plan.kv_tiles, plan.dv_pad, KERNEL_BLOCK_K),
+                          dtype=torch.int8, device=dev)
+        vsc = torch.empty((b, hkv, plan.kv_tiles, plan.dv_pad), dtype=torch.float32, device=dev)
+    qst, kst, vst = _strides(q, "q"), _strides(k, "k"), _strides(v, "v")
+    qp, kp, vp = q.data_ptr(), k.data_ptr(), v.data_ptr()
+    # rows of q, k, v that may move as 16-byte chunks; out takes bf16 pairs
+    # at even widths (its strides are multiples of Dv)
+    vec = (_rows16(qp, qst) | _rows16(kp, kst) << 1 | _rows16(vp, vst) << 2
+           | (dv % 2 == 0) << 3)
+    prep_rows = i8_prep_rows(plan.dqk_pad)
+    ints = array.array("i", (b, hq, hkv, sq, skv, dqk, dv, plan.dqk_pad, plan.dv_pad,
+                             plan.smem_bytes, int(pv_int8), int(causal), vec,
+                             -(-b * hq * sq // prep_rows), -(-b * hkv * skv // prep_rows),
+                             *qst, *kst, *vst, *out.stride()[:3]))
+    fn = kernel_function("flash_attention", "flash_attention_i8", [ctypes.c_void_p] * 15)
+    rc = fn(qp, kp, vp, out.data_ptr(), q8.data_ptr(), qsc.data_ptr(), k8.data_ptr(),
+            ksc.data_ptr(), None if v8t is None else v8t.data_ptr(),
+            None if vsc is None else vsc.data_ptr(), *seg_ptrs, ints.buffer_info()[0],
+            current_stream(dev))
+    check_launch(rc, "flash_attention_int8")
+    return out, (q8, qsc, k8, ksc, v8t, vsc)
 
 
 def flash_attention_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -579,39 +755,27 @@ def flash_attention_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          q_positions: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K7 (K9-int8 with q_positions): attention with per-row int8 q and k (and, with pv_int8, an int8
     PV product) -> [B, Hq, Sq, Dv] in q's dtype; layouts as
-    ``flash_attention``. q and k are quantized here (plain PyTorch, as JAX
-    does outside its kernel). block_k is the kv tile over which pv_int8
-    quantizes v: on the CPU it defaults to the JAX package's tile; on the
-    card it is the kernel's, ``KERNEL_BLOCK_K``, and another value raises.
-    ``flash_attention_int8.launches[flavour(+pv8)]`` counts kernel
-    launches."""
-    device = _device_of(q, dense, q_segment_ids, kv_segment_ids, causal, q_positions)
-    q8, qsc = quantize_kv(q)  # per-row int8, JAX's _quant_rows_i8 (:232)
-    k8, ksc = quantize_kv(k)
-    if device == "cpu":
+    ``flash_attention``. On the CPU, q and k are quantized by
+    ``quantize_kv`` (plain PyTorch, as JAX does outside its kernel) and the
+    plain version runs; on the card the prep kernel quantizes them
+    (``flash_attention_int8_kernels``). block_k is the kv tile over which
+    pv_int8 quantizes v: on the CPU it defaults to the JAX package's tile;
+    on the card it is the kernel's, ``KERNEL_BLOCK_K``, and another value
+    raises. ``flash_attention_int8.launches[flavour(+pv8)]`` counts calls
+    on the card, each one prep and one attention launch."""
+    if _device_of(q, dense, q_segment_ids, kv_segment_ids, causal, q_positions) == "cpu":
+        q8, qsc = quantize_kv(q)  # per-row int8, JAX's _quant_rows_i8 (:232)
+        k8, ksc = quantize_kv(k)
         return flash_attention_int8_reference(
             q8, k8, v, qsc, ksc, q_segment_ids, kv_segment_ids, causal, dense, pv_int8,
             block_k or default_block_k(k.shape[2]), q.dtype, q_positions)
     if block_k not in (None, KERNEL_BLOCK_K):
         raise ValueError(f"flash_attention_int8: the kernel's kv tile is {KERNEL_BLOCK_K}")
-    b, hq, sq, dqk = q.shape
-    _, hkv, skv, dv = v.shape
-    seg_ptrs, _keep = _check(q, k, v, q_segment_ids, kv_segment_ids, causal, dense,
-                             q_positions)
-    out = torch.empty((b, sq, hq, dv), dtype=q.dtype, device=q.device).transpose(1, 2)
-    if out.numel() == 0:
-        return out
-    strides = _strides(q8, "q") + _strides(k8, "k") + _strides(v, "v")
-    qsc, ksc = qsc.contiguous(), ksc.contiguous()  # indexed as [B, H, S]
-    fn = kernel_function("flash_attention", "flash_attention_i8",
-                         [ctypes.c_void_p] * 9 + [ctypes.c_int] * 21 + [ctypes.c_void_p])
-    rc = fn(q8.data_ptr(), k8.data_ptr(), v.data_ptr(), out.data_ptr(), qsc.data_ptr(),
-            ksc.data_ptr(), *seg_ptrs, b, hq, hkv, sq, skv, dqk, dv, *strides,
-            *out.stride()[:3], int(causal), int(pv_int8),
-            current_stream(q.device))
-    check_launch(rc, "flash_attention_int8")
-    fl = flavour(causal, dense, dqk, dv, q_positions is not None) + ("+pv8" if pv_int8 else "")
-    flash_attention_int8.launches[fl] += 1
+    out, _ = flash_attention_int8_kernels(q, k, v, q_segment_ids, kv_segment_ids, causal, dense,
+                                          pv_int8, q_positions)
+    if out.numel():
+        fl = flavour(causal, dense, q.shape[-1], v.shape[-1], q_positions is not None)
+        flash_attention_int8.launches[fl + ("+pv8" if pv_int8 else "")] += 1
     return out
 
 
