@@ -1620,6 +1620,45 @@ def k6_plain(x, packed, scales, trunc: bool = False):
     return ((xq.double() @ q8.double()).float() * xs[:, None] * s8).to(torch.bfloat16)
 
 
+def k5_plain(x, packed, scales, swap: bool = False):
+    """K5's plain version on the card from the same bf16 x, in fp32.
+    ``swap`` swaps the lo and the hi groups' scales: the control that must
+    fail."""
+    import torch
+
+    from glimpseprune_torch.ops.cuda.int4_matmul import int4_prefill_a16_reference
+
+    if swap:
+        half = scales.shape[0] // 2
+        scales = torch.cat([scales[half:], scales[:half]])
+    return int4_prefill_a16_reference(x, packed, scales, torch.float32)
+
+
+def check_k5_bits(name, x, packed, scales):
+    """K5 (prep and GEMM, one call) on x against its plain versions on the
+    same inputs: W16^T equal to int4_a16_prep_reference's (the weights of
+    int4_prefill_a16_reference) bit for bit, two calls bit-identical, the
+    output within INT4_RTOL of k5_plain's; raises otherwise. -> (output,
+    plain output, relative error)"""
+    import torch
+
+    from glimpseprune_torch.ops.cuda.int4_matmul import int4_a16_kernels, int4_a16_prep_reference
+
+    got, w16t = int4_a16_kernels(x, packed, scales)
+    again, _ = int4_a16_kernels(x, packed, scales)
+    torch.cuda.synchronize()
+    m = x.shape[0]
+    if not torch.equal(w16t, int4_a16_prep_reference(packed, scales)):
+        raise AssertionError(f"K5[{name}] at M={m}: W16^T differs from its plain version")
+    if not torch.equal(got, again):
+        raise AssertionError(f"K5[{name}] at M={m}: two calls differ")
+    ref = k5_plain(x, packed, scales)
+    err = rel_err(got, ref)
+    if not err <= INT4_RTOL:
+        raise AssertionError(f"K5[{name}] at M={m} disagrees with its plain version: {err}")
+    return got, ref, err
+
+
 def check_k6_bits(x, packed, scales):
     """K6 (prep and GEMM, one call) on x against its plain versions on the
     same inputs: the output equal to k6_plain's bit for bit, and each prep
@@ -1657,11 +1696,11 @@ def host_ms(fn, iters: int = 20) -> float:
     return issued
 
 
-def k6_stage_ms(x, packed, scales):
-    """(prep, GEMM) device ms of one K6 call, each None if not measured."""
-    from glimpseprune_torch.ops.cuda.int4_matmul import int4_a8_kernels
-
-    by = device_ms_by_kernel(lambda: int4_a8_kernels(x, packed, scales)) or {}
+def prep_gemm_ms(call, per_call=None):
+    """(prep, GEMM) device ms of one K5 or K6 call, each None if not
+    measured; ``per_call``, a dict, receives each kernel's launches per
+    call (device_ms_by_kernel)."""
+    by = device_ms_by_kernel(call, per_call=per_call) or {}
 
     def stage(tag):
         ms = [v for key, v in by.items() if tag in key]
@@ -1779,19 +1818,78 @@ def check_k4(name, packed, scales, decode_m: int, gen):
     return row, report
 
 
-def check_int4_kernels(cfg, gen, decode_m: int, prefill_m: int):
-    """K4 at the decode shapes (check_k4), K5 and K6 at the decoder shapes
-    with M = prefill_m, each against its plain version. K6 is also held bit
-    for bit to its plain version in bf16, its prep outputs to theirs, at
-    M = prefill_m, and (gate/up, k/v) at the unpruned prefill's ragged M and
-    the resume layers' M = 256; a plain version that truncates the
-    requantized weights must fail INT4_RTOL. -> (rows, K4 report, K6
-    report)"""
+def check_k5(name, x, packed, scales, gen):
+    """K5 at one weight shape: check_k5_bits at M = x's rows and (k/v,
+    gate/up) at the unpruned prefill's ragged M and the smallest prefill M
+    (129); a control, the plain version with the lo and hi groups' scales
+    swapped, must fail INT4_RTOL; one prep and one GEMM kernel per call
+    wherever the trace measured it; the row's times, the prep's and the
+    GEMM's device ms apart. -> (the kernels line's row, report)"""
     import torch
 
     from glimpseprune_torch.ops.cuda.int4_matmul import (
-        int4_prefill_a8_reference,
+        int4_a16_kernels,
         int4_prefill_a16_reference,
+        launch_key,
+        matmul_int4_prefill,
+        plan_int4_a16,
+    )
+
+    m, k = x.shape
+    n = packed.shape[1]
+    got, ref, err = check_k5_bits(name, x, packed, scales)
+    report = {"rel_err": {m: err}}
+    control = rel_err(got, k5_plain(x, packed, scales, swap=True))
+    if not control > INT4_RTOL:
+        raise AssertionError(f"K5[{name}]'s control (lo and hi scales swapped) passes: {control}")
+    if name in ("k_v", "gate_up"):
+        for mm in (m - 2, 129):
+            xm = torch.randn((mm, k), generator=gen, device="cuda").bfloat16()
+            report["rel_err"][mm] = check_k5_bits(name, xm, packed, scales)[2]
+        del xm
+    ms = cuda_ms(lambda: matmul_int4_prefill(x, packed, scales, a8=False))
+    plain_ms = cuda_ms(lambda: int4_prefill_a16_reference(x, packed, scales, torch.bfloat16))
+    row = int4_row("matmul_int4_prefill", launch_key(k, n, False), K56_REPLACES, x, packed,
+                   scales, got, ref, ms, plain_ms, 2 * m * n, flops=2.0 * m * k * n, extra=(x,))
+    launched = {}
+    prep_ms, gemm_ms = prep_gemm_ms(lambda: int4_a16_kernels(x, packed, scales), launched)
+    if launched and not (len(launched) == 2 and set(launched.values()) == {1}
+                         and prep_ms is not None and gemm_ms is not None):
+        raise AssertionError(f"K5[{name}] is not one prep and one GEMM kernel a call: {launched}")
+    plan = plan_int4_a16(m, k, n)
+    row.update(bit_identical=True, w16t_bit_equal=True, control_rel_err=control,
+               checked_rel_err=report["rel_err"],
+               device_ms=None if None in (prep_ms, gemm_ms) else prep_ms + gemm_ms,
+               prep_device_ms=prep_ms, gemm_device_ms=gemm_ms,
+               one_prep_one_gemm_per_call=True if launched else None,
+               host_ms=host_ms(lambda: matmul_int4_prefill(x, packed, scales, a8=False)),
+               tile=f"{plan.bm}x{plan.bn}")
+    device = row["device_ms"]
+    print(f"K5[{name}] {row['shape']}: rel_err {report['rel_err']} within {INT4_RTOL}, W16^T "
+          f"bit-equal, two calls bit-identical; control (lo and hi scales swapped) "
+          f"{control:.3e}; device prep {fmt_ms(prep_ms)} + GEMM {fmt_ms(gemm_ms)} (tile "
+          f"{row['tile']})" + ("" if device is None else
+                               f", {row['bound_ms'] / device:.1%} of the bound, "
+                               f"{device / row['bf16_matmul_ms']:.2f}x the bf16 matmul")
+          + f"; host {row['host_ms']:.4f} ms to issue a call")
+    report.update(control_rel_err=control, tile=row["tile"])
+    return row, report
+
+
+def check_int4_kernels(cfg, gen, decode_m: int, prefill_m: int, vit_m: int):
+    """K4 at the decode shapes (check_k4), K5 (check_k5) and K6 at the
+    decoder shapes with M = prefill_m, each against its plain version, and
+    K5 at the ViT's qkv shape with M = vit_m (K = 1280: a shape the prefill
+    gate admits). K6 is also held bit for bit to its plain version in bf16,
+    its prep outputs to theirs, at M = prefill_m, and (gate/up, k/v) at the
+    unpruned prefill's ragged M and the resume layers' M = 256; a plain
+    version that truncates the requantized weights must fail INT4_RTOL.
+    -> (rows, K4 report, K5 report, K6 report)"""
+    import torch
+
+    from glimpseprune_torch.ops.cuda.int4_matmul import (
+        int4_a8_kernels,
+        int4_prefill_a8_reference,
         launch_key,
         matmul_int4_prefill,
         plan_int4_a8,
@@ -1799,7 +1897,7 @@ def check_int4_kernels(cfg, gen, decode_m: int, prefill_m: int):
     )
     from glimpseprune_torch.ops.kv_cache import quantize_kv
 
-    rows, k4_report, k6_report = [], {}, {}
+    rows, k4_report, k5_report, k6_report = [], {}, {}, {}
     for name, (k, n) in decoder_shapes(cfg).items():
         packed, scales = int4_weight(k, n, gen)
         row, k4_report[name] = check_k4(name, packed, scales, decode_m, gen)
@@ -1808,17 +1906,9 @@ def check_int4_kernels(cfg, gen, decode_m: int, prefill_m: int):
             del packed, scales
             continue
         x = torch.randn((prefill_m, k), generator=gen, device="cuda").bfloat16()
-        # K5 (W4A16): fp32 products of bf16-rounded scaled weights
-        got = matmul_int4_prefill(x, packed, scales, a8=False)
-        torch.cuda.synchronize()
-        ref = int4_prefill_a16_reference(x, packed, scales, torch.float32)
-        ms = cuda_ms(lambda: matmul_int4_prefill(x, packed, scales, a8=False))
-        plain_ms = cuda_ms(lambda: int4_prefill_a16_reference(x, packed, scales, torch.bfloat16))
-        rows.append(int4_row("matmul_int4_prefill", launch_key(k, n, False), K56_REPLACES, x,
-                             packed, scales, got, ref, ms, plain_ms, 2 * prefill_m * n,
-                             flops=2.0 * prefill_m * k * n, extra=(x,)))
-        rows[-1]["device_ms"] = device_ms(lambda: matmul_int4_prefill(x, packed, scales,
-                                                                      a8=False))
+        # K5 (W4A16): a prep to bf16 W16^T, then a bf16 tensor-core GEMM
+        row, k5_report[name] = check_k5(name, x, packed, scales, gen)
+        rows.append(row)
         # K6 (W4A8): the same int8 operands as the plain version, exact sums
         got = check_k6_bits(x, packed, scales)
         xq, xs = quantize_kv(x)
@@ -1834,7 +1924,7 @@ def check_int4_kernels(cfg, gen, decode_m: int, prefill_m: int):
                        packed, r, got, ref, ms, plain_ms, 2 * prefill_m * n,
                        int8_ops=2.0 * prefill_m * k * n, extra=(xq, xs, s8))
         plan = plan_int4_a8(prefill_m, k, n)
-        prep_ms, gemm_ms = k6_stage_ms(x, packed, scales)
+        prep_ms, gemm_ms = prep_gemm_ms(lambda: int4_a8_kernels(x, packed, scales))
         row.update(bit_equal=True, control_rel_err=control,
                    device_ms=None if None in (prep_ms, gemm_ms) else prep_ms + gemm_ms,
                    prep_device_ms=prep_ms, gemm_device_ms=gemm_ms,
@@ -1855,8 +1945,17 @@ def check_int4_kernels(cfg, gen, decode_m: int, prefill_m: int):
                 k6_report[name]["M"].append(m)
                 print(f"K6[{name}] M={m}: bit-equal to its plain version, prep outputs equal")
         del packed, scales, x, xq, ref, got
+    # the ViT's qkv product: JAX tiles its K = 1280 with bkp = 128
+    k, n = cfg.vision.hidden_size, 3 * cfg.vision.hidden_size
+    packed, scales = int4_weight(k, n, gen)
+    x = torch.randn((vit_m, k), generator=gen, device="cuda").bfloat16()
+    err = check_k5_bits("vit_qkv", x, packed, scales)[2]
+    k5_report["vit_qkv"] = {"rel_err": {vit_m: err}, "K": k, "N": n}
+    print(f"K5[vit_qkv] x[{vit_m},{k}] w4[{k // 2},{n}]: rel_err {err:.3e} within {INT4_RTOL}, "
+          "W16^T bit-equal, two calls bit-identical")
+    del packed, scales, x
     torch.cuda.empty_cache()
-    return rows, k4_report, k6_report
+    return rows, k4_report, k5_report, k6_report
 
 
 def k7_errors(got, ref):
@@ -2726,8 +2825,9 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # phase 8: the quantized tiers' kernels at the main path's shapes
-    quant_kernels, k4_report, k6_report = check_int4_kernels(
-        cfg, gen, decode_m=prep_a.input_ids.shape[0], prefill_m=int(prep_a.valid.size))
+    quant_kernels, k4_report, k5_report, k6_report = check_int4_kernels(
+        cfg, gen, decode_m=prep_a.input_ids.shape[0], prefill_m=int(prep_a.valid.size),
+        vit_m=prep_a.patches.shape[0])
     k7_rows, k7_report = check_flash_int8(cfg, prep_a, prep_b, gen)
     quant_kernels += k7_rows
     # phase 9: the quantized serving path
@@ -2776,6 +2876,7 @@ def main() -> int:
                       "training_launches": train_launches, "quantized_runs": quant_runs,
                       "quantized_launches": quant_launches, "quantized_path_s": quant_s,
                       "tiny_quantized_err": small_quant, "k4_checks": k4_report,
+                      "k5_checks": k5_report,
                       "k6_bit_equal": k6_report, "k7_checks": k7_report,
                       "compressed_runs": compressed_runs,
                       "compressed_launches": compressed_launches,

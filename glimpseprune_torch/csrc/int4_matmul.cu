@@ -38,10 +38,32 @@
 // the split and the grid; the launcher refuses a plan that disagrees with
 // its own formulas.
 //
-// K5 and K6 at prefill M (a few thousand rows) are bound by operations.
-// K5, which no path routes to, is the simple version: it unpacks the
-// nibble tile into shared memory at each 64-row k step, scaled to bf16, on
-// 64 x 64 output tiles with fp32 FMAs on CUDA cores.
+// K5 and K6 at prefill M (a few thousand rows) are bound by operations:
+// 2 M K N of them over ~0.5 K N + 2 M (K + N) bytes, 400 to 2,100 a byte
+// at the 7B's decoder shapes and M = 1664, above the ~295 at which the
+// H100's bf16 tensor cores, not its memory, are the limit.
+//
+// K5, which no path routes to (JAX :268), is two kernels behind one entry
+// point (namespace k5), on K6's pattern. A prep pass (column blocks, K
+// split across blocks toward eight blocks an SM) turns the packed
+// weights into W16^T, bf16 [N, K] with K contiguous, each weight
+// bf16_rn(q4 * s) with the product in fp32, as the plain version rounds it:
+// the dequantization runs once per weight, not once per output row tile,
+// and the transpose goes through shared memory so that global reads and
+// writes are 16 bytes a thread. The prep is bound by bytes (0.5 read and 2
+// written a weight); W16^T is scratch of N K 2 bytes from the wrapper,
+// 25.7 / 3.7 / 135.8 / 135.8 MB at the 7B's q/o, k/v, gate/up and down.
+// x is bf16 already, the GEMM's A operand, so the prep makes no pass over
+// it. The GEMM multiplies x by W16^T on the bf16 tensor cores
+// (mma.sync m16n8k16, fp32 sums) from a cp.async ring of 64-element k
+// tiles laid out as K6's (its XOR swizzle, so ldmatrix.x4 reads both
+// operands without bank conflicts, one barrier per k tile), M tiles
+// fastest in the grid so that the M tiles in flight share each W16^T
+// panel through L2, and no split K, so calls repeat bit for bit. The host
+// plan (`plan_int4_a16`) picks 128 x 128 or, where that grid gives under
+// two blocks per SM (k/v), 64 x 64. Later work, shared with K6's second
+// pass: wgmma with TMA, and dequantizing in registers inside the GEMM with
+// no W16^T round trip.
 //
 // K6 is two kernels behind one entry point (namespace k6). A prep pass
 // turns x into int8 rows with their scales (row blocks) and the packed
@@ -368,88 +390,6 @@ int launch(const Args& a, int smem, int ksplit, int grid, cudaStream_t stream) {
 
 }  // namespace k4
 
-// ---------------------------------------------------------------- K5
-// K5 walks K in steps of 32 packed rows (64 unpacked rows: 32 lo, 32 hi),
-// unpacking the nibble tile into shared memory k-contiguous per column. A
-// step lies inside one group on each half (32 divides g), so each half
-// needs one row of s per column.
-constexpr int kBKP = 32;
-constexpr int kBK = 2 * kBKP;
-
-struct GemmArgs {
-  const void* x;          // [M, K] bf16
-  const int8_t* w;        // [K/2, N]
-  const float* s;         // [K/g, N] group scales
-  __nv_bfloat16* out;     // [M, N]
-  int m, k, n, g;
-};
-
-// K5: 64 x 64 output tiles, 256 threads with 4 x 4 micro-tiles, fp32 FMAs
-constexpr int kFBM = 64;
-constexpr int kFBN = 64;
-constexpr int kFThreads = 256;
-constexpr int kLdF = kBK + 1;  // fp32 row stride
-
-__global__ void __launch_bounds__(kFThreads) int4_gemm_a16_kernel(GemmArgs a) {
-  __shared__ float as[kFBM * kLdF];
-  __shared__ float bs[kFBN * kLdF];
-  __shared__ float sc[2][kFBN];  // this step's lo and hi group rows of s
-  const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;
-  const int m0 = blockIdx.y * kFBM, n0 = blockIdx.x * kFBN;
-  const int kh = a.k / 2;
-  const __nv_bfloat16* xb = reinterpret_cast<const __nv_bfloat16*>(a.x);
-
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int kp = 0; kp < kh; kp += kBKP) {
-    __syncthreads();  // the previous step's tiles are no longer read
-    if (tid < 2 * kFBN) {
-      const int half = tid / kFBN, c = tid % kFBN;
-      sc[half][c] = a.s[(long)((half * kh + kp) / a.g) * a.n + n0 + c];
-    }
-    for (int idx = tid; idx < kFBM * kBK; idx += kFThreads) {
-      const int r = idx / kBK, j = idx % kBK;
-      const int kk = j < kBKP ? kp + j : kh + kp + (j - kBKP);
-      const int row = m0 + r;
-      as[r * kLdF + j] = row < a.m ? __bfloat162float(xb[(long)row * a.k + kk]) : 0.f;
-    }
-    __syncthreads();  // sc is ready
-    for (int idx = tid; idx < kBKP * kFBN; idx += kFThreads) {
-      const int r = idx / kFBN, c = idx % kFBN;
-      const int8_t b = a.w[(long)(kp + r) * a.n + n0 + c];
-      // the weight times its group scale in fp32, rounded to bf16 (JAX :204-206)
-      bs[c * kLdF + r] = __bfloat162float(__float2bfloat16(lo_nibble(b) * sc[0][c]));
-      bs[c * kLdF + kBKP + r] = __bfloat162float(__float2bfloat16(hi_nibble(b) * sc[1][c]));
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int kk = 0; kk < kBK; ++kk) {
-      float av[4], bv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) av[i] = as[(ty + 16 * i) * kLdF + kk];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) bv[j] = bs[(tx + 16 * j) * kLdF + kk];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] += av[i] * bv[j];
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = m0 + ty + 16 * i;
-    if (row >= a.m) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      a.out[(long)row * a.n + n0 + tx + 16 * j] = __float2bfloat16(acc[i][j]);
-  }
-}
-
 // ---------------------------------------------------------------- K6
 namespace k6 {
 
@@ -732,9 +672,210 @@ int launch_gemm(const GemmArgs& a, int smem, int grid_m, int grid_n, cudaStream_
 
 }  // namespace k6
 
-bool gemm_shapes_ok(int m, int k, int n, int g, int bn) {
-  return m > 0 && g > 0 && g % kBKP == 0 && k % (2 * g) == 0 && n % bn == 0;
+// ---------------------------------------------------------------- K5
+namespace k5 {
+
+// The prep: 256 threads a block; a block dequantizes kPrepCols columns of
+// the weights, kPrepTile packed rows at a time, over its share of K.
+constexpr int kPrepThreads = 256;
+constexpr int kPrepCols = 64;
+constexpr int kPrepTile = 64;
+
+// The GEMM's tiles, in the order the host plan tries them: X(index, BM, BN,
+// warps along M, warps along N, bytes of K per stage, stages in the ring)
+#define GP_A16_TILES(X) X(0, 128, 128, 2, 4, 128, 3) X(1, 64, 64, 2, 2, 128, 3)
+
+inline int smem_bytes(int bm, int bn, int bk, int stages) { return stages * (bm + bn) * bk; }
+
+struct PrepArgs {
+  const int8_t* w;      // [K/2, N] packed int4
+  const float* s;       // [K/g, N] group scales, lo groups first
+  __nv_bfloat16* w16t;  // [N, K]
+  int k, n, g, col_slices, tiles_per_block;
+};
+
+// Weights -> W16^T as the plain version computes them: w = bf16_rn(q4 * s)
+// with the product in fp32. Each tile of 64 packed rows lies in one group
+// on each half (64 divides g). The tile goes into shared memory with
+// 16-byte stores, swizzled as K6's prep swizzles it; a thread then owns 16
+// packed rows of one column and writes 16 lo and 16 hi bf16 of that
+// column's W16^T row, four threads 128 contiguous bytes of each half.
+__global__ void __launch_bounds__(kPrepThreads) prep_kernel(PrepArgs a) {
+  __shared__ __align__(16) int8_t tile[kPrepTile * kPrepCols];
+  __shared__ float ss[2][kPrepCols];
+  const int tid = threadIdx.x;
+  const int slice = blockIdx.x % a.col_slices, split = blockIdx.x / a.col_slices;
+  const int n0 = slice * kPrepCols, kh = a.k / 2;
+  const int tiles = kh / kPrepTile;
+  const int t0 = split * a.tiles_per_block;
+  const int t1 = min(tiles, t0 + a.tiles_per_block);
+  const int lr = tid >> 2, lq = tid & 3;                          // the tile load
+  const int c = (tid >> 5) * 8 + ((tid & 31) >> 2), j = tid & 3;  // the transpose
+  const int8_t* wsrc = a.w + (long)lr * a.n + n0 + 16 * lq;
+  const int8_t* col = tile + 16 * j * kPrepCols + 16 * ((c >> 4) ^ j) + (c & 15);
+  // thread tid < 2 kPrepCols loads the scale of column tid % kPrepCols in
+  // the lo (then the hi) half's group of each tile
+  const int half = tid / kPrepCols;
+  const float* ssrc = a.s + n0 + tid % kPrepCols;
+  auto scale = [&](int t) { return ssrc[(long)((half * kh + t * kPrepTile) / a.g) * a.n]; };
+  int4 v = make_int4(0, 0, 0, 0);
+  float sv = 0.f;
+  if (t0 < t1) {
+    v = *reinterpret_cast<const int4*>(wsrc + (long)t0 * kPrepTile * a.n);
+    if (half < 2) sv = scale(t0);
+  }
+  for (int t = t0; t < t1; ++t) {
+    const int kp0 = t * kPrepTile;
+    __syncthreads();  // the previous tile is no longer read
+    *reinterpret_cast<int4*>(tile + lr * kPrepCols + 16 * (lq ^ ((lr >> 4) & 3))) = v;
+    if (half < 2) ss[half][tid % kPrepCols] = sv;
+    // the next tile's loads are in flight during this one's transpose
+    if (t + 1 < t1) {
+      v = *reinterpret_cast<const int4*>(wsrc + (long)(t + 1) * kPrepTile * a.n);
+      if (half < 2) sv = scale(t + 1);
+    }
+    __syncthreads();
+    const float slo = ss[0][c], shi = ss[1][c];
+    uint32_t lo[8], hi[8];
+#pragma unroll
+    for (int i = 0; i < 16; i += 2) {
+      const int8_t p0 = col[i * kPrepCols], p1 = col[(i + 1) * kPrepCols];
+      lo[i / 2] = gp_tc::pack_bf16(__fmul_rn(lo_nibble(p0), slo), __fmul_rn(lo_nibble(p1), slo));
+      hi[i / 2] = gp_tc::pack_bf16(__fmul_rn(hi_nibble(p0), shi), __fmul_rn(hi_nibble(p1), shi));
+    }
+    uint4* dst = reinterpret_cast<uint4*>(a.w16t + (long)(n0 + c) * a.k + kp0 + 16 * j);
+    dst[0] = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+    dst[1] = make_uint4(lo[4], lo[5], lo[6], lo[7]);
+    dst += kh / 8;  // the hi half, kh bf16 further
+    dst[0] = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+    dst[1] = make_uint4(hi[4], hi[5], hi[6], hi[7]);
+  }
 }
+
+struct GemmArgs {
+  const __nv_bfloat16* x;     // [M, K]
+  const __nv_bfloat16* w16t;  // [N, K]
+  __nv_bfloat16* out;         // [M, N]
+  int m, k, n;
+};
+
+// out tile [BM, BN] = x [BM, K] . W16^T [BN, K]^T over a ring of STAGES k
+// tiles of BK bytes (BK / 2 bf16), laid out as K6's GEMM lays out its int8
+// tiles (k6::swz): a k16 step of bf16 is the 32 bytes of an s8 k32 step,
+// so the ldmatrix addresses are K6's. Warps hold (BM / WM) x (BN / WN) of
+// the tile: MT m16 by NT n8 mma tiles, 16 warps an SM (two blocks of the
+// wide tile). Rows at or past M are read as zeros (cp.async with no source
+// bytes) and not written.
+template <int BM, int BN, int WM, int WN, int BK, int STAGES>
+__global__ void __launch_bounds__(32 * WM * WN, 16 / (WM * WN)) gemm_kernel(GemmArgs a) {
+  constexpr int kThreads = 32 * WM * WN;
+  constexpr int kChunks = BK / 16;
+  constexpr int MT = BM / WM / 16, NT = BN / WN / 8;
+  static_assert(NT % 2 == 0, "B fragments load two n8 tiles at a time");
+  extern __shared__ __align__(128) int8_t smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = (warp / WN) * (BM / WM), wn = (warp % WN) * (BN / WN);
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  const long row_bytes = 2L * a.k;
+  const int nk = (int)(row_bytes / BK);
+  const int8_t* xb = reinterpret_cast<const int8_t*>(a.x);
+  const int8_t* wb = reinterpret_cast<const int8_t*>(a.w16t);
+
+  auto load_stage = [&](int stage, int kt) {
+    int8_t* sa = smem + stage * (BM + BN) * BK;
+    int8_t* sb = sa + BM * BK;
+    const long k0 = (long)kt * BK;
+#pragma unroll
+    for (int idx = tid; idx < BM * kChunks; idx += kThreads) {
+      const int r = idx / kChunks, ch = idx % kChunks;
+      const bool in = m0 + r < a.m;
+      gp_tc::cp_async16(sa + k6::swz<BK>(r, ch),
+                        xb + (in ? (m0 + r) * row_bytes + k0 + 16 * ch : 0), in ? 16 : 0);
+    }
+#pragma unroll
+    for (int idx = tid; idx < BN * kChunks; idx += kThreads) {
+      const int r = idx / kChunks, ch = idx % kChunks;
+      gp_tc::cp_async16(sb + k6::swz<BK>(r, ch), wb + (n0 + r) * row_bytes + k0 + 16 * ch, 16);
+    }
+  };
+
+  float acc[MT][NT][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nk) load_stage(s, s);
+    gp_tc::cp_async_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    gp_tc::cp_async_wait<STAGES - 2>();
+    __syncthreads();  // stage kt has landed; stage kt - 1 is no longer read
+    const int pf = kt + STAGES - 1;
+    if (pf < nk) load_stage(pf % STAGES, pf);
+    gp_tc::cp_async_commit();
+    const int8_t* sa = smem + (kt % STAGES) * (BM + BN) * BK;
+    const int8_t* sb = sa + BM * BK;
+#pragma unroll
+    for (int kk = 0; kk < BK / 32; ++kk) {
+      uint32_t af[MT][4], bf[NT][2];
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        const int r = wm + 16 * i + (lane & 15);
+        gp_tc::ldsm_x4(af[i], sa + k6::swz<BK>(r, 2 * kk + (lane >> 4)));
+      }
+#pragma unroll
+      for (int j = 0; j < NT; j += 2) {
+        const int r = wn + 8 * j + (lane & 7) + ((lane >> 4) << 3);
+        uint32_t t[4];
+        gp_tc::ldsm_x4(t, sb + k6::swz<BK>(r, 2 * kk + ((lane >> 3) & 1)));
+        bf[j][0] = t[0];
+        bf[j][1] = t[1];
+        bf[j + 1][0] = t[2];
+        bf[j + 1][1] = t[3];
+      }
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int j = 0; j < NT; ++j) gp_tc::mma_bf16(acc[i][j], af[i], bf[j][0], bf[j][1]);
+    }
+  }
+  gp_tc::cp_async_wait<0>();
+
+  // out = bf16_rn(acc), as the plain version rounds its fp32 product
+  const int grp = lane >> 2, tig = lane & 3;
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = m0 + wm + 16 * i + grp + 8 * h;
+      if (row >= a.m) continue;
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const int col = n0 + wn + 8 * j + 2 * tig;
+        *reinterpret_cast<__nv_bfloat162*>(a.out + (long)row * a.n + col) =
+            __floats2bfloat162_rn(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+      }
+    }
+}
+
+template <int BM, int BN, int WM, int WN, int BK, int STAGES>
+int launch_gemm(const GemmArgs& a, int smem, int grid_m, int grid_n, cudaStream_t stream) {
+  if (smem != smem_bytes(BM, BN, BK, STAGES) || (2L * a.k) % BK != 0 ||
+      grid_m != (a.m + BM - 1) / BM || grid_n * BN != a.n)
+    return (int)cudaErrorInvalidValue;
+  const int err = gp_tc::raise_smem_cap<gemm_kernel<BM, BN, WM, WN, BK, STAGES>>(smem);
+  if (err != 0) return err;
+  gemm_kernel<BM, BN, WM, WN, BK, STAGES>
+      <<<dim3(grid_m, grid_n), 32 * WM * WN, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace k5
 
 }  // namespace
 
@@ -763,15 +904,6 @@ extern "C" int int4_decode_bf16(const void* x, const void* w, const void* s, voi
 #undef GP_K4_CASE
   }
   return (int)cudaErrorInvalidValue;
-}
-
-extern "C" int int4_gemm_a16_bf16(const void* x, const void* w, const void* s, void* out,
-                                  int m, int k, int n, int g, void* stream) {
-  if (!gemm_shapes_ok(m, k, n, g, kFBN)) return (int)cudaErrorInvalidValue;
-  GemmArgs a{x, (const int8_t*)w, (const float*)s, (__nv_bfloat16*)out, m, k, n, g};
-  dim3 grid(n / kFBN, (m + kFBM - 1) / kFBM);
-  int4_gemm_a16_kernel<<<grid, kFThreads, 0, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
 }
 
 // K6: the prep pass, then the GEMM, on `stream`. p holds the ints of the
@@ -803,6 +935,39 @@ extern "C" int int4_a8_bf16(const void* x, const void* w, const void* s, void* x
     return k6::launch_gemm<BM, BN, WM, WN, BK, STAGES>(ga, smem, grid_m, grid_n, st);
     GP_A8_TILES(GP_A8_CASE)
 #undef GP_A8_CASE
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// K5: the prep pass, then the GEMM, on `stream`. p holds the ints of the
+// host plan (ops/cuda/int4_matmul.py `plan_int4_a16`): m, k, n, g, the
+// tile's index in GP_A16_TILES, its shared-memory bytes, the grid's M and N
+// tiles, the prep's K splits and tiles per split. A plan that disagrees
+// with this file's own formulas, or a pointer off 16 bytes, is refused.
+extern "C" int int4_a16_bf16(const void* x, const void* w, const void* s, void* w16t, void* out,
+                             const int* p, void* stream) {
+  const int m = p[0], k = p[1], n = p[2], g = p[3], tile = p[4], smem = p[5];
+  const int grid_m = p[6], grid_n = p[7], ksplit = p[8], per = p[9];
+  const int tiles = k / 2 / k5::kPrepTile;
+  if (m <= 0 || k <= 0 || g <= 0 || g % k5::kPrepTile != 0 || k % (2 * g) != 0 || n <= 0 ||
+      n % k5::kPrepCols != 0 || ksplit <= 0 || per <= 0 || (long)ksplit * per < tiles ||
+      (long)(ksplit - 1) * per >= tiles ||
+      (((uintptr_t)x | (uintptr_t)w | (uintptr_t)s | (uintptr_t)w16t | (uintptr_t)out) & 15) != 0)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const k5::PrepArgs pa{(const int8_t*)w, (const float*)s, (__nv_bfloat16*)w16t, k, n, g,
+                        n / k5::kPrepCols, per};
+  k5::prep_kernel<<<pa.col_slices * ksplit, k5::kPrepThreads, 0, st>>>(pa);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const k5::GemmArgs ga{(const __nv_bfloat16*)x, (const __nv_bfloat16*)w16t,
+                        (__nv_bfloat16*)out, m, k, n};
+  switch (tile) {
+#define GP_A16_CASE(I, BM, BN, WM, WN, BK, STAGES) \
+  case I:                                          \
+    return k5::launch_gemm<BM, BN, WM, WN, BK, STAGES>(ga, smem, grid_m, grid_n, st);
+    GP_A16_TILES(GP_A16_CASE)
+#undef GP_A16_CASE
   }
   return (int)cudaErrorInvalidValue;
 }

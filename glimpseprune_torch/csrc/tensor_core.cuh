@@ -67,6 +67,17 @@ __device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// c[4] += a (16x16 bf16, row) * b (16x8 bf16, col), fp32 accumulators, as
+// mma_16816 but not volatile: the scheduler may interleave the next k
+// step's ldmatrix with these.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 // d += a (16 x 32 s8, row) * b (32 x 8 s8, col), int32 accumulators. Not
 // volatile: the scheduler may interleave the next k step's ldmatrix with
 // these.

@@ -23,6 +23,13 @@ stages, shared-memory bytes, grid, and the ints the C launcher takes and
 checks against its own formulas); ``quantization.matmul_int4_auto``, which
 checks the gate, launches through it directly.
 
+K5 on the card is two kernels behind one C call: a prep pass (the packed
+weights to W16^T, bf16 [N, K], each weight rounded as the plain version
+rounds it) and a bf16 tensor-core GEMM. ``plan_int4_a16`` is its host plan,
+which the C launcher checks against its own formulas;
+``int4_a16_prep_reference`` and ``bf16_gemm_tn_reference`` are the plain
+versions of the two stages, which compose to ``int4_prefill_a16_reference``.
+
 K6 on the card is two kernels behind one C call: a prep pass (x to int8
 rows and their scales; the packed weights to W8^T, int8 [N, K], and the
 per-column scales s8) and an int8 tensor-core GEMM with the rescale in its
@@ -57,7 +64,7 @@ from glimpseprune_torch.ops.kv_cache import quantize_kv
 _BKP = 256      # packed-row tile
 _BN = 512       # output-column tile
 _M_MAX = 128    # the decode kernel's largest M
-SMS = 132       # the H100's SMs, which K4's and K6's grids are sized to fill
+SMS = 132       # the H100's SMs, which K4's, K5's and K6's grids are sized to fill
 
 
 def kernel_applicable(m: int, kdim: int, n: int, g: int) -> bool:
@@ -279,14 +286,20 @@ def requant_ratios(scales: torch.Tensor):
     return s8, s / s8
 
 
+def _a16_weights(packed: torch.Tensor, scales: torch.Tensor, dtype: torch.dtype):
+    """K5's weights [K, N]: each int4 value times its group scale in fp32,
+    rounded to ``dtype`` (JAX :201-206)."""
+    g = 2 * packed.shape[0] // scales.shape[0]
+    rows = scales.float().repeat_interleave(g, dim=0)
+    return (unpack_int4(packed).float() * rows).to(dtype)
+
+
 def int4_prefill_a16_reference(x2: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
                                out_dtype: torch.dtype) -> torch.Tensor:
     """Plain version of K5: each weight times its group scale in fp32,
     rounded to x's dtype, then the product in fp32."""
-    k, n, g = _check(x2, packed, scales, "matmul_int4_prefill")
-    rows = scales.float().repeat_interleave(g, dim=0)
-    w = (unpack_int4(packed).float() * rows).to(x2.dtype)
-    return (x2.float() @ w.float()).to(out_dtype)
+    _check(x2, packed, scales, "matmul_int4_prefill")
+    return (x2.float() @ _a16_weights(packed, scales, x2.dtype).float()).to(out_dtype)
 
 
 def int4_prefill_a8_reference(xq: torch.Tensor, xs: torch.Tensor, packed: torch.Tensor,
@@ -299,6 +312,115 @@ def int4_prefill_a8_reference(xq: torch.Tensor, xs: torch.Tensor, packed: torch.
     q8 = torch.round(unpack_int4(packed).float() * r.float().repeat_interleave(g, dim=0))
     acc = xq.double() @ q8.double()
     return (acc.float() * xs.float() * s8.float()).to(out_dtype)
+
+
+# K5 on the card (csrc/int4_matmul.cu, namespace k5). The GEMM's tiles, in
+# the order the plan tries them (``GP_A16_TILES``): (BM, BN, warps along M,
+# warps along N, bytes of K per stage, stages in the cp.async ring). The
+# prep's blocks are 256 threads, each dequantizing A16_PREP_COLS columns,
+# A16_PREP_TILE packed rows at a time. The wide tile is taken where its grid
+# gives A16_MIN_BLOCKS (two blocks per SM); the prep splits K until its
+# grid has A16_PREP_BLOCKS, eight blocks per SM, which keep more of its
+# loads in flight than two.
+A16_TILES = ((128, 128, 2, 4, 128, 3), (64, 64, 2, 2, 128, 3))
+A16_PREP_COLS = 64
+A16_PREP_TILE = 64
+A16_MIN_BLOCKS = 2 * SMS
+A16_PREP_BLOCKS = 8 * SMS
+# int4_a16_bf16's arguments: x, packed, scales, W16^T, out, the ints, stream
+_A16_ARGTYPES = [ctypes.c_void_p] * 7
+
+
+@dataclass(frozen=True)
+class A16Plan:
+    """How one K5 call runs: GEMM tile ``tile`` of A16_TILES (``bm`` x
+    ``bn`` outputs, ``warps`` warps, ``stages`` k tiles in flight,
+    ``smem_bytes`` per block) on a ``grid_m`` x ``grid_n`` grid, M tiles
+    fastest; the prep on N / A16_PREP_COLS x ``prep_ksplit`` column blocks
+    of ``prep_tiles`` packed-row tiles."""
+    tile: int
+    bm: int
+    bn: int
+    warps: int
+    stages: int
+    smem_bytes: int
+    grid_m: int
+    grid_n: int
+    prep_ksplit: int
+    prep_tiles: int
+
+    @property
+    def blocks(self) -> int:
+        return self.grid_m * self.grid_n
+
+    @property
+    def prep_blocks(self) -> int:
+        return self.grid_n * self.bn // A16_PREP_COLS * self.prep_ksplit
+
+
+def a16_smem_bytes(tile: int) -> int:
+    """Shared memory of one K5 GEMM block of tile ``tile``
+    (csrc/int4_matmul.cu ``k5::smem_bytes``): its stages of a [BM, BK] x
+    tile and a [BN, BK] W16^T tile, BK bytes of bf16, swizzled without
+    padding."""
+    bm, bn, _, _, bk, stages = A16_TILES[tile]
+    return stages * (bm + bn) * bk
+
+
+@functools.lru_cache(maxsize=1024)
+def plan_int4_a16(m: int, k: int, n: int) -> A16Plan:
+    """K5's plan for x [m, k] @ W [k, n], or ValueError for a shape the
+    kernels refuse: the first of A16_TILES whose grid has A16_MIN_BLOCKS
+    blocks, else the last that divides N; its grid; the prep's K split."""
+    if not (m > 0 and k > 0 and k % (2 * A16_PREP_TILE) == 0 and n > 0
+            and n % A16_PREP_COLS == 0):
+        raise ValueError(f"matmul_int4_prefill: K5 takes no shape M={m} K={k} N={n}")
+    fits = [i for i, t in enumerate(A16_TILES) if n % t[1] == 0 and 2 * k % t[4] == 0]
+    tile = next((i for i in fits if -(-m // A16_TILES[i][0]) * (n // A16_TILES[i][1])
+                 >= A16_MIN_BLOCKS), fits[-1])
+    bm, bn, wm, wn, _, stages = A16_TILES[tile]
+    tiles = k // 2 // A16_PREP_TILE
+    per = -(-tiles // min(tiles, -(-A16_PREP_BLOCKS // (n // A16_PREP_COLS))))
+    return A16Plan(tile, bm, bn, wm * wn, stages, a16_smem_bytes(tile), -(-m // bm), n // bn,
+                   -(-tiles // per), per)
+
+
+def int4_a16_prep_reference(packed: torch.Tensor, scales: torch.Tensor,
+                            dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """Plain version of K5's prep: the packed weights -> W16^T [N, K], the
+    weights of ``int4_prefill_a16_reference`` transposed and contiguous."""
+    return _a16_weights(packed, scales, dtype).t().contiguous()
+
+
+def bf16_gemm_tn_reference(x2: torch.Tensor, w16t: torch.Tensor,
+                           out_dtype: torch.dtype) -> torch.Tensor:
+    """Plain version of K5's GEMM: x [M, K] . W16^T [N, K]^T in fp32."""
+    return (x2.float() @ w16t.float().t()).to(out_dtype)
+
+
+def int4_a16_kernels(x2: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor):
+    """K5 on the card, uncounted: x2 bf16 [M, K] -> (out bf16 [M, N], W16^T
+    bf16 [N, K]), the prep's output kept for checks. One ctypes call
+    launches the prep and the GEMM on the current stream; W16^T is scratch
+    of N x K x 2 bytes."""
+    k, n, g = _check(x2, packed, scales, "matmul_int4_prefill")
+    m = x2.shape[0]
+    if x2.dtype != torch.bfloat16 or scales.dtype != torch.float32:
+        raise ValueError("matmul_int4_prefill: K5 takes bf16 x and f32 scales on the card")
+    x2, packed, scales = _cuda_operands("matmul_int4_prefill", torch.bfloat16, x2, packed,
+                                        scales)
+    if x2.data_ptr() % 16:  # the GEMM copies x in 16-byte chunks
+        x2 = x2.clone()
+    plan = plan_int4_a16(m, k, n)
+    w16t = torch.empty((n, k), dtype=torch.bfloat16, device=x2.device)
+    out = torch.empty((m, n), dtype=torch.bfloat16, device=x2.device)
+    ints = array.array("i", (m, k, n, g, plan.tile, plan.smem_bytes, plan.grid_m, plan.grid_n,
+                             plan.prep_ksplit, plan.prep_tiles))
+    fn = kernel_function("int4_matmul", "int4_a16_bf16", _A16_ARGTYPES)
+    rc = fn(x2.data_ptr(), packed.data_ptr(), scales.data_ptr(), w16t.data_ptr(),
+            out.data_ptr(), ints.buffer_info()[0], current_stream(x2.device))
+    check_launch(rc, "matmul_int4_prefill")
+    return out, w16t
 
 
 # K6 on the card (csrc/int4_matmul.cu, namespace k6). The GEMM's tiles, in
@@ -445,13 +567,16 @@ def matmul_int4_prefill(x: torch.Tensor, packed: torch.Tensor, scales: torch.Ten
                         a8: bool = False) -> torch.Tensor:
     """x [..., K] @ int4 [K/2, N] -> [..., N] at prefill M (> 128 rows).
 
-    a8=False is K5 (W4A16). a8=True is K6 (W4A8): x quantized per row to
-    int8 and the weights requantized per column. On the CPU both are
-    prepared in plain PyTorch, as the JAX package prepares them outside its
-    kernel, and ``int4_prefill_a8_reference`` multiplies; on the card K6's
-    prep kernel prepares them and its GEMM multiplies (``int4_a8_kernels``),
-    bf16 x and out only. The caller checks ``prefill_applicable``; this
-    function raises where it does not hold."""
+    a8=False is K5 (W4A16): on the CPU ``int4_prefill_a16_reference``; on
+    the card K5's prep kernel dequantizes the weights to W16^T and its bf16
+    GEMM multiplies (``int4_a16_kernels``). a8=True is K6 (W4A8): x
+    quantized per row to int8 and the weights requantized per column. On
+    the CPU both are prepared in plain PyTorch, as the JAX package prepares
+    them outside its kernel, and ``int4_prefill_a8_reference`` multiplies;
+    on the card K6's prep kernel prepares them and its GEMM multiplies
+    (``int4_a8_kernels``). The card takes bf16 x and writes bf16 only. The
+    caller checks ``prefill_applicable``; this function raises where it
+    does not hold."""
     k, n, g = _check(x, packed, scales, "matmul_int4_prefill")
     m = x.numel() // k
     if not prefill_applicable(m, k, n, g):
@@ -472,25 +597,12 @@ def matmul_int4_prefill(x: torch.Tensor, packed: torch.Tensor, scales: torch.Ten
         if cpu:
             out = int4_prefill_a16_reference(x2, packed, scales, out_dtype)
         else:
-            if x.dtype != torch.bfloat16:
-                raise ValueError("matmul_int4_prefill: x must be bf16 on the card")
-            ops = _cuda_operands("matmul_int4_prefill", out_dtype, x2, packed,
-                                 scales.float())
-            out = _launch_gemm("int4_gemm_a16_bf16", ops, m, k, n, g)
+            if x.dtype != torch.bfloat16 or out_dtype != torch.bfloat16:
+                raise ValueError("matmul_int4_prefill: the card takes bf16 x and writes bf16")
+            out, _ = int4_a16_kernels(x2, packed, scales.float())
     if not cpu:
         matmul_int4_prefill.launches[launch_key(k, n, a8)] += 1
     return out.reshape(x.shape[:-1] + (n,))
-
-
-def _launch_gemm(entry: str, ops, m: int, k: int, n: int, g: int) -> torch.Tensor:
-    out = torch.empty((m, n), dtype=torch.bfloat16, device=ops[0].device)
-    fn = kernel_function("int4_matmul", entry,
-                         [ctypes.c_void_p] * (len(ops) + 1) + [ctypes.c_int] * 4
-                         + [ctypes.c_void_p])
-    rc = fn(*(t.data_ptr() for t in ops), out.data_ptr(), m, k, n, g,
-            current_stream(out.device))
-    check_launch(rc, "matmul_int4_prefill")
-    return out
 
 
 matmul_int4.launches = Counter()
