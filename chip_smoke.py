@@ -31,8 +31,32 @@ Phases, each of which raises on failure (the script then exits non-zero):
      bits, and without key tile 0), and bit-identical over two calls;
   6. the serving path: Qwen2.5-VL-7B with the GlimpsePrune config and
      random bf16 weights, pruned and unpruned ``generate`` on a two-row
-     batch and a one-row batch, with the kernels' launch counts; then the
-     tiny config on the card against the same weights on the CPU in fp32;
+     batch and a one-row batch, with the kernels' launch counts; every
+     decode step a replay of a captured CUDA graph, each chunk's replays
+     under ``torch.cuda.set_sync_debug_mode("error")`` (no host sync inside
+     a chunk); then the decode checks on batch (a), pruned and unpruned:
+     DECODE_CHECK_TOKENS steps replayed one at a time against the same step
+     run eagerly on the card (tokens equal, or where they first differ the
+     logits within DECODE_LOGIT_RTOL and a top-2 margin below it), the
+     runner's decode of the same prefill giving the same tokens, its ms per
+     token beside the eager steps'; on the pruned prefill, sampled decodes
+     through the captured step (a seed fixes the tokens, another seed
+     changes them, a temperature of SAMPLE_TINY_T gives the greedy tokens
+     up to a tie and every token within SAMPLE_TIE_GAP of its step's top
+     logit); and a serving-shaped decode as bench.py:563-628 runs it (two
+     B=1 pruned prefills of (a)'s rows filled by ``cache_fill_rows`` into
+     one preallocated B=2 cache, then SERVE_NEW_TOKENS greedy tokens with
+     ``prealloc_t``, equal to the runner's own cache's tokens): capture ms,
+     ms per token, peak memory and the card's idle share from
+     torch.profiler, in (q4) K4's kernel records in a trace of one decode
+     equal to its counted launches; then the cache is dropped (the runner
+     must keep no reference to it) and a second decode into a newly
+     allocated cache, as the bench allocates one per run, gives the same
+     tokens (its capture ms, or none where the new cache took the old one's
+     address and the kept graph served it, and its peak); then the tiny config
+     on the card against the same weights on the CPU in fp32 (prefill
+     logits, mask logits, and 8 captured decode steps against the CPU fed
+     the card's tokens);
   7. the training path: ``GPTrainer.train(max_steps=4)`` at batch 2 on the
      same 7B model over a synthetic jsonl dataset, with the kernels' launch
      counts, finite losses, changed trainable and bit-identical frozen
@@ -62,8 +86,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
      prefill, int8 ViT attention and an int8 KV cache, pruned and unpruned
      on batches (a) and (b). Each run prints its times, peak memory, weight
      and KV-cache bytes and the first logits' distance from the bf16
-     model's; each tier ends with its tiny config on the card against the
-     CPU;
+     model's; each tier then runs phase 6's decode checks (in (q4) also
+     K4's launches per decode token, counted through the replays: 7 per
+     layer and the head, nothing else) and ends with its tiny config on
+     the card against the CPU;
  10. the compressed serving path (run after phase 6, before training
      changes the model): ``generate_compressed`` with each baseline
      compressor (visionzip, divprune, cdpruner, vscan, pdrop) on batches
@@ -110,6 +136,7 @@ entry per kernel flavour; the last line is {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import shutil
@@ -222,6 +249,26 @@ RECORDED_MS = {
 # two ranks on one device)
 SP_WORLD = 2
 MAX_NEW_TOKENS = 32
+# decode checks (phases 6, 9): captured steps against the step run eagerly
+# on the card, DECODE_CHECK_TOKENS greedy tokens. The two runs launch the
+# same kernels on the same inputs; where a token differs, the step before
+# must show why: logits within DECODE_LOGIT_RTOL of max |logit| of each
+# other (bf16 logits round at 2**-8 of their size, and a library may pick
+# another algorithm inside a capture) and the top two closer than that.
+DECODE_CHECK_TOKENS = 32
+DECODE_LOGIT_RTOL = 1e-2
+# the serving-shaped decode (bench.py:563-628): two B=1 prefills filled
+# into one preallocated cache, then this many greedy tokens in one chunk;
+# the card's idle share is traced over IDLE_TRACE_TOKENS of them
+SERVE_NEW_TOKENS = 256
+IDLE_TRACE_TOKENS = 32
+# sampled decode checks: at SAMPLE_TINY_T a Gumbel-max sample (noise
+# g = -log(-log u), u an fp32 uniform draw, spans under 20) lies within
+# 20 * SAMPLE_TINY_T = 2e-5 of its step's top logit, plus the fp32
+# rounding of logits / T; SAMPLE_TIE_GAP holds it to that
+SAMPLE_SEED = 1234
+SAMPLE_TINY_T = 1e-6
+SAMPLE_TIE_GAP = 1e-4
 TRAIN_STEPS = 4
 COMPRESSORS = ("visionzip", "divprune", "cdpruner", "vscan", "pdrop")
 COMPRESSED_NEW_TOKENS = 8
@@ -1095,8 +1142,9 @@ def read_launches(required):
 
 
 def run_main_path(cfg, model, cases):
-    """Pruned and unpruned generate on each prepared batch; returns per-run
-    timings and the kernels' launch counts."""
+    """Pruned and unpruned generate on each prepared batch, every decode
+    chunk's replays under sync_checked; returns per-run timings and the
+    kernels' launch counts."""
     import torch
 
     from glimpseprune_torch.models.qwen2_5_vl.runner import GlimpsePruneRunner
@@ -1107,7 +1155,8 @@ def run_main_path(cfg, model, cases):
     for name, prep in cases:
         for do_sel in (True, False):
             mode = "pruned" if do_sel else "unpruned"
-            runner.generate(prep, max_new_tokens=2, do_selection=do_sel)  # warm-up
+            # warm-up, which captures the decode step that the timed runs replay
+            runner.generate(prep, max_new_tokens=MAX_NEW_TOKENS, do_selection=do_sel)
             torch.cuda.reset_peak_memory_stats()
             prefill_ms, pre = timed_ms(lambda: runner.prefill(prep, do_sel))
             decode_ms, _ = timed_ms(lambda: runner._decode_loop(
@@ -1143,8 +1192,6 @@ def check_small_reference(sp_group=None):
     below it. With ``sp_group`` the card runs under sequence parallelism
     over it (the patches padded to 64 so that the ViT's windows divide over
     2 ranks), the CPU unsharded."""
-    import contextlib
-
     import torch
 
     from glimpseprune_torch.config import tiny_test_config
@@ -1174,6 +1221,8 @@ def check_small_reference(sp_group=None):
             img_valid = torch.as_tensor(prep.img_valid)
             ref, got = ref[:, img_valid], got[:, img_valid]
         errs[field] = ((got - ref).abs().max() / ref.abs().max()).item()
+    with sharded():
+        errs["decode_logits"] = small_decode_err(ref_run, got_run, prep)
     tag = "" if sp_group is None else f" under SP over {SP_WORLD} ranks"
     print(f"tiny config{tag}, card bf16 vs CPU fp32, max error / max |ref|: "
           + json.dumps(errs))
@@ -1181,6 +1230,368 @@ def check_small_reference(sp_group=None):
     if bad:
         raise AssertionError(f"the card disagrees with the CPU reference: {bad}")
     return errs
+
+
+def small_decode_err(ref_run, got_run, prep, n: int = 8) -> float:
+    """The tiny config's decode after the unpruned prefill: n steps on the
+    card, each a replay of the runner's captured step, against the CPU's
+    model fed the card's tokens (``decode_step`` with all n at once, causal
+    among themselves): every step's logits, max error over max |ref|."""
+    import torch
+
+    from glimpseprune_torch.models.qwen2_5_vl.decode_graph import StepGraph
+
+    got_pre, ref_pre = got_run.prefill(prep, False), ref_run.prefill(prep, False)
+    b, r = got_pre.valid.shape
+    t = r + n
+    steps = got_run.decode_steps(got_pre.logits, got_pre.valid, got_pre.position_ids,
+                                 got_pre.kv_k, got_pre.kv_v, t, -1)
+    if not isinstance(steps, StepGraph):
+        raise AssertionError("the card's decode did not run a captured step")
+    got = []
+    for _ in range(n):
+        steps.run(1)
+        got.append(steps.logits.float().cpu())
+    toks = steps.state.toks[:, :n].cpu()
+    with torch.inference_mode():
+        kv_valid = torch.cat([ref_pre.valid, torch.ones((b, n), dtype=torch.bool)], 1)
+        pos = ref_pre.position_ids[:, :, -1:] + 1 + torch.arange(n)
+        ref = ref_run.model.decode_step(toks, pos, ref_run.decode_cache(ref_pre.kv_k, t),
+                                        ref_run.decode_cache(ref_pre.kv_v, t), kv_valid, r)[0]
+    return ((torch.stack(got, 1) - ref).abs().max() / ref.abs().max()).item()
+
+
+@contextlib.contextmanager
+def sync_checked():
+    """Every ``StepGraph.run`` (a chunk's replays with their noise draws)
+    under ``torch.cuda.set_sync_debug_mode("error")``: a host sync inside a
+    chunk raises; the chunk-end reads stay outside."""
+    import torch
+
+    from glimpseprune_torch.models.qwen2_5_vl import decode_graph
+
+    run = decode_graph.StepGraph.run
+
+    def checked(self, n, rng=None):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return run(self, n, rng)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    decode_graph.StepGraph.run = checked
+    try:
+        yield
+    finally:
+        decode_graph.StepGraph.run = run
+
+
+@contextlib.contextmanager
+def captures():
+    """A list that receives the ``capture_s`` of every StepGraph captured
+    while open."""
+    from glimpseprune_torch.models.qwen2_5_vl import decode_graph
+
+    init = decode_graph.StepGraph.__init__
+    caught = []
+
+    def recording(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        caught.append(self.capture_s)
+
+    decode_graph.StepGraph.__init__ = recording
+    try:
+        yield caught
+    finally:
+        decode_graph.StepGraph.__init__ = init
+
+
+def idle_share(fn):
+    """(the card's idle share while ``fn`` runs, kernels traced) from
+    torch.profiler: 1 - the union of the device's kernel and copy intervals
+    over the span from the first one's start to the last one's end; None
+    where the trace holds no device work."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA and e.time_range.elapsed_us() > 0)
+    if not spans:
+        return None, 0
+    busy, end = 0, spans[0][0]
+    for start, stop in spans:
+        if stop > end:
+            busy += stop - max(start, end)
+            end = stop
+    return 1.0 - busy / max(end - spans[0][0], 1), len(spans)
+
+
+def eager_steps(cfg, runner, pre, t: int, n: int):
+    """The decode step run eagerly on the card from a prefill, over a fresh
+    cache of t slots, eos never met (for the comparison with the captured
+    step only: no path of the port runs it so on the card)."""
+    import torch
+
+    from glimpseprune_torch.models.qwen2_5_vl.decode_graph import EagerSteps
+    from glimpseprune_torch.models.qwen2_5_vl.gp_model import DecodeState
+
+    b, r = pre.valid.shape
+    kv_valid = torch.cat([pre.valid, torch.zeros((b, t - r), dtype=torch.bool,
+                                                 device=pre.valid.device)], 1)
+    st = DecodeState.alloc(runner.decode_cache(pre.kv_k, t), runner.decode_cache(pre.kv_v, t),
+                           n, cfg.text.vocab_size, False, kv_valid)
+    st.begin(pre.logits[:, -1].argmax(-1), pre.position_ids[:, :, -1], r, -1)
+    return EagerSteps(runner.model, st)
+
+
+def check_captured_decode(cfg, runner, prep, do_sel, tier):
+    """(a), (b), (c) and (e) on one prefill: DECODE_CHECK_TOKENS greedy steps
+    (eos never met) replayed one at a time against the same step run
+    eagerly on the card
+    (equal tokens, or at the first difference logits within
+    DECODE_LOGIT_RTOL of max |logit| and a top-2 margin below it); then the
+    runner's decode of the prefill (warm graph, eos never met), timed, with
+    every chunk's replays under sync_checked, its launches (in (q4) K4's
+    7 per layer + the head per token, and nothing else), against the eager
+    steps timed; on the pruned prefill, the sampled decode checks
+    (check_sampled_decode). -> record."""
+    import torch
+
+    from glimpseprune_torch.models.qwen2_5_vl.decode_graph import StepGraph
+
+    n = DECODE_CHECK_TOKENS
+    pre = runner.prefill(prep, do_sel)
+    args = (pre.logits, pre.valid, pre.position_ids, pre.kv_k, pre.kv_v)
+    t = pre.valid.shape[1] + n
+    graph = runner.decode_steps(*args, t, -1)
+    if not isinstance(graph, StepGraph):
+        raise AssertionError("the card's decode did not run a captured step")
+    eager = eager_steps(cfg, runner, pre, t, n)
+    logits = {"captured": [], "eager": []}
+    for _ in range(n):
+        with sync_checked():
+            graph.run(1)
+        eager.run(1)
+        logits["captured"].append(graph.logits.float().clone())
+        logits["eager"].append(eager.logits.float().clone())
+
+    def tokens(steps):
+        return torch.cat([steps.state.toks[:, :n], steps.state.tok[:, None]], 1).cpu().numpy()
+
+    got, want = tokens(graph), tokens(eager)
+    differ = np.nonzero((got != want).any(0))[0]
+    rec = {"tier": tier, "batch": "a", "mode": "pruned" if do_sel else "unpruned",
+           "tokens_equal": not len(differ), "capture_ms": graph.capture_s * 1e3}
+    if len(differ):  # token j comes from step j - 1's logits
+        j = int(differ[0])
+        g, e = logits["captured"][j - 1], logits["eager"][j - 1]
+        scale = e.abs().max()
+        rows = torch.as_tensor(got[:, j] != want[:, j], device=e.device)
+        margin = max(((x[rows].topk(2, -1).values @ torch.tensor([1.0, -1.0], device=e.device))
+                      .max() / scale).item() for x in (g, e))
+        rec.update(first_difference=j, logits_rel_err=((g - e).abs().max() / scale).item(),
+                   top2_margin_rel=margin)
+        if not (rec["logits_rel_err"] <= DECODE_LOGIT_RTOL and margin < DECODE_LOGIT_RTOL):
+            raise AssertionError(f"captured decode {tier} {rec['mode']} differs from the eager "
+                                 f"steps without a near tie: {rec}")
+    before = launch_counts()
+    with sync_checked():
+        ms, (seqs, _) = timed_ms(lambda: runner._decode_loop(*args, n, -1, chunk_size=n))
+    launched = launches_since(before)
+    if not (seqs == got[:, :n]).all():
+        raise AssertionError(f"the runner's decode {tier} {rec['mode']} gave other tokens than "
+                             "its step-wise replays")
+    k4 = sum(v for k, v in launched.items() if k.startswith("matmul_int4["))
+    if tier == "q4":
+        want_k4 = n * (7 * cfg.text.num_hidden_layers + 1)
+        if k4 != want_k4 or k4 != sum(launched.values()):
+            raise AssertionError(f"(q4) decode of {n} tokens launched {launched}, not "
+                                 f"{want_k4} K4 launches alone")
+    elif launched:
+        raise AssertionError(f"{tier} decode launched kernels {launched}")
+    if do_sel:
+        rec["sampled"] = check_sampled_decode(runner, pre, got, tier)
+    eager = eager_steps(cfg, runner, pre, t, n)
+    eager_ms, _ = timed_ms(lambda: eager.run(n))
+    rec.update(captured_ms_per_token=ms / n, eager_ms_per_token=eager_ms / n,
+               k4_launches_per_token=k4 / n)
+    print("captured decode " + json.dumps(rec))
+    return rec
+
+
+def check_sampled_decode(runner, pre, greedy, tier):
+    """Sampling through the captured step on one prefill, whose greedy
+    tokens (the first and DECODE_CHECK_TOKENS more) are ``greedy`` [B, n+1]:
+    the runner's decode at temperature 1, each chunk's replays under
+    sync_checked, gives the same tokens for the same seed and other tokens
+    for another seed; at SAMPLE_TINY_T, replayed one step at a time, every
+    token's logit lies within SAMPLE_TIE_GAP of its step's top logit, and
+    the tokens are the greedy ones up to the first difference, where both
+    are such a tie. -> record."""
+    import torch
+
+    from glimpseprune_torch.models.qwen2_5_vl.decode_graph import StepGraph
+
+    n = DECODE_CHECK_TOKENS
+    args = (pre.logits, pre.valid, pre.position_ids, pre.kv_k, pre.kv_v)
+
+    def rng(seed):
+        return torch.Generator(runner.device).manual_seed(seed)
+
+    def sampled(seed):
+        with sync_checked():
+            return runner._decode_loop(*args, n, -1, temperature=1.0, rng=rng(seed),
+                                       chunk_size=n)[0]
+
+    first, again, other = sampled(SAMPLE_SEED), sampled(SAMPLE_SEED), sampled(SAMPLE_SEED + 1)
+    if not (first == again).all() or (first == other).all():
+        raise AssertionError(f"{tier} sampled decode: seed {SAMPLE_SEED} gave {first} then "
+                             f"{again}, seed {SAMPLE_SEED + 1} {other}")
+    gen = rng(SAMPLE_SEED)
+    steps = runner.decode_steps(*args, pre.valid.shape[1] + n, -1, SAMPLE_TINY_T, gen)
+    if not isinstance(steps, StepGraph):
+        raise AssertionError("the card's sampled decode did not run a captured step")
+    logits = [pre.logits[:, -1].float()]  # token j comes from logits[j]
+    for _ in range(n):
+        steps.run(1, gen)
+        logits.append(steps.logits.float().clone())
+    tiny = torch.cat([steps.state.toks[:, :n], steps.state.tok[:, None]], 1)
+    lg = torch.stack(logits, 1)  # [B, n+1, V]
+    gap = lg.max(-1).values - lg.gather(-1, tiny[..., None])[..., 0]
+    differ = np.nonzero((tiny.cpu().numpy() != greedy).any(0))[0]
+    rec = {"tier": tier, "seeded_equal": True, "other_seed_differs": True,
+           "tiny_t_max_gap": gap.max().item(),
+           "tiny_t_first_difference": int(differ[0]) if len(differ) else None}
+    if rec["tiny_t_max_gap"] > SAMPLE_TIE_GAP:
+        raise AssertionError(f"{tier} sampled decode at T={SAMPLE_TINY_T} drew a token "
+                             f"{rec['tiny_t_max_gap']} under its step's top logit")
+    if len(differ):
+        j = int(differ[0])
+        want = torch.as_tensor(greedy[:, j], device=lg.device)
+        tie = (lg[:, j].max(-1).values - lg[:, j].gather(-1, want[:, None])[:, 0]).max().item()
+        rec["tiny_t_greedy_gap"] = tie
+        if tie > SAMPLE_TIE_GAP:
+            raise AssertionError(f"{tier} sampled decode at T={SAMPLE_TINY_T} left the greedy "
+                                 f"tokens at {j} without a tie: {rec}")
+    print("sampled decode " + json.dumps(rec))
+    return rec
+
+
+def serving_decode(cfg, runner, rows, tier):
+    """(d) as bench.py:563-628 serves: the B=1 pruned prefills of ``rows``
+    (one out_len) filled by cache_fill_rows into one preallocated B=2 cache
+    of R + SERVE_NEW_TOKENS slots, then ``_decode_loop(..., eos=-1,
+    chunk_size=SERVE_NEW_TOKENS, prealloc_t=T)``: the capture's ms, ms per
+    token (warm), peak memory, the card's idle share over
+    IDLE_TRACE_TOKENS steps of the same graph, in (q4) K4's kernel records
+    over IDLE_TRACE_TOKENS replays in a padded trace (device_ms_by_kernel)
+    against the launches counted over as many (equal, and
+    IDLE_TRACE_TOKENS * (7 * layers + 1)), and the tokens against
+    the runner's own cache over the same prefill (equal). Then the cache
+    is dropped, which nothing may keep alive, and a second decode into a
+    newly allocated one (the bench allocates one a run), timed from cold:
+    its tokens equal the first's; its capture ms (None where the new cache
+    took the old one's address and layout, and the kept graph served it)
+    and peak memory. -> record."""
+    import dataclasses
+    import gc
+    import weakref
+
+    import torch
+
+    from glimpseprune_torch.ops.kv_cache import alloc_cache, cache_fill_rows, is_quantized
+
+    n = SERVE_NEW_TOKENS
+    r = max(p.out_len for p in rows)
+    pres = [runner.prefill(dataclasses.replace(p, out_len=r)) for p in rows]
+    logits, valid = (torch.cat([getattr(p, f) for p in pres]) for f in ("logits", "valid"))
+    pos = torch.cat([p.position_ids for p in pres], 1)
+    t = r + n
+    shape = pres[0].kv_k.shape[:1] + (len(rows), t) + pres[0].kv_k.shape[3:]
+
+    def new_caches():
+        caches = [alloc_cache(shape, pres[0].kv_k.dtype, runner.device,
+                              cfg.text.kv_cache_quant) for _ in range(2)]
+        for i, p in enumerate(pres):
+            cache_fill_rows(caches[0], p.kv_k, i)
+            cache_fill_rows(caches[1], p.kv_v, i)
+        return caches
+
+    def decode(caches, new=n):
+        return runner._decode_loop(logits, valid, pos, *caches, new, -1, chunk_size=new,
+                                   prealloc_t=t)
+
+    torch.cuda.reset_peak_memory_stats()
+    caches = new_caches()
+    capture_s = runner.decode_steps(logits, valid, pos, *caches, t, -1,
+                                    prealloc=True).capture_s
+    with sync_checked():
+        ms, (seqs, _) = timed_ms(lambda: decode(caches))
+    peak = torch.cuda.max_memory_allocated()
+    idle, traced = idle_share(lambda: decode(caches, IDLE_TRACE_TOKENS))
+    k4 = None
+    if tier == "q4":  # IDLE_TRACE_TOKENS replays, as decodes of 2 tokens
+        calls, per_call = IDLE_TRACE_TOKENS // 2, {}
+        device_ms_by_kernel(lambda: decode(caches, 2), iters=calls, per_call=per_call)
+        before = launch_counts()
+        for _ in range(calls):
+            decode(caches, 2)
+        counted = sum(v for k, v in launches_since(before).items()
+                      if k.startswith("matmul_int4["))
+        k4 = {"replays": IDLE_TRACE_TOKENS, "counted": counted,
+              "traced": calls * sum(c for name, c in per_call.items() if "decode_kernel" in name),
+              "expected": IDLE_TRACE_TOKENS * (7 * cfg.text.num_hidden_layers + 1)}
+        if not k4["traced"] == k4["counted"] == k4["expected"]:
+            raise AssertionError(f"(q4) serving decode of {IDLE_TRACE_TOKENS} tokens: K4's "
+                                 f"records in the trace, its counted launches and 7L + 1 a "
+                                 f"token disagree: {k4}")
+    kv = [torch.cat([getattr(p, f) for p in pres], 1) for f in ("kv_k", "kv_v")]
+    own, _ = runner._decode_loop(logits, valid, pos, *kv, n, -1, chunk_size=n)
+    if not (own == seqs).all():
+        raise AssertionError(f"{tier} serving decode: the preallocated cache gave other "
+                             "tokens than the runner's own")
+    del kv, own
+    refs = [weakref.ref(x) for c in caches for x in (c.values() if is_quantized(c) else [c])]
+    del caches
+    gc.collect()
+    if any(ref() is not None for ref in refs):
+        raise AssertionError(f"{tier} serving decode: the caller's cache outlived the decode")
+    torch.cuda.reset_peak_memory_stats()
+    with captures() as caught:
+        caches = new_caches()
+        with sync_checked():
+            ms2, (seqs2, _) = timed_ms(lambda: decode(caches))
+    peak2 = torch.cuda.max_memory_allocated()
+    del caches
+    if not (seqs2 == seqs).all():
+        raise AssertionError(f"{tier} serving decode: a new cache gave other tokens")
+    rec = {"tier": tier, "B": len(rows), "R": r, "T": t, "new_tokens": n,
+           "capture_ms": capture_s * 1e3, "ms_per_token": ms / n, "peak_mem_gib": peak / 2**30,
+           "idle_share": idle, "idle_trace_tokens": IDLE_TRACE_TOKENS,
+           "device_records_traced": traced, "k4_records": k4,
+           "second": {"capture_ms": caught[0] * 1e3 if caught else None,
+                      "ms_per_token_with_capture": ms2 / n, "peak_mem_gib": peak2 / 2**30}}
+    print("serving decode " + json.dumps(rec))
+    return rec
+
+
+def run_decode_checks(cfg, runner, prep_a, rows_a, tier):
+    """Phases 6 and 9's decode: (a)-(c), (e) on batch (a) pruned and
+    unpruned, and (d) on its rows."""
+    import torch
+
+    with torch.inference_mode():
+        out = {"captured": [check_captured_decode(cfg, runner, prep_a, sel, tier)
+                            for sel in (True, False)],
+               "serving": serving_decode(cfg, runner, rows_a, tier)}
+
+    torch.cuda.synchronize()
+    return out
 
 
 def compressor_kwargs(method):
@@ -1241,7 +1652,8 @@ def run_compressed_path(cfg, model, cases, main_runs):
     for name, prep in cases:
         for method in COMPRESSORS:
             kw = compressor_kwargs(method)
-            runner.generate_compressed(prep, method, max_new_tokens=2, **kw)  # warm-up
+            # warm-up, which captures the decode step that the timed runs replay
+            runner.generate_compressed(prep, method, max_new_tokens=COMPRESSED_NEW_TOKENS, **kw)
             torch.cuda.reset_peak_memory_stats()
             prefill_ms, pre = timed_ms(lambda: runner.prefill_compressed(prep, method, **kw))
             decode_ms, _ = timed_ms(lambda: runner._decode_loop(
@@ -2335,10 +2747,12 @@ def quant_config(cfg, tier: str):
     return dataclasses.replace(q, text=dataclasses.replace(q.text, kv_cache_quant="int8"))
 
 
-def run_quant_tier(cfg, tier: str, cases):
+def run_quant_tier(cfg, tier: str, cases, rows_a):
     """One quantized tier on a fresh random 7B: bf16 first logits, then
     quantize_model on the card and pruned + unpruned generate on each
-    batch -> (per-run records, launch counts)."""
+    batch (every decode chunk's replays under sync_checked), then the
+    decode checks on batch (a) and its rows -> (per-run records, launch
+    counts, decode checks)."""
     import torch
 
     from glimpseprune_torch.convert import init_random
@@ -2367,15 +2781,16 @@ def run_quant_tier(cfg, tier: str, cases):
     runs = []
     for name, prep in cases:
         for do_sel in (True, False):
-            runner.generate(prep, max_new_tokens=2, do_selection=do_sel)  # warm-up
-            torch.cuda.reset_peak_memory_stats()
-            prefill_ms, pre = timed_ms(lambda: runner.prefill(prep, do_sel))
-            decode_ms, _ = timed_ms(lambda: runner._decode_loop(
-                pre.logits, pre.valid, pre.position_ids, pre.kv_k, pre.kv_v,
-                MAX_NEW_TOKENS, cfg.eos_token_id))
-            generate_ms, res = timed_ms(lambda: runner.generate(
-                prep, max_new_tokens=MAX_NEW_TOKENS, do_selection=do_sel))
-            peak = torch.cuda.max_memory_allocated()
+            with sync_checked():  # the warm-up captures the decode step
+                runner.generate(prep, max_new_tokens=MAX_NEW_TOKENS, do_selection=do_sel)
+                torch.cuda.reset_peak_memory_stats()
+                prefill_ms, pre = timed_ms(lambda: runner.prefill(prep, do_sel))
+                decode_ms, _ = timed_ms(lambda: runner._decode_loop(
+                    pre.logits, pre.valid, pre.position_ids, pre.kv_k, pre.kv_v,
+                    MAX_NEW_TOKENS, cfg.eos_token_id))
+                generate_ms, res = timed_ms(lambda: runner.generate(
+                    prep, max_new_tokens=MAX_NEW_TOKENS, do_selection=do_sel))
+                peak = torch.cuda.max_memory_allocated()
             check_outputs(qcfg, prep, pre, res, do_sel)
             t_cache = pre.valid.shape[1] + MAX_NEW_TOKENS
             kv_bytes = sum(cache_nbytes(runner.decode_cache(kv, t_cache))
@@ -2402,9 +2817,10 @@ def run_quant_tier(cfg, tier: str, cases):
         required += ["flash_attention[segmented]"]
     launches = read_launches(required)
     print(f"{tier} quantized-path launches " + json.dumps(launches))
+    decode = run_decode_checks(qcfg, runner, dict(cases)["a"], rows_a, tier)
     del runner, model
     torch.cuda.empty_cache()
-    return runs, launches
+    return runs, launches, decode
 
 
 def check_small_quant(cfg_tier: str):
@@ -2435,6 +2851,7 @@ def check_small_quant(cfg_tier: str):
             img_valid = torch.as_tensor(prep.img_valid)
             ref, got = ref[:, img_valid], got[:, img_valid]
         errs[field] = ((got - ref).abs().max() / ref.abs().max()).item()
+    errs["decode_logits"] = small_decode_err(ref_run, got_run, prep)
     print(f"tiny config {cfg_tier}, card bf16 vs CPU fp32, max error / max |ref|: "
           + json.dumps(errs))
     bad = {k: v for k, v in errs.items() if not v <= 0.1}
@@ -2541,13 +2958,13 @@ def sp_serve(cfg, runner, cases, rank, world, tier="bf16", modes=(True, False)):
         for do_sel in modes:
             ref = None
             if rank == 0:  # the other ranks wait: this card's time is rank 0's alone
-                runner.generate(prep, max_new_tokens=2, do_selection=do_sel)  # warm-up
+                runner.generate(prep, max_new_tokens=MAX_NEW_TOKENS, do_selection=do_sel)
                 single_ms, pre = timed_ms(lambda: runner.prefill(prep, do_sel))
                 res = runner.generate(prep, max_new_tokens=MAX_NEW_TOKENS, do_selection=do_sel)
                 ref = (pre.logits.float().cpu(), pre.mask_logits, res, single_ms)
             dist.barrier()
             with sequence_parallel(dist.group.WORLD):
-                runner.generate(prep, max_new_tokens=2, do_selection=do_sel)  # warm-up
+                runner.generate(prep, max_new_tokens=MAX_NEW_TOKENS, do_selection=do_sel)
                 torch.cuda.reset_peak_memory_stats()
                 before = launch_counts()
                 prefill_ms, pre = timed_ms(lambda: runner.prefill(prep, do_sel))
@@ -2765,6 +3182,7 @@ def main() -> int:
     from glimpseprune_torch.config import ModelConfig
     from glimpseprune_torch.convert import init_random
     from glimpseprune_torch.models.qwen2_5_vl.inputs import prepare_inputs
+    from glimpseprune_torch.models.qwen2_5_vl.runner import GlimpsePruneRunner
 
     t_start = time.perf_counter()
     build_s = build_kernels()
@@ -2776,8 +3194,11 @@ def main() -> int:
     # (a) two rows, two image sizes: segmented ViT attention, padded windows,
     # left-padded LLM rows; (b) one 896x672 image: 3072 patches, one unpadded
     # segment, so the ViT's full attention takes the dense flavour
-    prep_a = prepare_inputs(cfg, make_prompts(cfg, rng, 2, lo, hi), images)
+    prompts_a = make_prompts(cfg, rng, 2, lo, hi)
+    prep_a = prepare_inputs(cfg, prompts_a, images)
     prep_b = prepare_inputs(cfg, make_prompts(cfg, rng, 1, lo, hi), images[:1])
+    # (a)'s rows as B=1 requests, for the serving-shaped decode
+    rows_a = [prepare_inputs(cfg, [prompts_a[i]], [images[i]]) for i in range(2)]
     gen = torch.Generator(device="cuda").manual_seed(0)
     kernels = [check_window_attention(cfg, prep_a, gen)]
     k8_row = check_window_attention_unfused(cfg, prep_a, gen)
@@ -2791,7 +3212,10 @@ def main() -> int:
     n_params = sum(p.numel() for p in model.parameters())
     print(f"init_random: {n_params / 1e9:.3f} B parameters in "
           f"{time.perf_counter() - t0:.1f} s, {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
-    runs, serve_launches = run_main_path(cfg, model, [("a", prep_a), ("b", prep_b)])
+    with sync_checked():
+        runs, serve_launches = run_main_path(cfg, model, [("a", prep_a), ("b", prep_b)])
+    decode_checks = {"bf16": run_decode_checks(cfg, GlimpsePruneRunner(cfg, model), prep_a,
+                                               rows_a, "bf16")}
     small = check_small_reference()
 
     # phase 10: the compressed serving path, before training changes the model
@@ -2834,8 +3258,8 @@ def main() -> int:
     t_quant = time.perf_counter()
     quant_runs, quant_launches, small_quant = [], {}, {}
     for tier in QUANT_TIERS:
-        tier_runs, quant_launches[tier] = run_quant_tier(cfg, tier, [("a", prep_a),
-                                                                     ("b", prep_b)])
+        tier_runs, quant_launches[tier], decode_checks[tier] = run_quant_tier(
+            cfg, tier, [("a", prep_a), ("b", prep_b)], rows_a)
         quant_runs += tier_runs
         small_quant[tier] = check_small_quant(tier)
     quant_s = time.perf_counter() - t_quant
@@ -2869,13 +3293,24 @@ def main() -> int:
     kernels += k9_rows
     for k in kernels:
         print(speed(k))
+    for tier, d in decode_checks.items():
+        sv = d["serving"]
+        print(f"decode {tier} on {smi}: " + ", ".join(
+            f"(a) {c['mode']} captured {c['captured_ms_per_token']:.2f} / eager "
+            f"{c['eager_ms_per_token']:.2f} ms/token" for c in d["captured"])
+            + f"; serving B={sv['B']} {sv['ms_per_token']:.2f} ms/token, capture "
+            f"{sv['capture_ms']:.1f} ms, idle {sv['idle_share']}, peak {sv['peak_mem_gib']:.2f} GiB"
+            f"; a new cache: capture {sv['second']['capture_ms']} ms, "
+            f"{sv['second']['ms_per_token_with_capture']:.2f} ms/token with it, peak "
+            f"{sv['second']['peak_mem_gib']:.2f} GiB")
     print(json.dumps({"card": smi, "build_s": build_s, "runs": runs,
                       "window_edge_cases": window_edges, "flash_edge_cases": flash_edges,
                       "tiny_reference_err": small, "train_steps": steps,
                       "train_path_s": train_s, "tiny_train_err": small_train,
                       "training_launches": train_launches, "quantized_runs": quant_runs,
                       "quantized_launches": quant_launches, "quantized_path_s": quant_s,
-                      "tiny_quantized_err": small_quant, "k4_checks": k4_report,
+                      "tiny_quantized_err": small_quant, "decode_checks": decode_checks,
+                      "k4_checks": k4_report,
                       "k5_checks": k5_report,
                       "k6_bit_equal": k6_report, "k7_checks": k7_report,
                       "compressed_runs": compressed_runs,

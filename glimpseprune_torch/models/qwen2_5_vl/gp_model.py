@@ -7,14 +7,22 @@ Counterpart of glimpseprune_tpu/models/qwen2_5_vl/gp_model.py:
 logits and the answer loss ``le_loss``, :269-285), ``reduce_and_resume``
 :341, ``glimpse_prefill`` :417, the baseline compressors' staged in-LLM
 drop ``staged_prefill`` :427 and full-depth ``prefill_embeds`` :595,
-``vanilla_prefill`` :516 and ``embed_with_images`` :704. The row scatters
-and gathers (:88-115) are index operations here, not the JAX package's
-one-hot matmuls.
+``vanilla_prefill`` :516, ``decode_chunk`` :607, ``decode_step`` :693 and
+``embed_with_images`` :704. The row scatters and gathers (:88-115) are
+index operations here, not the JAX package's one-hot matmuls.
+
+Decode: ``decode_state_step`` is one step of JAX ``decode_chunk``'s scan,
+written on the device tensors of a ``DecodeState`` only (a 0-d step
+counter, the write slot and the positions derived from it on the device),
+so that one CUDA graph captured over it (decode_graph.py, the runner's
+path on the card) replays every step of every chunk. ``decode_chunk`` runs
+it eagerly, n_steps times.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Sequence
+from dataclasses import dataclass
+from typing import NamedTuple, Optional, Sequence, Union
 
 import torch
 from torch import nn
@@ -31,6 +39,7 @@ from glimpseprune_torch.ops.compaction import (
     gather_tokens,
 )
 from glimpseprune_torch.ops.keep_policy import descending_rank, keep_scores_with_policy
+from glimpseprune_torch.ops.kv_cache import Cache, cache_t
 from glimpseprune_torch.ops.rope import mrope_cos_sin
 
 
@@ -56,6 +65,75 @@ class GlimpseOutputs(NamedTuple):
     kv_v: torch.Tensor
     mask_logits: torch.Tensor   # [n_out, B, N]
     keep_img: torch.Tensor      # [B, N]
+
+
+def sample_next(logits: torch.Tensor, temperature: Optional[torch.Tensor] = None,
+                noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The next token from logits [B, V]: the argmax, or with a temperature
+    (0-d) the Gumbel-max sample argmax(logits / T + g), g = -log(-log u) of
+    uniform draws noise [B, V], which is a draw from softmax(logits / T)
+    (JAX ``jax.random.categorical``, runner.py:1146-1148)."""
+    if temperature is None:
+        return logits.argmax(-1)
+    return (logits.float() / temperature - torch.log(-torch.log(noise))).argmax(-1)
+
+
+@dataclass
+class DecodeState:
+    """What one decode step reads and writes in place, every field a tensor
+    on the model's device: a step reads no Python value that changes from
+    step to step, so one captured step serves every step and chunk."""
+
+    k_cache: Cache                 # [L, B, T, Hkv, D], either tier of ops/kv_cache.py
+    v_cache: Cache
+    kv_valid: torch.Tensor         # [B, T]
+    toks: torch.Tensor             # [B, n]: toks[:, s] is the token fed at step s
+    tok: torch.Tensor              # [B] the next token to feed
+    done: torch.Tensor             # [B]
+    step: torch.Tensor             # 0-d, steps taken
+    last_pos: torch.Tensor         # [3, B] the prefix's last positions
+    write_start: torch.Tensor      # 0-d, the slot step 0 writes
+    eos: torch.Tensor              # 0-d
+    temperature: Optional[torch.Tensor] = None  # 0-d fp32; None: greedy
+    noise: Optional[torch.Tensor] = None        # [B, V] fp32 uniform draws of one step
+
+    @classmethod
+    def alloc(cls, k_cache: Cache, v_cache: Cache, n_toks: int, vocab: int, sampled: bool,
+              kv_valid: Optional[torch.Tensor] = None) -> "DecodeState":
+        """Buffers for a decode over the given caches (and kv_valid [B, T],
+        or a new one) that records n_toks tokens; ``begin`` sets them."""
+        lead = k_cache["q"] if isinstance(k_cache, dict) else k_cache
+        b, t, dev = lead.shape[1], cache_t(k_cache), lead.device
+
+        def long(*shape):
+            return torch.zeros(shape, dtype=torch.long, device=dev)
+
+        if kv_valid is None:
+            kv_valid = torch.zeros((b, t), dtype=torch.bool, device=dev)
+        return cls(k_cache, v_cache, kv_valid, long(b, n_toks), long(b),
+                   torch.zeros(b, dtype=torch.bool, device=dev), long(), long(3, b), long(),
+                   long(),
+                   torch.ones((), device=dev) if sampled else None,
+                   torch.full((b, vocab), 0.5, device=dev) if sampled else None)
+
+    def begin(self, first_token: torch.Tensor, last_pos: torch.Tensor,
+              write_start: Union[int, torch.Tensor], eos: int, temperature: float = 0.0):
+        """Start a decode at step 0 from first_token [B] (kv_valid and the
+        caches are the caller's to set)."""
+        self.tok.copy_(first_token)
+        self.done.copy_(first_token == eos)
+        self.step.zero_()
+        self.last_pos.copy_(last_pos)
+        self.write_start.fill_(write_start)
+        self.eos.fill_(eos)
+        if self.temperature is not None:
+            self.temperature.fill_(temperature)
+
+    def draw_noise(self, rng: Optional[torch.Generator]) -> None:
+        """One step's uniform draws from rng (sampling only): one launch,
+        outside a captured step, which then holds no generator state."""
+        if self.noise is not None:
+            self.noise.uniform_(generator=rng)
 
 
 def _scatter_rows(dest: torch.Tensor, slots: torch.Tensor, src: torch.Tensor,
@@ -323,6 +401,53 @@ class Qwen2_5_VL_GP(nn.Module):
         cos, sin = self._cos_sin(position_ids)
         x, (kv_k, kv_v), _ = self.text.run_layers(embeds, cos, sin, valid)
         return self.text.logits(self.text.final_norm(x[:, -1:])), kv_k, kv_v
+
+    # ---- decode
+
+    def decode_step(self, input_ids, position_ids, k_cache, v_cache, kv_valid, write_idx):
+        """input_ids [B, S_new] at position_ids [3, B, S_new] against the
+        cache (JAX :693): -> (logits [B, S_new, V], k_cache, v_cache), the
+        caches read, then written in place at write_idx."""
+        cos, sin = self._cos_sin(position_ids)
+        return self.text.decode_step(input_ids, cos, sin, k_cache, v_cache, kv_valid,
+                                     write_idx)
+
+    def decode_state_step(self, st: DecodeState) -> torch.Tensor:
+        """One decode step on st, in place, on device tensors only (JAX
+        ``decode_chunk``'s scan body, :644-686): the slot write_start + step
+        becomes valid, the fed token runs through every layer at position
+        last_pos + 1 + step, the next token is the argmax or a sample (eos
+        once a row is done), the fed token is recorded at toks[:, step].
+        Returns the step's logits [B, V]."""
+        widx = st.write_start + st.step
+        cos, sin = self._cos_sin((st.last_pos + 1 + st.step)[:, :, None])
+        st.kv_valid.index_fill_(1, widx.reshape(1), True)
+        logits = self.text.decode_step(st.tok[:, None], cos, sin, st.k_cache, st.v_cache,
+                                       st.kv_valid, widx)[0][:, -1]
+        nxt = torch.where(st.done, st.eos, sample_next(logits, st.temperature, st.noise))
+        st.toks.index_copy_(1, st.step.reshape(1), st.tok[:, None])
+        st.done.logical_or_(nxt == st.eos)
+        st.tok.copy_(nxt)
+        st.step.add_(1)
+        return logits
+
+    def decode_chunk(self, first_token, last_pos, k_cache, v_cache, kv_valid, write_start,
+                     rng: Optional[torch.Generator], n_steps: int, eos_token_id: int,
+                     temperature: float = 0.0):
+        """Decode n_steps tokens after first_token [B] (JAX :607-691):
+        ``decode_state_step`` run eagerly n_steps times; greedy when
+        temperature == 0, else sampled with noise from rng (a
+        torch.Generator on the model's device). The caches and kv_valid [B,
+        T] are written in place. Returns (toks [B, n_steps], the next token,
+        done [B], k_cache, v_cache, kv_valid). The runner replays the same
+        step as a CUDA graph on the card (decode_graph.py)."""
+        st = DecodeState.alloc(k_cache, v_cache, n_steps, self.cfg.text.vocab_size,
+                               temperature > 0, kv_valid)
+        st.begin(first_token, last_pos, write_start, eos_token_id, temperature)
+        for _ in range(n_steps):
+            st.draw_noise(rng)
+            self.decode_state_step(st)
+        return st.toks, st.tok, st.done, st.k_cache, st.v_cache, st.kv_valid
 
     # ---- the unpruned comparator
 

@@ -3,7 +3,8 @@ glimpse harvest, decode against a KV cache, final norm and LM head.
 
 Counterpart of glimpseprune_tpu/models/qwen2_5_vl/language.py
 (``TextDecoder`` :238, ``_layer_prefill`` :113, ``_layer_decode`` :135,
-``harvest_postprocess`` :169, ``chunked_nll`` :293, ``run_layers`` :393).
+``harvest_postprocess`` :169, ``chunked_nll`` :293, ``run_layers`` :393,
+``decode_step`` :500).
 The JAX package scans one stacked parameter tree; here the layers are a
 ModuleList run by a Python loop, and a layer range is a slice of that loop.
 ``cfg.remat`` (the JAX ``jax.checkpoint`` of the scan body, :462) becomes
@@ -27,7 +28,7 @@ harvested rows.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -104,10 +105,12 @@ class DecoderLayer(nn.Module):
                                               int8_pv=a8 and c.attn_pv_int8, sp=sp)
         return self.finish(x, attn, a8), q, k, v
 
-    def decode(self, layer: int, x, cos, sin, k_cache, v_cache, kv_valid, write_idx: int):
+    def decode(self, layer: int, x, cos, sin, k_cache, v_cache, kv_valid,
+               write_idx: Union[int, torch.Tensor]):
         """One decode layer against the stacked cache [L, B, T, Hkv, D]
         (either tier of ops/kv_cache.py): the layer's slice is read, then
-        the new tokens' k/v are written in place at write_idx."""
+        the new tokens' k/v are written in place at write_idx (a 0-d tensor
+        on the device in a captured decode step, or an int)."""
         a8 = _act_quant_on(self.cfg, decoding=True)
         q, k, v = self.qkv(x, cos, sin, a8)
         attn = decode_attention(q, cache_layer(k_cache, layer), cache_layer(v_cache, layer),
@@ -198,6 +201,20 @@ class TextDecoder(nn.Module):
             else:
                 total = total + self._chunk_nll_sum(xc, yc)
         return total / (ys != -100).sum().clamp(min=1).float()
+
+    def decode_step(self, input_ids: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+                    k_cache, v_cache, kv_valid: torch.Tensor,
+                    write_idx: Union[int, torch.Tensor]):
+        """S_new >= 1 tokens input_ids [B, S_new] against the cache [L, B, T,
+        Hkv, D] (JAX :500-550, without ``inputs_embeds``, ``logits_index``
+        and ``new_valid``): kv_valid [B, T] includes the new slots, which
+        start at write_idx; the new tokens attend causally among themselves.
+        Every layer reads its cache slice, then writes the new k/v into it
+        in place. Returns (logits [B, S_new, V], k_cache, v_cache)."""
+        x = self.embed(input_ids)
+        for lid, layer in enumerate(self.layers):
+            x = layer.decode(lid, x, cos, sin, k_cache, v_cache, kv_valid, write_idx)
+        return self.logits(self.final_norm(x)), k_cache, v_cache
 
     def run_layers(
         self,

@@ -1,14 +1,23 @@
-"""The user-facing runner: pruned and unpruned greedy generation, and the
-baseline compressors.
+"""The user-facing runner: pruned and unpruned generation, streaming, and
+the baseline compressors.
 
 Counterpart of glimpseprune_tpu/models/qwen2_5_vl/runner.py
 (``GlimpsePruneRunner.__init__`` / ``glimpse`` / ``generate`` :437-936,
 ``_decode_loop`` / ``_run_decode`` / ``_trim_eos`` / ``_first_stop_match``
-:1053-1190, and ``generate_compressed`` :1243 with the bodies of
-``_staged_impl`` :525 and ``_pre_llm_compress_impl`` :542). The JAX
-package decodes in jitted ``lax.scan`` chunks (``gp_model.decode_chunk``);
-here the decode is a plain Python loop over steps and layers, with the
-early-exit check between chunks of steps so the host syncs once per chunk.
+:1053-1190, ``stream_generate`` :1192 and ``generate_compressed`` :1243
+with the bodies of ``_staged_impl`` :525 and ``_pre_llm_compress_impl``
+:542).
+
+Decode: the JAX package runs a chunk of steps as one jitted ``lax.scan``
+(``gp_model.decode_chunk``); here a chunk is n replays of one captured
+decode step on a CUDA model (decode_graph.py), the step run eagerly on a
+CPU model, and the host reads the tokens and the done flags once per chunk
+to stop early (eos, stop sequences). The state of a decode is static: the
+runner writes the prefill's KV into a cache it owns for the step's key (B,
+T, cache tier, greedy or sampled), or, with ``prealloc_t``, decodes in the
+caller's cache, which already holds the prefix (serving assembly:
+``ops/kv_cache.cache_fill_rows``). Sampling (``temperature > 0``) draws
+from ``rng``, a torch.Generator on the model's device.
 
 The runner's config must be the model's, as the JAX runner builds its
 model from its config: the model is bound to a config once (built from it,
@@ -18,11 +27,11 @@ a knob the model reads. The quantized serving tiers ride on both: the
 model's Linears are swapped for QuantLinears (``quantization.quantize_model``)
 in the config's ``weight_quant`` tier, the config's ``act_quant`` and
 attention flags select W8A8 and int8 attention, and under
-``kv_cache_quant="int8"`` the decode cache is built int8 from the prefill's
-KV, quantized once (JAX ``_build_decode_cache`` :424, used at :1134-1137).
-The runner refuses a config knob that the port does not implement, and a
-model whose weights are not in the config's tier, rather than run something
-else.
+``kv_cache_quant="int8"`` the decode cache is int8, the prefill's KV
+quantized once as it is written (JAX ``_build_decode_cache`` :424, used at
+:1134-1137). The runner refuses a config knob that the port does not
+implement, and a model whose weights are not in the config's tier, rather
+than run something else.
 
 Sequence parallelism (parallel/sequence.py): inside ``sequence_parallel``
 every rank of the group calls ``generate`` with the same inputs and
@@ -52,11 +61,14 @@ from glimpseprune_torch.compressors import (
 )
 from glimpseprune_torch.compressors.vscan import merge_dropped_into_kept, vscan_select
 from glimpseprune_torch.config import ModelConfig
+from glimpseprune_torch.models.qwen2_5_vl.decode_graph import DecodeGraphs, EagerSteps
 from glimpseprune_torch.models.qwen2_5_vl.gp_model import (
+    DecodeState,
     GlimpseOutputs,
     Qwen2_5_VL_GP,
     _gather_packed,
     _scatter_rows,
+    sample_next,
 )
 from glimpseprune_torch.models.qwen2_5_vl.inputs import (
     PreparedInputs,
@@ -69,10 +81,15 @@ from glimpseprune_torch.ops.compaction import (
     gather_positions,
     gather_tokens,
 )
-from glimpseprune_torch.ops.kv_cache import alloc_cache, cache_set_prefix
+from glimpseprune_torch.ops.kv_cache import (
+    alloc_cache,
+    cache_set_prefix,
+    cache_t,
+    is_quantized,
+)
 from glimpseprune_torch.parallel.sequence import get_sequence_parallel
 
-DECODE_CHUNK = 32  # decode steps between host-side eos / stop-sequence checks
+DECODE_CHUNK = 32  # default decode steps between host-side eos / stop-sequence checks
 
 
 @dataclass
@@ -184,6 +201,7 @@ class GlimpsePruneRunner:
         check_config(self.cfg, model)
         self.model = model.eval()
         self.device = model.text.embed_tokens.weight.device
+        self.decode_graphs = DecodeGraphs(self.model)
 
     def _device_inputs(self, prep: PreparedInputs) -> dict:
         check_binding(self.cfg, self.model)
@@ -263,16 +281,46 @@ class GlimpsePruneRunner:
     @torch.inference_mode()
     def generate(self, prep: PreparedInputs, max_new_tokens: int = 128,
                  do_selection: bool = True, eos_token_id: Optional[int] = None,
-                 stop_sequences: Optional[Sequence[Sequence[int]]] = None) -> GenerateResult:
-        """Greedy generation after the pruned (do_selection) or unpruned
-        prefill. stop_sequences: token-id sequences; a matched row stops and
-        is trimmed before the match (plain eos is trimmed inclusively)."""
+                 stop_sequences: Optional[Sequence[Sequence[int]]] = None,
+                 check_eos_every: Optional[int] = None, temperature: float = 0.0,
+                 rng: Optional[torch.Generator] = None) -> GenerateResult:
+        """Generation after the pruned (do_selection) or unpruned prefill
+        (JAX :848-936). stop_sequences: token-id sequences; a matched row
+        stops and is trimmed before the match (plain eos is trimmed
+        inclusively). check_eos_every: the decode chunk, the steps between
+        the host's early-exit checks (None: 32). temperature > 0 samples
+        from softmax(logits / temperature) with rng (a torch.Generator on
+        the model's device; None: seed 0), else greedy."""
         eos = self.cfg.eos_token_id if eos_token_id is None else eos_token_id
         pre = self.prefill(prep, do_selection)
+        chunk = DECODE_CHUNK if check_eos_every is None else max(1, check_eos_every)
         seqs, n_gen = self._decode_loop(pre.logits, pre.valid, pre.position_ids, pre.kv_k,
-                                        pre.kv_v, max_new_tokens, eos, stop_sequences)
+                                        pre.kv_v, max_new_tokens, eos, temperature, rng,
+                                        chunk, stop_sequences=stop_sequences)
+        return self._result(prep, pre, seqs, n_gen)
+
+    @torch.inference_mode()
+    def stream_generate(self, prep: PreparedInputs, max_new_tokens: int = 128,
+                        do_selection: bool = True, eos_token_id: Optional[int] = None,
+                        chunk_size: int = 4, temperature: float = 0.0,
+                        rng: Optional[torch.Generator] = None,
+                        stop_sequences: Optional[Sequence[Sequence[int]]] = None):
+        """Streaming generation (JAX :1192-1237): yields each [B, chunk_size]
+        block of new tokens (numpy, before eos trimming) as its chunk lands;
+        the GenerateResult, as ``generate`` returns it, is the generator's
+        return value (``res = yield from runner.stream_generate(...)``)."""
+        eos = self.cfg.eos_token_id if eos_token_id is None else eos_token_id
+        pre = self.prefill(prep, do_selection)
+        seqs = yield from self._run_decode(pre.logits, pre.valid, pre.position_ids, pre.kv_k,
+                                           pre.kv_v, max_new_tokens, eos, temperature, rng,
+                                           chunk_size, stop_sequences=stop_sequences)
+        seqs, n_gen = self._trim_eos(seqs, max_new_tokens, eos, stop_sequences)
+        return self._result(prep, pre, seqs, n_gen)
+
+    @staticmethod
+    def _result(prep: PreparedInputs, pre: PrefillResult, seqs, n_gen) -> GenerateResult:
         keep_img = mask_logits = prune_ratio = None
-        if do_selection:
+        if pre.keep_img is not None:
             keep_img = pre.keep_img.cpu().numpy()
             mask_logits = pre.mask_logits.float().cpu().numpy()
             prune_ratio = 1.0 - keep_img.sum(1) / np.maximum(prep.n_img_tokens, 1)
@@ -400,7 +448,8 @@ class GlimpsePruneRunner:
         pre = self.prefill_compressed(prep, method, visual_token_num, dominant_ratio,
                                       contextual_ratio, stages, clip_text_ids)
         seqs, n_gen = self._decode_loop(pre.logits, pre.valid, pre.position_ids, pre.kv_k,
-                                        pre.kv_v, max_new_tokens, eos, stop_sequences)
+                                        pre.kv_v, max_new_tokens, eos,
+                                        stop_sequences=stop_sequences)
         kept = pre.kept.cpu().numpy()
         return GenerateResult(
             sequences=seqs, num_generated=n_gen,
@@ -409,10 +458,21 @@ class GlimpsePruneRunner:
             prune_ratio=1.0 - kept / np.maximum(prep.n_img_tokens, 1))
 
     def _decode_loop(self, logits, r_valid, r_pos, kv_k, kv_v, max_new_tokens, eos,
+                     temperature: float = 0.0, rng: Optional[torch.Generator] = None,
+                     chunk_size: int = DECODE_CHUNK, prealloc_t: Optional[int] = None,
                      stop_sequences=None):
-        seqs = self._run_decode(logits, r_valid, r_pos, kv_k, kv_v, max_new_tokens, eos,
-                                stop_sequences)
-        return self._trim_eos(seqs, max_new_tokens, eos, stop_sequences)
+        """Decode over a prefill's KV and trim it (JAX :1053-1080): ->
+        (seqs [B, max_new_tokens], num_generated [B]). prealloc_t: kv_k and
+        kv_v are already the whole decode cache [L, B, prealloc_t, Hkv, D]
+        with the R prefix slots written (r_valid stays [B, R]); the decode
+        writes into it."""
+        gen = self._run_decode(logits, r_valid, r_pos, kv_k, kv_v, max_new_tokens, eos,
+                               temperature, rng, chunk_size, prealloc_t, stop_sequences)
+        while True:
+            try:
+                next(gen)
+            except StopIteration as stop:
+                return self._trim_eos(stop.value, max_new_tokens, eos, stop_sequences)
 
     @staticmethod
     def _first_stop_match(row: np.ndarray, stop_sequences) -> int:
@@ -453,43 +513,99 @@ class GlimpsePruneRunner:
         cache = alloc_cache(shape, kv.dtype, self.device, self.cfg.text.kv_cache_quant)
         return cache_set_prefix(cache, kv)
 
+    @torch.inference_mode()
+    def decode_steps(self, logits, r_valid, r_pos, kv_k, kv_v, t: int, eos: int,
+                     temperature: float = 0.0, rng: Optional[torch.Generator] = None,
+                     prealloc: bool = False):
+        """The steps of a decode, begun: the first token from the prefill's
+        last logits (argmax, or a sample from rng), the prefill's KV in the
+        runner's static cache of t slots (or, with ``prealloc``, kv_k and
+        kv_v are the caller's whole cache, prefix written, which a captured
+        step's state then lets go of), kv_valid the prefix's r_valid [B, R]
+        then False. On a CUDA model a captured step
+        (decode_graph.StepGraph), else the step run eagerly; either one's
+        ``run(n, rng)`` takes n steps and its ``state`` holds the tokens
+        (``toks[:, s]``, the token fed at step s) and the done flags."""
+        model = self.model
+        b, r = r_valid.shape
+        sampled = temperature > 0
+        last = logits[:, -1]
+        noise = (torch.rand(last.shape, generator=rng, device=last.device)
+                 if sampled else None)
+        first = sample_next(last, temperature if sampled else None, noise)
+
+        def make_state() -> DecodeState:
+            caches = ((kv_k, kv_v) if prealloc else
+                      (self.decode_cache(kv_k, t), self.decode_cache(kv_v, t)))
+            return DecodeState.alloc(*caches, t, self.cfg.text.vocab_size, sampled)
+
+        def begin(st: DecodeState) -> None:
+            if not prealloc:
+                cache_set_prefix(st.k_cache, kv_k)
+                cache_set_prefix(st.v_cache, kv_v)
+            st.kv_valid[:, :r] = r_valid
+            st.kv_valid[:, r:] = False
+            st.begin(first, r_pos[:, :, -1], r, eos, temperature)
+
+        if self.device.type != "cuda":
+            st = make_state()
+            begin(st)
+            return EagerSteps(model, st)
+        owner = None
+        if prealloc:  # the graph writes the caller's buffers: they key it
+            owner = tuple((x.data_ptr(), x.dtype, x.shape, x.stride()) for c in (kv_k, kv_v)
+                          for x in (c.values() if is_quantized(c) else [c]))
+        key = (b, t, self.cfg.text.kv_cache_quant, sampled, owner)
+        steps = self.decode_graphs.steps(key, make_state, begin)
+        if prealloc:
+            # replays write by address, which the key holds: a kept graph
+            # keeps no reference, so the caller's cache goes when they drop
+            # it, and a new cache at the same address with the same layout
+            # is the memory the graph writes
+            steps.state.k_cache = steps.state.v_cache = None
+        return steps
+
+    @torch.inference_mode()
     def _run_decode(self, logits, r_valid, r_pos, kv_k, kv_v, max_new_tokens, eos,
-                    stop_sequences=None) -> np.ndarray:
-        """Greedy decode over the prefill's KV -> seqs [B, n_chunks * chunk]
-        (token emitted at each step; eos once a row is done)."""
-        model, text = self.model, self.model.text
+                    temperature: float = 0.0, rng: Optional[torch.Generator] = None,
+                    chunk_size: int = DECODE_CHUNK, prealloc_t: Optional[int] = None,
+                    stop_sequences=None):
+        """The decode loop, a generator (JAX :1114-1190): chunks of
+        ``chunk_size`` steps, yielding each [B, chunk] block of tokens as
+        it lands; returns seqs [B, n_chunks * chunk] (the token emitted at
+        each step; eos once a row is done). The host reads the block and
+        the done flags at each chunk's end, and stops once every row is
+        done or has matched a stop sequence."""
         check_binding(self.cfg, self.model)
         b, r = r_valid.shape
-        chunk = max(1, min(DECODE_CHUNK, max_new_tokens))
-        n_steps = -(-max_new_tokens // chunk) * chunk
-        k_cache = self.decode_cache(kv_k, r + n_steps)
-        v_cache = self.decode_cache(kv_v, r + n_steps)
-        kv_valid = torch.cat([r_valid, torch.zeros((b, n_steps), dtype=torch.bool,
-                                                   device=self.device)], dim=1)
-        last_pos = r_pos[:, :, -1]  # [3, B]
-        tok = logits[:, -1].argmax(-1)
-        done = tok == eos
-        toks = torch.full((b, n_steps), eos, dtype=torch.long, device=self.device)
-        seqs = np.full((b, n_steps), eos, dtype=np.int64)
-        for step in range(n_steps):
-            widx = r + step
-            cos, sin = model._cos_sin((last_pos + 1 + step)[:, :, None])
-            kv_valid[:, widx] = True
-            x = text.embed(tok[:, None])
-            for layer_idx, layer in enumerate(text.layers):
-                x = layer.decode(layer_idx, x, cos, sin, k_cache, v_cache, kv_valid, widx)
-            nxt = text.logits(text.final_norm(x))[:, -1].argmax(-1)
-            nxt = torch.where(done, torch.full_like(nxt, eos), nxt)
-            toks[:, step] = tok  # the token emitted at this step
-            done = done | (nxt == eos)
-            tok = nxt
-            if (step + 1) % chunk == 0:
-                seqs[:, :step + 1] = toks[:, :step + 1].cpu().numpy()
-                finished = done.cpu().numpy()
-                if stop_sequences:  # a matched row counts as done
-                    finished = finished | np.array([
-                        self._first_stop_match(seqs[i, :step + 1], stop_sequences) >= 0
-                        for i in range(b)])
-                if finished.all():
-                    break
+        chunk = max(1, min(chunk_size, max_new_tokens))
+        n_chunks = -(-max_new_tokens // chunk)
+        if prealloc_t is None:
+            t = r + n_chunks * chunk
+        else:
+            if prealloc_t < r + n_chunks * chunk:
+                raise ValueError(f"prealloc_t={prealloc_t} < R + max_new rounded "
+                                 f"({r} + {n_chunks * chunk})")
+            if cache_t(kv_k) != prealloc_t:
+                raise ValueError(f"prealloc_t={prealloc_t} is not the cache's "
+                                 f"{cache_t(kv_k)} slots")
+            t = int(prealloc_t)
+        if temperature > 0 and rng is None:
+            rng = torch.Generator(self.device).manual_seed(0)
+        steps = self.decode_steps(logits, r_valid, r_pos, kv_k, kv_v, t, eos, temperature, rng,
+                                  prealloc=prealloc_t is not None)
+        seqs = np.full((b, n_chunks * chunk), eos, dtype=np.int64)
+        for ci in range(n_chunks):
+            steps.run(chunk, rng)
+            block = slice(ci * chunk, (ci + 1) * chunk)
+            toks = steps.state.toks[:, block].cpu().numpy()
+            seqs[:, block] = toks
+            yield toks
+            finished = steps.state.done.cpu().numpy()
+            if stop_sequences:  # a matched row counts as done
+                finished = finished | np.array([
+                    self._first_stop_match(seqs[i, :block.stop], stop_sequences) >= 0
+                    for i in range(b)])
+            if finished.all():
+                break
         return seqs

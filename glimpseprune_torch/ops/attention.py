@@ -25,7 +25,7 @@ rank's whole windows with no collective.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 
@@ -115,7 +115,7 @@ def causal_segment_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def decode_attention(q: torch.Tensor, k_cache: Cache, v_cache: Cache,
                      kv_valid: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
-                     write_idx: int) -> torch.Tensor:
+                     write_idx: Union[int, torch.Tensor]) -> torch.Tensor:
     """New queries over a cached prefix plus the new tokens' own keys.
 
     q [B, S_new, Hq, D]; caches [B, T, Hkv, D] of which slots >= write_idx
@@ -123,6 +123,9 @@ def decode_attention(q: torch.Tensor, k_cache: Cache, v_cache: Cache,
     attend causally among themselves. The cache is read before the layer
     writes the new tokens into it (language._layer_decode), as in the JAX
     package. Grouped GQA: the cache is never expanded to Hq heads.
+    write_idx is an int or a 0-d tensor on q's device; nothing here reads a
+    device value on the host, so a captured decode step masks by the slot
+    of each replay.
 
     An int8 cache ({"q": int8 [B, T, Hkv, D], "s": f32 [B, T, Hkv]}) is
     read as its integer values: the key scale multiplies the logits and the

@@ -1,8 +1,9 @@
 """Decode KV cache, layout [L, B, T, Hkv, D]: in the model dtype, or int8.
 
 Counterpart of glimpseprune_tpu/ops/kv_cache.py (``quantize_kv`` :42,
-``alloc_cache`` :58, ``cache_set_prefix`` :68, ``cache_layer`` :96,
-``cache_append`` :106, ``cache_nbytes`` :127). The int8 tier is the dict
+``alloc_cache`` :58, ``cache_set_prefix`` :68, ``cache_fill_rows`` :80,
+``cache_layer`` :96, ``cache_append`` :106, ``cache_t`` :123,
+``cache_nbytes`` :127). The int8 tier is the dict
 
     {"q": int8 [L, B, T, Hkv, D], "s": f32 [L, B, T, Hkv]}
 
@@ -13,8 +14,11 @@ attention applies it to the logits and folds it into the probabilities
 prefix is quantized once, when the cache is built from the prefill's KV.
 
 JAX arrays are immutable, so the JAX package returns a new cache from every
-write; here the writes are in place (slice assignment) on the buffers that
-the decode loop owns, and the functions return that same cache.
+write; here the writes are in place on the buffers that the decode loop
+owns, and the functions return that same cache. ``cache_append`` takes the
+slot as an int (prefill callers) or as a 0-d tensor on the cache's device,
+which a captured decode step reads at each replay: a Python int would be
+baked into the graph.
 """
 
 from __future__ import annotations
@@ -64,6 +68,20 @@ def cache_set_prefix(cache: Cache, kv: torch.Tensor, start: int = 0) -> Cache:
     return cache
 
 
+def cache_fill_rows(cache: Cache, kv: torch.Tensor, b0: int) -> Cache:
+    """Write a chunk kv [L, Bc, S, Hkv, D] into rows [b0, b0 + Bc) and slots
+    [0, S) (serving assembly: prefill chunks into one decode batch); the
+    int8 tier quantizes it here. S must be at most the cache's T."""
+    rows, s = slice(b0, b0 + kv.shape[1]), kv.shape[2]
+    if is_quantized(cache):
+        q, sc = quantize_kv(kv)
+        cache["q"][:, rows, :s] = q
+        cache["s"][:, rows, :s] = sc
+    else:
+        cache[:, rows, :s] = kv
+    return cache
+
+
 def cache_layer(cache: Cache, layer: int) -> Cache:
     """[L, B, T, Hkv, D] -> layer's [B, T, Hkv, D] (views)."""
     if is_quantized(cache):
@@ -71,16 +89,30 @@ def cache_layer(cache: Cache, layer: int) -> Cache:
     return cache[layer]
 
 
-def cache_append(cache: Cache, kv_new: torch.Tensor, layer: int, write_idx: int) -> Cache:
-    """Write the new tokens' kv [B, S_new, Hkv, D] into layer at write_idx."""
-    end = write_idx + kv_new.shape[1]
+def _write_slots(dst: torch.Tensor, src: torch.Tensor, write_idx) -> None:
+    """dst [B, T, ...][:, write_idx:write_idx + S_new] = src [B, S_new, ...];
+    write_idx an int or a 0-d tensor on dst's device, read there."""
+    idx = torch.arange(src.shape[1], device=dst.device) + write_idx
+    dst.index_copy_(1, idx, src.to(dst.dtype))
+
+
+def cache_append(cache: Cache, kv_new: torch.Tensor, layer: int,
+                 write_idx: Union[int, torch.Tensor]) -> Cache:
+    """Write the new tokens' kv [B, S_new, Hkv, D] into layer at slots
+    write_idx.. (an int, or a 0-d tensor on the cache's device, which an
+    ``index_copy_`` reads there)."""
     if is_quantized(cache):
         q, s = quantize_kv(kv_new)
-        cache["q"][layer, :, write_idx:end] = q
-        cache["s"][layer, :, write_idx:end] = s
+        _write_slots(cache["q"][layer], q, write_idx)
+        _write_slots(cache["s"][layer], s, write_idx)
     else:
-        cache[layer, :, write_idx:end] = kv_new
+        _write_slots(cache[layer], kv_new, write_idx)
     return cache
+
+
+def cache_t(cache: Cache) -> int:
+    """The number of slots T of a cache [L, B, T, Hkv, D]."""
+    return (cache["q"] if is_quantized(cache) else cache).shape[2]
 
 
 def cache_nbytes(cache: Cache) -> int:
