@@ -117,6 +117,41 @@ Phases, each of which raises on failure (the script then exits non-zero):
      one process and two SP train steps, one SP (q8) generate with the text
      attention in int8 (K9-int8), and the tiny config under SP on the card
      against the CPU; times from CUDA events and peaks per rank.
+ 12. continuous serving (``serving.ContinuousBatcher``, run after phase 6's
+     decode checks on its bf16 7B, before training changes it, and in phase
+     9's (q4) tier after its decode checks): (s-p) batch (a)'s rows 0, 1
+     and 0 again as B=1 pruned prefills at R = out_len through 2 slots, 8
+     steps a chunk, 64 tokens each, eos never met, so the third request
+     waits for a freed slot; (s-u) the same rows unpruned, padded to (a)'s
+     length, admitted through ``vanilla_prefill_chunked_steps`` in chunks of
+     256 (4 each), running rows decoding between them. Each side: one
+     capture (``warm``), a timed serve with every chunk's replays under
+     sync_checked, whose launches (counts set to 0 just before it) are the
+     side's and must include its kernels (K1, K2 or K7 in (q4) in every
+     admission's ViT; K2 causal and fuser and, in (q4), K6 in the pruned
+     admissions; K4 in (q4)'s replays), a second serve that captures
+     nothing and gives the same tokens (replayed one step at a time for
+     its logits), each request's tokens against the runner's own
+     step-wise decode of the same B=1 prefill (every step's logits up to
+     the first token that differs within CROSS_LOGIT_RTOL, and phase 6's
+     tie rule at that bound: the batcher decodes two rows, the reference
+     one), the same comparison read on serves with a fault planted
+     (a request admitted one position behind, a stale kv_valid lane, and
+     for (s-u) the chunks' pads attended), each of which must read past
+     the bound, ms per step, idle share over a chunk, peak memory, ttft
+     and completion per request, tok/s; in (q4) K4's records in a trace
+     of one chunk equal to its counted launches (197 a step) and no K5 or
+     K6 launch inside a prefill chunk.
+     Also: ``vanilla_prefill_chunked`` then ``_decode_loop(prealloc_t=T)``
+     against ``generate(do_selection=False)`` on each row (first logits,
+     and every step's up to the first token that differs, within
+     CROSS_LOGIT_RTOL: the chunks attend in fp32, the monolithic prefill
+     through K2; a control of two ViT attention flavours on the same row
+     must stay under it), a sampled capacity-1 batcher against the
+     runner's sampled ``generate`` at the same seed (another seed changes
+     its tokens), the pruned B=1 prefill's ms beside a prefill chunk's;
+     the kernels line carries each side's launches as
+     ``launches_continuous``.
 Every kernel row carries its time (CUDA events over 10 calls) and
 ``device_ms``, the card's own time from torch.profiler, without the
 host's launch cost, its plain version's time, one PyTorch
@@ -269,6 +304,29 @@ IDLE_TRACE_TOKENS = 32
 SAMPLE_SEED = 1234
 SAMPLE_TINY_T = 1e-6
 SAMPLE_TIE_GAP = 1e-4
+# the continuous-serving phase (serving.ContinuousBatcher): batch (a)'s rows
+# 0, 1, 0 as B=1 requests through CONT_CAPACITY slots, so the third waits
+# for a freed one; CONT_INTER decode steps between host reads; unpruned
+# requests admitted in prefill chunks of CONT_CHUNK tokens
+CONT_REQUESTS = (0, 1, 0)
+CONT_CAPACITY = 2
+CONT_INTER = 8
+CONT_NEW_TOKENS = 64
+CONT_CHUNK = 256
+# phase 12 compares two arithmetics of one function: the batcher decodes 2
+# rows over its own cache length where the runner's reference decodes 1
+# (other GEMM shapes), and the chunked prefill attends in fp32
+# (decode_attention) where generate's monolithic prefill runs K2 (P
+# rounded to bf16). Any such change moves the random bf16 7B's logits
+# further than the same kernels' DECODE_LOGIT_RTOL, so phase 12 holds the
+# logits of every step up to the first token that differs, and phase 6's
+# tie rule, at this bound. It lies between two readings on an H100 (bf16
+# and (q4)): those arithmetics, 2.03e-2 at most, and a request admitted
+# one position behind over R = 831 slots, the faintest planted fault, 3.75e-2
+# at least; a control of two arithmetics (row 0 of batch (a), whose ViT
+# attention is segmented, against the same row alone, where it is dense)
+# and every planted fault (CONT_FAULTS) are read on each run
+CROSS_LOGIT_RTOL = 2.75e-2
 TRAIN_STEPS = 4
 COMPRESSORS = ("visionzip", "divprune", "cdpruner", "vscan", "pdrop")
 COMPRESSED_NEW_TOKENS = 8
@@ -1594,6 +1652,473 @@ def run_decode_checks(cfg, runner, prep_a, rows_a, tier):
     return out
 
 
+def one_row(pre):
+    """(logits, valid, position_ids, kv_k, kv_v) of a B=1 prefill."""
+    return tuple(pre[:5])
+
+
+def stepwise_decode(runner, pre, n: int, t=None, prealloc: bool = False):
+    """n greedy tokens (eos never met) of the runner's captured step over a
+    B=1 prefill, replayed one step at a time: (tokens [n], logits), token j
+    coming from logits[j] (the prefill's last logits, then each step's)."""
+    import torch
+
+    from glimpseprune_torch.models.qwen2_5_vl.decode_graph import StepGraph
+
+    logits, valid, pos, kv_k, kv_v = pre
+    t = valid.shape[1] + n if t is None else t
+    steps = runner.decode_steps(logits, valid, pos, kv_k, kv_v, t, -1, prealloc=prealloc)
+    if not isinstance(steps, StepGraph):
+        raise AssertionError("the card's decode did not run a captured step")
+    lg = [logits[0, -1]]
+    for _ in range(n - 1):
+        steps.run(1)
+        lg.append(steps.logits[0].clone())
+    toks = torch.cat([steps.state.toks[0, :n - 1], steps.state.tok[:1]])
+    return toks.cpu().numpy(), lg
+
+
+def first_difference(name, got, want, got_logits, want_logits, rtol=DECODE_LOGIT_RTOL):
+    """None where the token lists got and want [n] agree; else phase 6's
+    tie rule at the first token j that differs (token j comes from
+    logits[j]): the two runs' logits within rtol of max |logit| of each
+    other and their top two closer than that, or raise. -> record."""
+    differ = np.nonzero(got != want)[0]
+    if not len(differ):
+        return None
+    j = int(differ[0])
+    g, e = got_logits[j].float(), want_logits[j].float()
+    scale = e.abs().max()
+    margin = max(((x.topk(2).values[0] - x.topk(2).values[1]) / scale).item() for x in (g, e))
+    rec = {"first_difference": j, "logits_rel_err": ((g - e).abs().max() / scale).item(),
+           "top2_margin_rel": margin}
+    if not (rec["logits_rel_err"] <= rtol and margin < rtol):
+        raise AssertionError(f"{name}: the tokens differ without a near tie: {rec}")
+    return rec
+
+
+def steps_distance(got, want, got_logits, want_logits) -> float:
+    """The largest rel_err of two greedy decodes' logits over the steps up
+    to the first token that differs (every step where none does)."""
+    differ = np.nonzero(got != want)[0]
+    upto = int(differ[0]) if len(differ) else len(want) - 1
+    return max(rel_err(got_logits[j], want_logits[j]) for j in range(upto + 1))
+
+
+def cross_check(name, got, want, got_logits, want_logits):
+    """Phase 12's comparison of two arithmetics of one greedy decode: the
+    logits of every step up to the first token that differs within
+    CROSS_LOGIT_RTOL of max |logit| of each other (steps_distance), and
+    phase 6's tie rule at that bound where a token differs, or raise.
+    -> record."""
+    rec = {"logits_rel_dist": steps_distance(got, want, got_logits, want_logits),
+           "tie": first_difference(name, got, want, got_logits, want_logits, CROSS_LOGIT_RTOL)}
+    if rec["logits_rel_dist"] > CROSS_LOGIT_RTOL:
+        raise AssertionError(f"{name}: logits past CROSS_LOGIT_RTOL: {rec}")
+    return rec
+
+
+@contextlib.contextmanager
+def recorded(batcher):
+    """While open, the batcher's admissions in order, each (slot, global
+    step, its prefill's last logits), and every replay's logits [capacity,
+    V], its decode chunks replayed one step at a time (each replay under
+    sync_checked where that is open)."""
+    from unittest import mock
+
+    st, steps = batcher.state, batcher._steps
+    admits, logits = [], []
+    admit, run = st.admit, type(steps).run
+
+    def admitting(slot, kv_k, kv_v, r_valid, r_logits, r_pos, gstep, *args):
+        admits.append((slot, gstep, r_logits[0, -1]))
+        return admit(slot, kv_k, kv_v, r_valid, r_logits, r_pos, gstep, *args)
+
+    def stepping(n, rng=None):
+        for _ in range(n):
+            run(steps, 1, rng)
+            logits.append(steps.logits.clone())
+
+    with mock.patch.object(st, "admit", admitting), mock.patch.object(steps, "run", stepping):
+        yield admits, logits
+
+
+def request_logits(admits, logits, n: int):
+    """Each recorded request's n logits (its prefill's last, then those of
+    its row in the replays that followed its admission)."""
+    return [[first] + [logits[g0 + j][slot] for j in range(n - 1)]
+            for slot, g0, first in admits]
+
+
+# phase 12's fault controls: each plants one admission fault that the
+# batcher's comparison (steps_distance against the runner's own decode)
+# must see past CROSS_LOGIT_RTOL
+CONT_FAULTS = {
+    "s-p": ("position", "stale_lane"),
+    "s-u": ("position", "stale_lane", "pads_as_keys"),
+}
+
+
+@contextlib.contextmanager
+def planted(batcher, fault: str):
+    """One fault in the batcher's admissions while open: "position" admits
+    each request as if one global step later (every decode position one
+    behind), "stale_lane" leaves the kv_valid bits past R that other rows'
+    steps set in the slot's lane, "pads_as_keys" runs the prefill chunks
+    without new_valid (a left-padded row's pads attended as keys)."""
+    from unittest import mock
+
+    st, model = batcher.state, batcher.runner.model
+    admit, chunk = st.admit, model.prefill_chunk
+
+    def late(slot, kv_k, kv_v, r_valid, logits, r_pos, gstep, *rest):
+        admit(slot, kv_k, kv_v, r_valid, logits, r_pos, gstep + 1, *rest)
+
+    def stale(slot, kv_k, kv_v, r_valid, *rest):
+        r = r_valid.shape[1]
+        lane = st.kv_valid[slot, r:].clone()
+        admit(slot, kv_k, kv_v, r_valid, *rest)
+        st.kv_valid[slot, r:] |= lane
+
+    def unmasked(*args):
+        return chunk(*args[:6], None, *args[7:])
+
+    target = {"position": (st, "admit", late), "stale_lane": (st, "admit", stale),
+              "pads_as_keys": (model, "prefill_chunk", unmasked)}[fault]
+    with mock.patch.object(*target):
+        yield
+
+
+@contextlib.contextmanager
+def chunk_probe(model):
+    """While open, every ``prefill_chunk`` call's CUDA-event ms and the
+    launches it made, in a list of (ms, launches)."""
+    import torch
+
+    chunk = model.prefill_chunk
+    calls = []
+
+    def probed(*args, **kwargs):
+        before = launch_counts()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = chunk(*args, **kwargs)
+        end.record()
+        calls.append((start, end, {k: v - before.get(k, 0)
+                                   for k, v in launch_counts().items() if v != before.get(k, 0)}))
+        return out
+
+    model.prefill_chunk = probed
+    out = []
+    try:
+        yield out
+    finally:
+        del model.prefill_chunk
+        torch.cuda.synchronize()
+        out += [(s.elapsed_time(e), launched) for s, e, launched in calls]
+
+
+def continuous_side(cfg, runner, name, thunks, refs, r, tier, required):
+    """One side of the continuous-serving phase: a ContinuousBatcher
+    (capacity CONT_CAPACITY, CONT_INTER steps a chunk, CONT_NEW_TOKENS
+    tokens, eos never met, sized for len(thunks) requests) warmed on the
+    first request's prefill (its one capture), a timed serve of the queue,
+    every chunk's replays under sync_checked, whose launches are the
+    side's (``required`` among them); then a second serve, one step at a
+    time, that captures nothing and gives the same tokens; each request's
+    tokens against ``refs[i]`` = (tokens, logits) of the runner's own decode
+    over the same B=1 prefill (cross_check: the batcher decodes 2 rows);
+    a serve with each of the side's CONT_FAULTS planted, its steps_distance
+    from the references recorded (the largest over the requests); ms per
+    step over one chunk (CUDA events), the card's idle share over one
+    chunk; in (q4) K4's records in a trace of one chunk equal to its
+    counted launches, CONT_INTER * (7 * layers + 1). -> record."""
+    import torch
+
+    from glimpseprune_torch.serving import ContinuousBatcher
+
+    n, inter = CONT_NEW_TOKENS, CONT_INTER
+    b = ContinuousBatcher(runner, capacity=CONT_CAPACITY, prefix_len=r, max_new_tokens=n,
+                          inter_steps=inter, eos=-1, max_requests=len(thunks))
+    first = thunks[0]()
+    if not isinstance(first, tuple):  # a chunked admission's generator
+        while True:
+            try:
+                next(first)
+            except StopIteration as stop:
+                first = stop.value
+                break
+    with captures() as caught:
+        b.warm(first)
+        del first
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        with sync_checked():
+            t0 = time.perf_counter()
+            seqs, n_gen, ttft, completion = b.serve(thunks)
+            serve_s = time.perf_counter() - t0
+        launches = read_launches(required)
+        peak = torch.cuda.max_memory_allocated()
+        with sync_checked(), recorded(b) as (admits, logits):
+            again = b.serve(thunks)
+        got = request_logits(admits, logits, n)
+        del logits
+        controls = {}
+        for fault in CONT_FAULTS[name]:
+            with sync_checked(), planted(b, fault), recorded(b) as (f_admits, f_logits):
+                f_seqs = b.serve(thunks)[0]
+            controls[fault] = max(
+                steps_distance(f_seqs[i], refs[i][0], lg, refs[i][1])
+                for i, lg in enumerate(request_logits(f_admits, f_logits, n)))
+            del f_logits
+    if len(caught) != 1:
+        raise AssertionError(f"continuous {tier} {name}: {len(caught)} captures, not one")
+    if not (again[0] == seqs).all():
+        raise AssertionError(f"continuous {tier} {name}: a second serve gave other tokens")
+    checks = [cross_check(f"continuous {tier} {name} request {i}", seqs[i], refs[i][0], lg,
+                          refs[i][1]) for i, lg in enumerate(got)]
+    del got
+    steps = b._steps
+    with torch.inference_mode():
+        chunk_ms = []
+        for _ in range(3):
+            b._begin()
+            chunk_ms.append(timed_ms(lambda: steps.run(inter))[0])
+        b._begin()
+        idle, traced = idle_share(lambda: steps.run(inter))
+        k4 = None
+        if tier == "q4":
+            def chunk():
+                b._begin()
+                steps.run(inter)
+
+            per_call = {}
+            device_ms_by_kernel(chunk, iters=2, per_call=per_call)
+            before = launch_counts()
+            chunk()
+            torch.cuda.synchronize()
+            counted = sum(v for k, v in launches_since(before).items()
+                          if k.startswith("matmul_int4["))
+            k4 = {"replays": inter, "counted": counted,
+                  "traced": sum(c for k, c in per_call.items() if "decode_kernel" in k),
+                  "expected": inter * (7 * cfg.text.num_hidden_layers + 1)}
+            if not k4["traced"] == k4["counted"] == k4["expected"]:
+                raise AssertionError(f"(q4) continuous {name}: K4's records in a chunk's "
+                                     f"trace, its counted launches and 7L + 1 a step "
+                                     f"disagree: {k4}")
+    rec = {"tier": tier, "side": name, "capacity": CONT_CAPACITY, "R": r, "T": b.T,
+           "inter_steps": inter, "new_tokens": n, "requests": len(thunks),
+           "capture_ms": caught[0] * 1e3, "serve_s": serve_s,
+           "tok_per_s": float(n_gen.sum()) / serve_s,
+           "ms_per_step": sum(chunk_ms) / len(chunk_ms) / inter,
+           "peak_mem_gib": peak / 2**30, "idle_share": idle,
+           "idle_trace_records": traced, "ttft_s": ttft.tolist(),
+           "completion_s": completion.tolist(), "checks": checks,
+           "fault_controls": controls, "k4_records": k4,
+           "launches": {k: v for k, v in launches.items() if v}}
+    del b
+    return rec
+
+
+def check_chunked_prefill(cfg, runner, prep_a, rows_u, n: int):
+    """``vanilla_prefill_chunked`` (chunks of CONT_CHUNK) then
+    ``_decode_loop(prealloc_t=T)`` on each unpruned row: the first logits
+    within CROSS_LOGIT_RTOL of the monolithic prefill's, and the tokens of
+    ``generate(do_selection=False)`` on the same row (cross_check); each
+    decode's tokens the same as its
+    step-wise replays. The control: the monolithic prefill's first logits
+    of each row alone against the same row of batch (a) (another ViT
+    attention flavour for row 0), under CROSS_LOGIT_RTOL. Under act_quant
+    "prefill" the prefill layers run W8A8 / W4A8 and the chunks, decode
+    layers, do not (JAX int4_matmul.py:268-279): the monolithic side then
+    runs the tier with the text's act_quant "none", the function the
+    chunks compute, and the first logits' distance from the tier's own
+    prefill is recorded beside it. -> (records, each row's (tokens,
+    logits) of the chunked prefill's decode)."""
+    import dataclasses
+
+    from glimpseprune_torch.models.qwen2_5_vl.runner import GlimpsePruneRunner
+    from glimpseprune_torch.ops.kv_cache import cache_t
+
+    recs, refs = [], []
+    for i, prep in enumerate(rows_u):
+        s = int(prep.input_ids.shape[1]) - (cfg.gp.le_length if cfg.gp.has_le else 0)
+        pre = runner.vanilla_prefill_chunked(prep, CONT_CHUNK, prealloc_t=s + n)
+        t = cache_t(pre[3])
+        seqs, _ = runner._decode_loop(*pre, n, -1, chunk_size=n, prealloc_t=t)
+        toks, lg = stepwise_decode(runner, pre, n, t, prealloc=True)
+        if not (seqs[0] == toks).all():
+            raise AssertionError(f"row {i}: the chunked prefill's decode gave other tokens "
+                                 "than its step-wise replays")
+        recs.append({"row": i, "S": s, "T": t, "chunks": -(-s // CONT_CHUNK),
+                     "first_logits": pre[0]})
+        refs.append((toks, lg))
+        if cfg.text.act_quant == "prefill":
+            own = runner.prefill(prep, do_selection=False).logits
+            recs[-1]["first_logits_rel_dist_act_quant"] = rel_err(pre[0], own)
+        del pre
+    mono_cfg, mono_runner = cfg, runner
+    if cfg.text.act_quant == "prefill":
+        mono_cfg = dataclasses.replace(cfg, text=dataclasses.replace(cfg.text,
+                                                                     act_quant="none"))
+        mono_runner = GlimpsePruneRunner(mono_cfg, runner.model.set_config(mono_cfg))
+    try:
+        batch_logits = mono_runner.prefill(prep_a, do_selection=False).logits
+        for i, (prep, rec, (toks, lg)) in enumerate(zip(rows_u, recs, refs)):
+            gen = mono_runner.generate(prep, max_new_tokens=n, do_selection=False,
+                                       eos_token_id=-1)
+            mono = mono_runner.prefill(prep, do_selection=False)
+            want, want_lg = stepwise_decode(mono_runner, one_row(mono), n)
+            if not (gen.sequences[0] == want).all():
+                raise AssertionError(f"row {i}: generate gave other tokens than its step-wise "
+                                     "replays")
+            rec.update(mono_act_quant=mono_cfg.text.act_quant,
+                       first_logits_rel_dist=rel_err(rec.pop("first_logits"), mono.logits),
+                       control_rel_dist=rel_err(mono.logits[0], batch_logits[i]),
+                       check=cross_check(f"chunked prefill row {i}", toks, want, lg, want_lg))
+            if not max(rec["first_logits_rel_dist"], rec["control_rel_dist"]) <= CROSS_LOGIT_RTOL:
+                raise AssertionError(f"chunked prefill row {i}: first logits or the control "
+                                     f"past CROSS_LOGIT_RTOL: {rec}")
+            del mono, gen
+    finally:
+        runner.model.set_config(cfg)
+    return recs, refs
+
+
+def check_sampled_batcher(runner, prep, r: int):
+    """A sampled capacity-1 batcher (temperature 1, CONT_INTER steps a
+    chunk, CONT_NEW_TOKENS tokens) on one pruned request: its tokens equal
+    the runner's sampled ``generate`` at the same seed with
+    check_eos_every = CONT_INTER, and another seed changes them. The
+    generate decodes CONT_INTER * (need + 2) tokens, so that its cache has
+    the batcher's T slots and both runs do the same arithmetic; its first
+    CONT_NEW_TOKENS are compared. -> record."""
+    import torch
+
+    from glimpseprune_torch.serving import ContinuousBatcher
+
+    n, inter = CONT_NEW_TOKENS, CONT_INTER
+
+    def rng(seed):
+        return torch.Generator(runner.device).manual_seed(seed)
+
+    b = ContinuousBatcher(runner, capacity=1, prefix_len=r, max_new_tokens=n,
+                          inter_steps=inter, eos=-1, temperature=1.0, max_requests=1)
+    if b.T != r + inter * (b.need + 2):
+        raise AssertionError(f"the sampled batcher's T {b.T} is not R + inter (need + 2)")
+
+    def thunk():
+        return one_row(runner.prefill(prep))
+
+    with sync_checked():
+        seqs = b.serve([thunk], rng=rng(SAMPLE_SEED))[0][0]
+        other = b.serve([thunk], rng=rng(SAMPLE_SEED + 1))[0][0]
+        want = runner.generate(prep, max_new_tokens=b.T - r, eos_token_id=-1, temperature=1.0,
+                               rng=rng(SAMPLE_SEED), check_eos_every=inter).sequences[0, :n]
+    if not (seqs == want).all() or (seqs == other).all():
+        raise AssertionError(f"sampled batcher: seed {SAMPLE_SEED} gave {seqs}, generate "
+                             f"{want}, seed {SAMPLE_SEED + 1} {other}")
+    return {"seeded_equal_generate": True, "other_seed_differs": True,
+            "generate_new_tokens": b.T - r}
+
+
+def run_continuous_serving(cfg, runner, prep_a, rows_p, rows_u, tier, smi):
+    """The continuous-serving phase on one model (bf16, then (q4)): (s-p)
+    CONT_REQUESTS as B=1 pruned prefills at R = out_len, and (s-u) the same
+    rows' unpruned prefills admitted in chunks of CONT_CHUNK
+    (``vanilla_prefill_chunked_steps``), each through a ContinuousBatcher
+    (continuous_side); the chunked prefill against generate
+    (check_chunked_prefill); a sampled capacity-1 batcher against generate
+    (check_sampled_batcher); the admission prefills' ms (pruned B=1 against
+    each chunk of the rows' chunked prefills); in (q4) no K5 or K6 launch
+    inside a chunk. The kernels' launches are each side's timed serve's;
+    the fault controls, printed with the rest, must each read past
+    CROSS_LOGIT_RTOL. -> record."""
+    import dataclasses
+
+    import torch
+
+    n = CONT_NEW_TOKENS
+    # the kernels each side's serve must launch: the ViT's (K1, and K2
+    # dense or, in (q4), K7), and the pruned prefill's causal and fuser K2
+    # and, in (q4), K6; K4 in (q4)'s replays
+    vit = ["window_attention_fused",
+           "flash_attention_int8[dense+pv8]" if tier == "q4" else "flash_attention[dense]"]
+    required = {"s-p": vit + ["flash_attention[causal]", "flash_attention[dqk_ne_dv]"],
+                "s-u": list(vit)}
+    if tier == "q4":
+        required["s-p"] += ["matmul_int4_prefill[a8,*]", "matmul_int4[*]"]
+        required["s-u"] += ["matmul_int4[*]"]
+    with torch.inference_mode():
+        r_p = max(p.out_len for p in rows_p)
+        rows_p = [dataclasses.replace(p, out_len=r_p) for p in rows_p]
+        refs_p = {i: stepwise_decode(runner, one_row(runner.prefill(rows_p[i])), n)
+                  for i in set(CONT_REQUESTS)}
+        for i, (toks, _) in refs_p.items():
+            loop, _ = runner._decode_loop(*one_row(runner.prefill(rows_p[i])), n, -1,
+                                          chunk_size=n)
+            if not (loop[0] == toks).all():
+                raise AssertionError(f"row {i}: _decode_loop gave other tokens than its "
+                                     "step-wise replays")
+        chunked_recs, refs_u = check_chunked_prefill(cfg, runner, prep_a, rows_u, n)
+    pruned = continuous_side(cfg, runner, "s-p", [
+        (lambda p=rows_p[i]: one_row(runner.prefill(p))) for i in CONT_REQUESTS],
+        [refs_p[i] for i in CONT_REQUESTS], r_p, tier, required["s-p"])
+
+    def chunked(prep):
+        def thunk():
+            gen = runner.vanilla_prefill_chunked_steps(prep, CONT_CHUNK)
+            while True:
+                try:
+                    yield next(gen)
+                except StopIteration as stop:
+                    return one_row(stop.value)
+        return thunk
+
+    r_u = chunked_recs[0]["S"]
+    if any(c["S"] != r_u for c in chunked_recs):
+        raise AssertionError(f"the unpruned rows' lengths differ: {chunked_recs}")
+    unpruned = continuous_side(cfg, runner, "s-u", [chunked(rows_u[i]) for i in CONT_REQUESTS],
+                               [refs_u[i] for i in CONT_REQUESTS], r_u, tier, required["s-u"])
+    with torch.inference_mode(), chunk_probe(runner.model) as chunk_calls:
+        for prep in rows_u:  # an admission's chunks, timed apart
+            runner.vanilla_prefill_chunked(prep, CONT_CHUNK)
+    in_chunks = Counter()
+    for _, launched in chunk_calls:
+        in_chunks.update(launched)
+    if tier == "q4" and any(k.startswith("matmul_int4_prefill") for k in in_chunks):
+        raise AssertionError(f"(q4) prefill chunks launched K5 / K6: {dict(in_chunks)}")
+    with torch.inference_mode():
+        sampled = check_sampled_batcher(runner, rows_p[0], r_p)
+        prefill_ms = timed_ms(lambda: runner.prefill(rows_p[0]))[0]
+    torch.cuda.synchronize()
+    rec = {"tier": tier, "sides": [pruned, unpruned], "chunked_prefill": chunked_recs,
+           "sampled": sampled, "pruned_prefill_ms": prefill_ms,
+           "chunk_ms": [ms for ms, _ in chunk_calls],
+           "chunk_launches": dict(in_chunks)}
+    print(f"continuous serving {tier} " + json.dumps(rec))
+    for side in rec["sides"]:
+        for i, (a, c) in enumerate(zip(side["ttft_s"], side["completion_s"])):
+            print(f"continuous {tier} {side['side']} request {i} on {smi}: ttft {a * 1e3:.1f} ms, "
+                  f"completion {c * 1e3:.1f} ms")
+        print(f"continuous {tier} {side['side']} on {smi}: {side['tok_per_s']:.1f} tok/s, "
+              f"capture {side['capture_ms']:.1f} ms, {side['ms_per_step']:.2f} ms/step, peak "
+              f"{side['peak_mem_gib']:.2f} GiB, idle {side['idle_share']}")
+        print(f"continuous {tier} {side['side']} serve launches " + json.dumps(side["launches"]))
+        print(f"continuous {tier} {side['side']} fault controls (CROSS_LOGIT_RTOL "
+              f"{CROSS_LOGIT_RTOL}): " + json.dumps(side["fault_controls"]))
+    chunk_ms = rec["chunk_ms"]
+    print(f"continuous {tier} admission prefill on {smi}: pruned B=1 {prefill_ms:.1f} ms; "
+          f"one chunk of {CONT_CHUNK} {sum(chunk_ms) / len(chunk_ms):.1f} ms (mean of "
+          f"{len(chunk_ms)}, {max(chunk_ms):.1f} max)")
+    unseen = {f"{side['side']} {fault}": v for side in rec["sides"]
+              for fault, v in side["fault_controls"].items() if not v > CROSS_LOGIT_RTOL}
+    if unseen:
+        raise AssertionError(f"continuous {tier}: planted faults within CROSS_LOGIT_RTOL: "
+                             f"{unseen}")
+    return rec
+
+
 def compressor_kwargs(method):
     if method in ("divprune", "cdpruner", "vscan"):
         return {"visual_token_num": VISUAL_TOKEN_NUM}
@@ -2747,12 +3272,14 @@ def quant_config(cfg, tier: str):
     return dataclasses.replace(q, text=dataclasses.replace(q.text, kv_cache_quant="int8"))
 
 
-def run_quant_tier(cfg, tier: str, cases, rows_a):
+def run_quant_tier(cfg, tier: str, cases, rows_a, rows_u, smi):
     """One quantized tier on a fresh random 7B: bf16 first logits, then
     quantize_model on the card and pruned + unpruned generate on each
     batch (every decode chunk's replays under sync_checked), then the
-    decode checks on batch (a) and its rows -> (per-run records, launch
-    counts, decode checks)."""
+    decode checks on batch (a) and its rows, and in (q4) the
+    continuous-serving phase on (a)'s rows (``rows_a`` pruned, ``rows_u``
+    unpruned) -> (per-run records, launch counts, decode checks, the
+    continuous-serving record or None)."""
     import torch
 
     from glimpseprune_torch.convert import init_random
@@ -2818,9 +3345,12 @@ def run_quant_tier(cfg, tier: str, cases, rows_a):
     launches = read_launches(required)
     print(f"{tier} quantized-path launches " + json.dumps(launches))
     decode = run_decode_checks(qcfg, runner, dict(cases)["a"], rows_a, tier)
+    continuous = (run_continuous_serving(qcfg, runner, dict(cases)["a"], rows_a, rows_u, tier,
+                                         smi)
+                  if tier == "q4" else None)
     del runner, model
     torch.cuda.empty_cache()
-    return runs, launches, decode
+    return runs, launches, decode, continuous
 
 
 def check_small_quant(cfg_tier: str):
@@ -3197,8 +3727,12 @@ def main() -> int:
     prompts_a = make_prompts(cfg, rng, 2, lo, hi)
     prep_a = prepare_inputs(cfg, prompts_a, images)
     prep_b = prepare_inputs(cfg, make_prompts(cfg, rng, 1, lo, hi), images[:1])
-    # (a)'s rows as B=1 requests, for the serving-shaped decode
+    # (a)'s rows as B=1 requests, for the serving-shaped decode and the
+    # continuous-serving phase; padded to (a)'s length for its unpruned
+    # requests, which then take (a)'s S - le_length slots
     rows_a = [prepare_inputs(cfg, [prompts_a[i]], [images[i]]) for i in range(2)]
+    rows_u = [prepare_inputs(cfg, [prompts_a[i]], [images[i]],
+                             seq_multiple=prep_a.input_ids.shape[1]) for i in range(2)]
     gen = torch.Generator(device="cuda").manual_seed(0)
     kernels = [check_window_attention(cfg, prep_a, gen)]
     k8_row = check_window_attention_unfused(cfg, prep_a, gen)
@@ -3216,6 +3750,11 @@ def main() -> int:
         runs, serve_launches = run_main_path(cfg, model, [("a", prep_a), ("b", prep_b)])
     decode_checks = {"bf16": run_decode_checks(cfg, GlimpsePruneRunner(cfg, model), prep_a,
                                                rows_a, "bf16")}
+    # phase 12: continuous serving, before training changes the model
+    t_cont = time.perf_counter()
+    continuous = {"bf16": run_continuous_serving(cfg, GlimpsePruneRunner(cfg, model), prep_a,
+                                                 rows_a, rows_u, "bf16", smi)}
+    continuous_s = time.perf_counter() - t_cont
     small = check_small_reference()
 
     # phase 10: the compressed serving path, before training changes the model
@@ -3258,8 +3797,10 @@ def main() -> int:
     t_quant = time.perf_counter()
     quant_runs, quant_launches, small_quant = [], {}, {}
     for tier in QUANT_TIERS:
-        tier_runs, quant_launches[tier], decode_checks[tier] = run_quant_tier(
-            cfg, tier, [("a", prep_a), ("b", prep_b)], rows_a)
+        tier_runs, quant_launches[tier], decode_checks[tier], cont = run_quant_tier(
+            cfg, tier, [("a", prep_a), ("b", prep_b)], rows_a, rows_u, smi)
+        if cont is not None:
+            continuous[tier] = cont
         quant_runs += tier_runs
         small_quant[tier] = check_small_quant(tier)
     quant_s = time.perf_counter() - t_quant
@@ -3291,6 +3832,10 @@ def main() -> int:
             k["note"] = next(v for p, v in off_path.items() if k["name"].startswith(p))
     kernels += quant_kernels
     kernels += k9_rows
+    for k in kernels:  # phase 12's timed serves' launches, bf16 and (q4)
+        k["launches_continuous"] = {tier: {side["side"]: side["launches"].get(k["name"], 0)
+                                           for side in c["sides"]}
+                                    for tier, c in continuous.items()}
     for k in kernels:
         print(speed(k))
     for tier, d in decode_checks.items():
@@ -3320,7 +3865,8 @@ def main() -> int:
                       "tiny_compressed_err": small_compressed,
                       "compressed_path_s": compressed_s,
                       "k9_shards": k9_report, "sp_path_s": sp_s, "sp_launches": sp_launches,
-                      "sp_ranks": sp_ranks,
+                      "sp_ranks": sp_ranks, "continuous_serving": continuous,
+                      "continuous_bf16_s": continuous_s,
                       "total_s": time.perf_counter() - t_start}, default=str))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

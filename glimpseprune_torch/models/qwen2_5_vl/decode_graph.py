@@ -35,7 +35,9 @@ keeps no reference to those: a new cache at the same address and layout is
 the memory the graph writes). It keeps a few and drops the oldest. Its graphs share one memory pool, which holds one step's
 temporaries: graphs replay one at a time on one stream, and what outlives
 a step lives in its DecodeState, outside the pool. A runner decodes one
-request at a time: two decodes of one key share the state.
+request at a time: two decodes of one key share the state. The
+continuous batcher (serving.py) captures one StepGraph of its own, over
+its own state, whose step counter is the batcher's global write cursor.
 """
 
 from __future__ import annotations

@@ -7,9 +7,11 @@ Counterpart of glimpseprune_tpu/models/qwen2_5_vl/gp_model.py:
 logits and the answer loss ``le_loss``, :269-285), ``reduce_and_resume``
 :341, ``glimpse_prefill`` :417, the baseline compressors' staged in-LLM
 drop ``staged_prefill`` :427 and full-depth ``prefill_embeds`` :595,
-``vanilla_prefill`` :516, ``decode_chunk`` :607, ``decode_step`` :693 and
-``embed_with_images`` :704. The row scatters and gathers (:88-115) are
-index operations here, not the JAX package's one-hot matmuls.
+``vanilla_prefill`` :516, ``decode_chunk`` :607, ``decode_step`` :693,
+``embed_with_images`` :704 and ``prefill_chunk`` :718; ``DecodeState.admit``
+is the continuous batcher's admission (JAX serving.py:101-121). The row
+scatters and gathers (:88-115) are index operations here, not the JAX
+package's one-hot matmuls.
 
 Decode: ``decode_state_step`` is one step of JAX ``decode_chunk``'s scan,
 written on the device tensors of a ``DecodeState`` only (a 0-d step
@@ -39,7 +41,7 @@ from glimpseprune_torch.ops.compaction import (
     gather_tokens,
 )
 from glimpseprune_torch.ops.keep_policy import descending_rank, keep_scores_with_policy
-from glimpseprune_torch.ops.kv_cache import Cache, cache_t
+from glimpseprune_torch.ops.kv_cache import Cache, cache_fill_rows, cache_t
 from glimpseprune_torch.ops.rope import mrope_cos_sin
 
 
@@ -128,6 +130,34 @@ class DecodeState:
         self.eos.fill_(eos)
         if self.temperature is not None:
             self.temperature.fill_(temperature)
+
+    def admit(self, slot: int, kv_k: torch.Tensor, kv_v: torch.Tensor, r_valid: torch.Tensor,
+              logits: torch.Tensor, r_pos: torch.Tensor, gstep: int, temperature: float = 0.0,
+              rng: Optional[torch.Generator] = None) -> None:
+        """Admit one request's B=1 prefill into row ``slot`` of a decode
+        whose ``step`` counts global steps (JAX serving.py:101-121
+        ``_admit``), on device tensors only: its kv [L, 1, R, Hkv, D] fills
+        slots [0, R) (``cache_fill_rows``, which quantizes under the int8
+        tier), the slot's whole kv_valid lane is cleared (other rows' steps
+        have set bits in it) before its first R entries take r_valid [1,
+        R], the first token is the argmax of the last logits or, with a
+        temperature, a Gumbel-max sample from rng (the same draw as
+        ``runner.decode_steps``), done restarts from it, and last_pos
+        holds the row's base r_pos[:, 0, -1] - gstep, so that the global
+        step at which the row was admitted feeds position r_pos[:, 0, -1]
+        + 1."""
+        r = r_valid.shape[1]
+        cache_fill_rows(self.k_cache, kv_k, slot)
+        cache_fill_rows(self.v_cache, kv_v, slot)
+        self.kv_valid[slot] = False
+        self.kv_valid[slot, :r] = r_valid[0]
+        last = logits[:, -1]
+        noise = (torch.rand(last.shape, generator=rng, device=last.device)
+                 if temperature > 0 else None)
+        first = sample_next(last, temperature if temperature > 0 else None, noise)[0]
+        self.tok[slot] = first
+        self.done[slot] = first == self.eos
+        self.last_pos[:, slot] = r_pos[:, 0, -1] - gstep
 
     def draw_noise(self, rng: Optional[torch.Generator]) -> None:
         """One step's uniform draws from rng (sampling only): one launch,
@@ -239,11 +269,15 @@ class Qwen2_5_VL_GP(nn.Module):
         inside = (offset >= 0) & (offset < le_length)
         return offset.clamp(0, le_length - 1), inside
 
-    def embed_with_images(self, input_ids, image_embeds, packed_idx, img_slots, img_valid):
-        """Token embeddings with the image rows scattered in. Nothing here
-        is trained, so autograd records none of it."""
+    def embed_with_images(self, input_ids, image_embeds=None, packed_idx=None, img_slots=None,
+                          img_valid=None):
+        """Token embeddings with the image rows scattered in (JAX :704-716);
+        image_embeds None gives text-only rows. Nothing here is trained, so
+        autograd records none of it."""
         with torch.no_grad():
             embeds = self.text.embed(input_ids)
+            if image_embeds is None:
+                return embeds
             rows = _gather_packed(image_embeds, packed_idx, img_valid)
             return _scatter_rows(embeds, img_slots, rows, img_valid)
 
@@ -411,6 +445,19 @@ class Qwen2_5_VL_GP(nn.Module):
         cos, sin = self._cos_sin(position_ids)
         return self.text.decode_step(input_ids, cos, sin, k_cache, v_cache, kv_valid,
                                      write_idx)
+
+    def prefill_chunk(self, chunk_embeds, position_ids, k_cache, v_cache, kv_valid,
+                      write_idx, chunk_valid, logit_index):
+        """One chunked-prefill step (JAX :718-734): C token embeddings
+        chunk_embeds [B, C, H] (image rows scattered in) at position_ids
+        [3, B, C] against the partly filled cache, written at write_idx..;
+        chunk_valid [B, C] masks the chunk's pads as keys. -> (logits [B,
+        1, V] at chunk slot logit_index, the only slot the head runs on,
+        k_cache, v_cache)."""
+        cos, sin = self._cos_sin(position_ids)
+        return self.text.decode_step(None, cos, sin, k_cache, v_cache, kv_valid, write_idx,
+                                     inputs_embeds=chunk_embeds, logits_index=logit_index,
+                                     new_valid=chunk_valid)
 
     def decode_state_step(self, st: DecodeState) -> torch.Tensor:
         """One decode step on st, in place, on device tensors only (JAX

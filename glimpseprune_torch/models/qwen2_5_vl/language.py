@@ -4,7 +4,8 @@ glimpse harvest, decode against a KV cache, final norm and LM head.
 Counterpart of glimpseprune_tpu/models/qwen2_5_vl/language.py
 (``TextDecoder`` :238, ``_layer_prefill`` :113, ``_layer_decode`` :135,
 ``harvest_postprocess`` :169, ``chunked_nll`` :293, ``run_layers`` :393,
-``decode_step`` :500).
+``decode_step`` :500, with ``inputs_embeds``, ``logits_index`` and
+``new_valid`` for chunked prefill).
 The JAX package scans one stacked parameter tree; here the layers are a
 ModuleList run by a Python loop, and a layer range is a slice of that loop.
 ``cfg.remat`` (the JAX ``jax.checkpoint`` of the scan body, :462) becomes
@@ -106,15 +107,17 @@ class DecoderLayer(nn.Module):
         return self.finish(x, attn, a8), q, k, v
 
     def decode(self, layer: int, x, cos, sin, k_cache, v_cache, kv_valid,
-               write_idx: Union[int, torch.Tensor]):
+               write_idx: Union[int, torch.Tensor], new_valid: Optional[torch.Tensor] = None):
         """One decode layer against the stacked cache [L, B, T, Hkv, D]
-        (either tier of ops/kv_cache.py): the layer's slice is read, then
-        the new tokens' k/v are written in place at write_idx (a 0-d tensor
-        on the device in a captured decode step, or an int)."""
+        (either tier of ops/kv_cache.py; JAX ``_layer_decode`` :135-160):
+        the layer's slice is read, then the new tokens' k/v are written in
+        place at write_idx (a 0-d tensor on the device in a captured decode
+        step, or an int). new_valid [B, S_new] masks the new tokens' own
+        keys (a prefill chunk's left pads)."""
         a8 = _act_quant_on(self.cfg, decoding=True)
         q, k, v = self.qkv(x, cos, sin, a8)
         attn = decode_attention(q, cache_layer(k_cache, layer), cache_layer(v_cache, layer),
-                                kv_valid, k, v, write_idx)
+                                kv_valid, k, v, write_idx, new_valid)
         cache_append(k_cache, k, layer, write_idx)
         cache_append(v_cache, v, layer, write_idx)
         return self.finish(x, attn, a8)
@@ -202,18 +205,29 @@ class TextDecoder(nn.Module):
                 total = total + self._chunk_nll_sum(xc, yc)
         return total / (ys != -100).sum().clamp(min=1).float()
 
-    def decode_step(self, input_ids: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
-                    k_cache, v_cache, kv_valid: torch.Tensor,
-                    write_idx: Union[int, torch.Tensor]):
-        """S_new >= 1 tokens input_ids [B, S_new] against the cache [L, B, T,
-        Hkv, D] (JAX :500-550, without ``inputs_embeds``, ``logits_index``
-        and ``new_valid``): kv_valid [B, T] includes the new slots, which
-        start at write_idx; the new tokens attend causally among themselves.
-        Every layer reads its cache slice, then writes the new k/v into it
-        in place. Returns (logits [B, S_new, V], k_cache, v_cache)."""
-        x = self.embed(input_ids)
+    def decode_step(self, input_ids: Optional[torch.Tensor], cos: torch.Tensor,
+                    sin: torch.Tensor, k_cache, v_cache, kv_valid: torch.Tensor,
+                    write_idx: Union[int, torch.Tensor],
+                    inputs_embeds: Optional[torch.Tensor] = None,
+                    logits_index: Union[int, torch.Tensor, None] = None,
+                    new_valid: Optional[torch.Tensor] = None):
+        """S_new >= 1 new tokens against the cache [L, B, T, Hkv, D] (JAX
+        :500-550): the decode step (S_new = 1) and a chunked-prefill step
+        (S_new = C). The tokens are input_ids [B, S_new] or, for a chunk
+        with image rows scattered in, inputs_embeds [B, S_new, H]; kv_valid
+        [B, T] includes the new slots, which start at write_idx; the new
+        tokens attend causally among themselves, new_valid [B, S_new]
+        masking those that are pads. Every layer reads its cache slice,
+        then writes the new k/v into it in place. logits_index (an int or a
+        0-d tensor on the device) runs the head on that one slot only, so a
+        chunk never pays a [B, C, V] head.
+        Returns (logits [B, S_new or 1, V], k_cache, v_cache)."""
+        x = self.embed(input_ids) if inputs_embeds is None else inputs_embeds
         for lid, layer in enumerate(self.layers):
-            x = layer.decode(lid, x, cos, sin, k_cache, v_cache, kv_valid, write_idx)
+            x = layer.decode(lid, x, cos, sin, k_cache, v_cache, kv_valid, write_idx,
+                             new_valid)
+        if logits_index is not None:
+            x = x.index_select(1, torch.as_tensor(logits_index, device=x.device).reshape(1))
         return self.logits(self.final_norm(x)), k_cache, v_cache
 
     def run_layers(

@@ -3,10 +3,11 @@ the baseline compressors.
 
 Counterpart of glimpseprune_tpu/models/qwen2_5_vl/runner.py
 (``GlimpsePruneRunner.__init__`` / ``glimpse`` / ``generate`` :437-936,
-``_decode_loop`` / ``_run_decode`` / ``_trim_eos`` / ``_first_stop_match``
-:1053-1190, ``stream_generate`` :1192 and ``generate_compressed`` :1243
-with the bodies of ``_staged_impl`` :525 and ``_pre_llm_compress_impl``
-:542).
+``vanilla_prefill_chunked`` / ``vanilla_prefill_chunked_steps`` /
+``_chunked_prefill_gen`` :938-1051, ``_decode_loop`` / ``_run_decode`` /
+``_trim_eos`` / ``_first_stop_match`` :1053-1190, ``stream_generate``
+:1192 and ``generate_compressed`` :1243 with the bodies of
+``_staged_impl`` :525 and ``_pre_llm_compress_impl`` :542).
 
 Decode: the JAX package runs a chunk of steps as one jitted ``lax.scan``
 (``gp_model.decode_chunk``); here a chunk is n replays of one captured
@@ -86,6 +87,7 @@ from glimpseprune_torch.ops.kv_cache import (
     cache_set_prefix,
     cache_t,
     is_quantized,
+    quantize_kv,
 )
 from glimpseprune_torch.parallel.sequence import get_sequence_parallel
 
@@ -277,6 +279,80 @@ class GlimpsePruneRunner:
             ids, valid, pos, merged, inputs["packed_idx"], inputs["img_slots"],
             inputs["img_valid"], logits_last_only=True)
         return PrefillResult(logits, valid, pos, kv_k, kv_v, None, None)
+
+    @torch.inference_mode()
+    def vanilla_prefill_chunked(self, prep: PreparedInputs, chunk_size: int,
+                                prealloc_t: Optional[int] = None):
+        """The unpruned prefill in chunks of ``chunk_size`` tokens straight
+        into a decode-ready cache (JAX :938-973): each chunk is one
+        ``prefill_chunk``, its new tokens causal among themselves and
+        against the slots already written. Returns (logits [B, 1, V] at
+        the last real slot, valid [B, S], position_ids [3, B, S], k_cache,
+        v_cache), the caches [L, B, T, Hkv, D] with T = max(prealloc_t or S,
+        the chunks' padded length): pass them to ``_decode_loop(...,
+        prealloc_t=T)``. The chunks attend over a cache in the model's
+        dtype; under the int8 KV tier it is quantized once, at the end, as
+        the monolithic prefill's cache is built."""
+        gen = self._chunked_prefill_gen(prep, chunk_size, prealloc_t)
+        while True:
+            try:
+                next(gen)
+            except StopIteration as stop:
+                logits, valid, pos, kc, vc = stop.value
+                break
+        if self.cfg.text.kv_cache_quant == "int8":
+            kc, vc = ({"q": q, "s": sc} for q, sc in (quantize_kv(kc), quantize_kv(vc)))
+        return logits, valid, pos, kc, vc
+
+    def vanilla_prefill_chunked_steps(self, prep: PreparedInputs, chunk_size: int):
+        """The chunked prefill as a generator for serving admission (JAX
+        :975-985): it yields after every chunk but the last (the continuous
+        batcher decodes there) and returns (logits, valid, position_ids,
+        kv_k, kv_v) with the caches sliced to the S real slots and kept in
+        the model's dtype: the batcher's ``cache_fill_rows`` applies its
+        cache tier."""
+        logits, valid, pos, kc, vc = yield from self._chunked_prefill_gen(prep, chunk_size,
+                                                                          None)
+        s = valid.shape[1]
+        return logits, valid, pos, kc[:, :, :s], vc[:, :, :s]
+
+    @torch.inference_mode()
+    def _chunked_prefill_gen(self, prep: PreparedInputs, chunk_size: int,
+                             prealloc_t: Optional[int]):
+        """(JAX :987-1051) The trailing glimpse slots are dropped, the
+        tail chunk is padded to n_chunks * C with invalid slots, and each
+        chunk's head runs on one slot: its last, or in the last chunk the
+        last real slot. Each chunk runs eagerly."""
+        cfg = self.cfg
+        inputs = self._device_inputs(prep)
+        ids, valid, pos = inputs["input_ids"], inputs["valid"], inputs["position_ids"]
+        le_len = cfg.gp.le_length if cfg.gp.has_le else 0
+        if le_len:
+            ids, valid, pos = ids[:, :-le_len], valid[:, :-le_len], pos[:, :, :-le_len]
+        b, s = ids.shape
+        c = int(chunk_size)
+        n_chunks = -(-s // c)
+        sp = n_chunks * c
+        merged, _ = self._vision(inputs, prep)
+        embeds = self.model.embed_with_images(ids, merged, inputs["packed_idx"],
+                                              inputs["img_slots"], inputs["img_valid"])
+        embeds = torch.nn.functional.pad(embeds, (0, 0, 0, sp - s))
+        pos_p = torch.nn.functional.pad(pos, (0, sp - s))
+        t = max(s if prealloc_t is None else int(prealloc_t), sp)
+        shape = (cfg.text.num_hidden_layers, b, t, cfg.text.num_key_value_heads,
+                 cfg.text.head_dim)
+        k_cache, v_cache = (alloc_cache(shape, embeds.dtype, self.device) for _ in range(2))
+        kv_valid = torch.cat([valid, valid.new_zeros((b, t - s))], 1)
+        rel = (s - 1) - (n_chunks - 1) * c
+        for i in range(n_chunks):
+            last = i == n_chunks - 1
+            sl = slice(i * c, (i + 1) * c)
+            logits, k_cache, v_cache = self.model.prefill_chunk(
+                embeds[:, sl], pos_p[:, :, sl], k_cache, v_cache, kv_valid, i * c,
+                kv_valid[:, sl], rel if last else c - 1)
+            if not last:
+                yield i
+        return logits, valid, pos, k_cache, v_cache
 
     @torch.inference_mode()
     def generate(self, prep: PreparedInputs, max_new_tokens: int = 128,

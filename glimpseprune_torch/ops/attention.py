@@ -114,18 +114,25 @@ def causal_segment_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def decode_attention(q: torch.Tensor, k_cache: Cache, v_cache: Cache,
-                     kv_valid: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
-                     write_idx: Union[int, torch.Tensor]) -> torch.Tensor:
-    """New queries over a cached prefix plus the new tokens' own keys.
+                     kv_valid: torch.Tensor, k_new: Optional[torch.Tensor] = None,
+                     v_new: Optional[torch.Tensor] = None,
+                     write_idx: Union[int, torch.Tensor, None] = None,
+                     new_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """New queries over a cached prefix (JAX :406-490), in two modes.
 
-    q [B, S_new, Hq, D]; caches [B, T, Hkv, D] of which slots >= write_idx
-    are stale and masked; kv_valid [B, T]; k_new/v_new [B, S_new, Hkv, D]
-    attend causally among themselves. The cache is read before the layer
-    writes the new tokens into it (language._layer_decode), as in the JAX
-    package. Grouped GQA: the cache is never expanded to Hq heads.
-    write_idx is an int or a 0-d tensor on q's device; nothing here reads a
-    device value on the host, so a captured decode step masks by the slot
-    of each replay.
+    q [B, S_new, Hq, D]; caches [B, T, Hkv, D]; kv_valid [B, T].
+    - k_new/v_new [B, S_new, Hkv, D] given (decode and chunked prefill):
+      cache slots >= write_idx are stale and masked, and the new tokens
+      attend causally among themselves from k_new/v_new. The cache is read
+      before the layer writes the new tokens into it
+      (language._layer_decode), as in the JAX package. new_valid [B, S_new]
+      masks new keys (a left-padded row's pads inside a prefill chunk).
+    - legacy (k_new None): the queries attend over the valid cache slots;
+      with S_new > 1 the last S_new slots are the new tokens, causal among
+      themselves. write_idx and new_valid are not read.
+    Grouped GQA: the cache is never expanded to Hq heads. write_idx is an
+    int or a 0-d tensor on q's device; nothing here reads a device value on
+    the host, so a captured decode step masks by the slot of each replay.
 
     An int8 cache ({"q": int8 [B, T, Hkv, D], "s": f32 [B, T, Hkv]}) is
     read as its integer values: the key scale multiplies the logits and the
@@ -139,19 +146,27 @@ def decode_attention(q: torch.Tensor, k_cache: Cache, v_cache: Cache,
     g = hq // hkv
     scale = 1.0 / d ** 0.5
     qg = q.reshape(b, s_new, hkv, g, d).float()
-    allowed = kv_valid[:, None, None, None, :] & (
-        torch.arange(t, device=q.device) < write_idx)
+    slots = torch.arange(t, device=q.device)
+    if k_new is None:  # slot t - s_new + i is query i's own
+        allowed = kv_valid[:, None, None, None, :] & (
+            slots <= t - s_new + torch.arange(s_new, device=q.device)[:, None])
+    else:
+        allowed = kv_valid[:, None, None, None, :] & (slots < write_idx)
     logits = torch.einsum("bskgd,btkd->bkgst", qg, k_vals.float()) * scale
     if quant:
         logits = logits * k_cache["s"].transpose(1, 2)[:, :, None, None, :]
     logits = logits.masked_fill(~allowed, NEG_INF)
-    logits_n = torch.einsum("bskgd,bukd->bkgsu", qg, k_new.float()) * scale
-    causal_n = torch.ones((s_new, s_new), dtype=torch.bool, device=q.device).tril()
-    logits_n = logits_n.masked_fill(~causal_n, NEG_INF)
-    probs = torch.softmax(torch.cat([logits, logits_n], dim=-1), dim=-1)
+    if k_new is not None:
+        logits_n = torch.einsum("bskgd,bukd->bkgsu", qg, k_new.float()) * scale
+        allowed_n = torch.ones((s_new, s_new), dtype=torch.bool, device=q.device).tril()
+        if new_valid is not None:
+            allowed_n = allowed_n & new_valid[:, None, None, None, :]
+        logits = torch.cat([logits, logits_n.masked_fill(~allowed_n, NEG_INF)], dim=-1)
+    probs = torch.softmax(logits, dim=-1)
     pc = probs[..., :t]
     if quant:
         pc = pc * v_cache["s"].transpose(1, 2)[:, :, None, None, :]
     out = torch.einsum("bkgst,btkd->bskgd", pc, v_vals.float())
-    out = out + torch.einsum("bkgsu,bukd->bskgd", probs[..., t:], v_new.float())
+    if k_new is not None:
+        out = out + torch.einsum("bkgsu,bukd->bskgd", probs[..., t:], v_new.float())
     return out.reshape(b, s_new, hq, d).to(q.dtype)

@@ -33,6 +33,7 @@ def test_port_imports_no_jax():
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert "glimpseprune_torch.models.qwen2_5_vl.runner" in out["modules"]
     assert "glimpseprune_torch.models.qwen2_5_vl.decode_graph" in out["modules"]
+    assert "glimpseprune_torch.serving" in out["modules"]
     assert "glimpseprune_torch.ops.cuda.flash_attention" in out["modules"]
     assert "glimpseprune_torch.training.trainer" in out["modules"]
     assert "glimpseprune_torch.persistence" in out["modules"]
