@@ -152,6 +152,33 @@ Phases, each of which raises on failure (the script then exits non-zero):
      its tokens), the pruned B=1 prefill's ms beside a prefill chunk's;
      the kernels line carries each side's launches as
      ``launches_continuous``.
+ 13. GlimpsePrune+ and the main path's knobs (run on phase 6's bf16 7B
+     after phase 12, before phase 10; and (vi) in phase 9's (q4) tier after
+     its phase 12): (i) ``glimpse_delayed`` + ``apply_selection`` keep the
+     set and give the 32 greedy tokens of ``glimpse`` / ``generate`` on
+     batch (a); (ii) overridden logits (+inf on OVERRIDE_KEEP image tokens
+     of each row, capped at the row's ratio cap, -inf elsewhere) keep
+     exactly that set; (iii) ``generate(use_ref_masks=True)`` with a box
+     on each row keeps the keep policy's set on the boxes' +-inf logits,
+     computed beside it, and ``gp.use_zero_masks`` keeps min_remain_num a
+     row; (iv) ``harvest_rows`` at selected_layers gives finite log-probs
+     [B, N, Hq], and with q_start = S - HARVEST_QUERIES probabilities in
+     [0, 1]; (v) ``GRPOTrainer`` (LoRA rank GRPO_RANK, G = GRPO_G samples
+     of one prompt over row 0's image, GRPO_NEW_TOKENS tokens at
+     temperature 1.0, GRPO_STEPS steps): finite losses, kd_loss below 1e-3
+     at step 1, some lora_b non-zero after it, one decode capture over both
+     steps, the steps' peak under half a weight copy over the model, and
+     every base weight bit-identical after (the adapters are then
+     removed); each step's CUDA-event ms, peak, and K2-lse / K3 causal
+     launches; (vi) (q4) zero-B adapters on every decoder projection
+     against the same model under ``lora_disabled`` on (a)'s row 0: the
+     adapted prefill bit-equal to the disabled one with the text's
+     act_quant "none" (mask logits, and first logits under one keep set);
+     one pruned prefill decoded both ways gives bit-identical logits and
+     tokens (K4 in every step); the disabled prefill under the tier's
+     act_quant launches K6, the adapted one none (A8 is off on adapted
+     layers), and their distance is printed. The kernels line carries the phase's launches as
+     ``launches_glimpse_plus``.
 Every kernel row carries its time (CUDA events over 10 calls) and
 ``device_ms``, the card's own time from torch.profiler, without the
 host's launch cost, its plain version's time, one PyTorch
@@ -328,6 +355,15 @@ CONT_CHUNK = 256
 # and every planted fault (CONT_FAULTS) are read on each run
 CROSS_LOGIT_RTOL = 2.75e-2
 TRAIN_STEPS = 4
+# phase 13: delayed selection, the oracle masks, harvest_rows, GlimpsePrune+
+OVERRIDE_KEEP = 64  # image tokens forced kept per row (at most the ratio cap)
+HARVEST_QUERIES = 16  # harvest_rows(q_start = S - 16)
+REF_BOXES = [[[0.1, 0.1, 0.5, 0.6]], [[0.3, 0.2, 0.9, 0.7]]]  # one box per row of (a)
+GRPO_G = 4
+GRPO_NEW_TOKENS = 32
+GRPO_RANK = 8
+GRPO_STEPS = 2
+GRPO_LR = 1e-5
 COMPRESSORS = ("visionzip", "divprune", "cdpruner", "vscan", "pdrop")
 COMPRESSED_NEW_TOKENS = 8
 # the image-token budget of divprune, cdpruner and vscan (the papers' 128
@@ -2119,6 +2155,268 @@ def run_continuous_serving(cfg, runner, prep_a, rows_p, rows_u, tier, smi):
     return rec
 
 
+def check_delayed_and_oracle(cfg, model, prep_a, prompts_a, images):
+    """Phase 13 (i)-(iv) on the bf16 7B and batch (a) -> record."""
+    import dataclasses
+
+    import torch
+
+    from glimpseprune_torch.models.qwen2_5_vl.inputs import prepare_inputs
+    from glimpseprune_torch.models.qwen2_5_vl.runner import GlimpsePruneRunner
+    from glimpseprune_torch.ops.keep_policy import keep_scores_with_policy
+
+    gp = cfg.gp
+    runner = GlimpsePruneRunner(cfg, model)
+    rec = {}
+    with torch.inference_mode():
+        # (i) the two-phase API against the one-shot prefill and generate
+        ml, st = runner.glimpse_delayed(prep_a)
+        out = runner.apply_selection(st, ml, prep_a.out_len)
+        one = runner.glimpse(prep_a)
+        if not torch.equal(out.keep_img, one.keep_img):
+            raise AssertionError("(i) delayed selection kept another set than glimpse")
+        seqs, _ = runner._decode_loop(out.logits, out.valid, out.position_ids, out.kv_k,
+                                      out.kv_v, MAX_NEW_TOKENS, cfg.eos_token_id)
+        res = runner.generate(prep_a, max_new_tokens=MAX_NEW_TOKENS)
+        if not np.array_equal(seqs, res.sequences):
+            raise AssertionError(f"(i) delayed selection's tokens {seqs} differ from "
+                                 f"generate's {res.sequences}")
+        rec["delayed_equal_one_shot"] = True
+        rec["delayed_first_logits_rel_err"] = rel_err(out.logits, one.logits)
+        # (ii) overridden logits: +inf on a chosen set, -inf elsewhere
+        iv = torch.as_tensor(prep_a.img_valid, device=ml.device)
+        n_valid = iv.sum(1)
+        cap = torch.floor(gp.max_remain_ratio * n_valid.float()).long()
+        k = torch.clamp(cap, max=OVERRIDE_KEEP)
+        chosen = torch.zeros_like(iv)
+        for b in range(iv.shape[0]):
+            slots = torch.nonzero(iv[b])[:, 0]
+            pick = torch.linspace(0, len(slots) - 1, int(k[b]), device=ml.device).round().long()
+            chosen[b, slots[pick]] = True
+        inf = torch.tensor(float("inf"), device=ml.device)
+        over = torch.where(chosen, inf, -inf)[None]
+        out2 = runner.apply_selection(st, over, prep_a.out_len)
+        if not torch.equal(out2.keep_img, chosen):
+            raise AssertionError("(ii) the override's keep set is not the chosen set")
+        rec["override_kept"] = out2.keep_img.sum(1).tolist()
+        # (iii) the oracle masks: the bboxes' +-inf logits through the keep policy
+        prep_r = prepare_inputs(cfg, prompts_a, images, normed_bboxes=REF_BOXES)
+        ref = torch.as_tensor(prep_r.ref_token_masks, device=ml.device)
+        want = keep_scores_with_policy(torch.sigmoid(torch.where(ref, inf, -inf)),
+                                       torch.as_tensor(prep_r.img_valid, device=ml.device),
+                                       gp.reduce_threshold, gp.max_remain_ratio,
+                                       gp.min_remain_num)
+        res_r = runner.generate(prep_r, max_new_tokens=MAX_NEW_TOKENS, use_ref_masks=True)
+        if not np.array_equal(res_r.keep_img, want.cpu().numpy()):
+            raise AssertionError("(iii) use_ref_masks kept another set than the policy on "
+                                 "the bboxes' logits")
+        first = runner.prefill(prep_r, use_ref_masks=True).logits
+        if not torch.isfinite(first.float()).all() or \
+                res_r.sequences.shape != (2, MAX_NEW_TOKENS):
+            raise AssertionError("(iii) use_ref_masks: non-finite logits or a short decode")
+        rec["ref_masks_kept"] = res_r.keep_img.sum(1).tolist()
+        rec["ref_masks_boxed"] = prep_r.ref_token_masks.sum(1).tolist()
+        zcfg = dataclasses.replace(cfg, gp=dataclasses.replace(gp, use_zero_masks=True))
+        try:
+            zero = GlimpsePruneRunner(zcfg, model.set_config(zcfg)).glimpse(prep_a)
+        finally:
+            model.set_config(cfg)
+        kept = zero.keep_img.sum(1).cpu().numpy()
+        if not (kept == np.minimum(gp.min_remain_num, prep_a.img_valid.sum(1))).all():
+            raise AssertionError(f"(iii) use_zero_masks kept {kept}, not min_remain_num")
+        rec["zero_masks_kept"] = kept.tolist()
+        # (iv) the visualization harvest
+        rows = runner.harvest_rows(prep_a)
+        for l, r in rows.items():
+            if r.shape != (2, prep_a.img_valid.shape[1], cfg.text.num_attention_heads) or \
+                    not torch.isfinite(r).all():
+                raise AssertionError(f"(iv) harvest_rows layer {l}: {tuple(r.shape)}")
+        q_start = prep_a.input_ids.shape[1] - HARVEST_QUERIES
+        rows_q = runner.harvest_rows(prep_a, q_start=q_start)
+        for l, r in rows_q.items():
+            if r.shape[1] != HARVEST_QUERIES or not ((r >= 0) & (r <= 1)).all():
+                raise AssertionError(f"(iv) harvest_rows(q_start) layer {l}: not probabilities")
+        rec["harvest_layers"] = sorted(rows)
+        rec["harvest_img_mass_max"] = max(float(r.sum(2).max()) for r in rows_q.values())
+    print("phase 13 (i)-(iv) " + json.dumps(rec))
+    return rec
+
+
+def run_grpo(cfg, model, image):
+    """Phase 13 (v): GRPOTrainer on the bf16 7B, LoRA rank GRPO_RANK, G =
+    GRPO_G samples of one prompt (row 0's image), GRPO_NEW_TOKENS sampled
+    tokens, GRPO_STEPS steps -> record. The adapters are removed after, and
+    the model bound to cfg again."""
+    import torch
+
+    from glimpseprune_torch.models.qwen2_5_vl.runner import GlimpsePruneRunner
+    from glimpseprune_torch.training.data import TrainSample
+    from glimpseprune_torch.training.grpo import GRPOTrainer
+    from glimpseprune_torch.training.lora import remove_lora
+
+    base = {n: p.detach().cpu() for n, p in model.named_parameters()}
+    weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    alloc0 = torch.cuda.memory_allocated()
+    trainer = GRPOTrainer(cfg, GlimpsePruneRunner(cfg, model), None, hash_tokenize,
+                          lambda ids: " ".join(map(str, ids)), num_generations=GRPO_G,
+                          max_new_tokens=GRPO_NEW_TOKENS, temperature=1.0, score_fn="dummy",
+                          lora_rank=GRPO_RANK, learning_rate=GRPO_LR, seed=0)
+    samples = [TrainSample("What is the object in the middle of the picture?", "a thing",
+                           "row0")]
+    gen = torch.Generator(device=model.text.embed_tokens.weight.device).manual_seed(SAMPLE_SEED)
+    steps = []
+    with captures() as caught:
+        for i in range(GRPO_STEPS):
+            reset_launches()
+            torch.cuda.reset_peak_memory_stats()
+            graphs = list(trainer.policy_runner.decode_graphs._graphs.values())
+            ms, m = timed_ms(lambda: trainer.step_on_batch(samples, lambda _: image, gen))
+            launches = read_launches(["window_attention_fused", "flash_attention[causal]",
+                                      "flash_attention_lse[causal]",
+                                      "flash_attention_backward[causal]"])
+            st = dict(m, step=i + 1, ms=ms,
+                      peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+                      k2_lse_causal=launches["flash_attention_lse[causal]"],
+                      k3_causal=launches["flash_attention_backward[causal]"],
+                      k2_causal=launches["flash_attention[causal]"],
+                      launches={k: v for k, v in launches.items() if v}, captured=len(caught))
+            if i == 0:
+                st["lora_b_nonzero"] = sum(int(bool(p.detach().abs().max() > 0))
+                                           for n, p in trainer.lora.items()
+                                           if n.endswith("lora_b"))
+            else:
+                now = list(trainer.policy_runner.decode_graphs._graphs.values())
+                st["graph_reused"] = len(now) == len(graphs) and all(
+                    a is b for a, b in zip(now, graphs))
+            print("phase 13 grpo step " + json.dumps(st))
+            steps.append(st)
+    bad = [k for st in steps for k in ("reward_loss", "kd_loss", "grpo_total")
+           if not np.isfinite(st[k])]
+    if bad:
+        raise AssertionError(f"(v) non-finite GRPO losses {bad}")
+    if not abs(steps[0]["kd_loss"]) < 1e-3:
+        raise AssertionError(f"(v) kd_loss {steps[0]['kd_loss']} at step 1 (B starts at 0)")
+    if not steps[0]["lora_b_nonzero"]:
+        raise AssertionError("(v) no lora_b moved at step 1")
+    if len(caught) != 1 or not steps[1]["graph_reused"]:
+        raise AssertionError(f"(v) the policy runner captured {len(caught)} decode graphs "
+                             "over two steps (one expected, at step 1)")
+    extra_gib = max(st["peak_mem_gib"] for st in steps) - alloc0 / 2**30
+    if extra_gib > 0.5 * weight_bytes / 2**30:
+        raise AssertionError(f"(v) the steps' peak is {extra_gib:.2f} GiB over the model: "
+                             "a second copy of the weights?")
+    remove_lora(model).set_config(cfg)
+    del trainer
+    moved = [n for n, p in model.named_parameters() if not torch.equal(p.cpu(), base[n])]
+    if moved or set(base) != {n for n, _ in model.named_parameters()}:
+        raise AssertionError(f"(v) base weights changed: {moved[:5]}")
+    torch.cuda.empty_cache()
+    rec = {"steps": steps, "peak_over_model_gib": extra_gib,
+           "weights_gib": weight_bytes / 2**30, "base_weights_bit_identical": True}
+    print("phase 13 (v) " + json.dumps({k: v for k, v in rec.items() if k != "steps"}))
+    return rec
+
+
+def run_glimpse_plus(cfg, model, prep_a, prompts_a, images):
+    """Phase 13 on the bf16 7B: (i)-(iv), then (v); the launches of the
+    whole phase (counts set to 0 just before it) -> (record, launches)."""
+    import torch
+
+    t0 = time.perf_counter()
+    reset_launches()
+    checks = check_delayed_and_oracle(cfg, model, prep_a, prompts_a, images)
+    torch.cuda.synchronize()
+    before = launch_counts()
+    grpo = run_grpo(cfg, model, images[0])
+    torch.cuda.synchronize()
+    launches = {k: before.get(k, 0) + sum(st["launches"].get(k, 0) for st in grpo["steps"])
+                for k in set(before) | {k for st in grpo["steps"] for k in st["launches"]}}
+    return {"checks": checks, "grpo": grpo, "phase_s": time.perf_counter() - t0}, launches
+
+
+def check_lora_q4(qcfg, model, row):
+    """Phase 13 (vi) on the (q4) 7B: zero-B adapters on every decoder
+    projection against the same model under lora_disabled, on a B=1 pruned
+    prefill. An adapted layer runs without A8, so the adapted prefill is
+    held against the disabled one with the text's act_quant "none": both
+    then take the int4 weight-only route and the adapter adds an exact
+    zero, so the mask logits must be bit-equal, and the first logits too
+    once both sides prune with the adapted side's logits (one keep set).
+    The decode's products are the same with and without the adapters (A8
+    is off in decode either way), so one prefill decoded both ways must
+    give bit-identical logits and tokens (K4 in every step). The disabled
+    prefill under the tier's own act_quant runs W4A8 (K6; every K6 launch
+    of a (q4) prefill is in the decoder) and the adapted one launches no
+    K6; their distance is a reading, held to no bound. The adapters are
+    removed after."""
+    import dataclasses
+
+    import torch
+
+    from glimpseprune_torch.models.layers import lora_disabled
+    from glimpseprune_torch.models.qwen2_5_vl.runner import GlimpsePruneRunner
+    from glimpseprune_torch.training.lora import (
+        DEFAULT_TARGETS,
+        insert_lora,
+        make_lora_params,
+        remove_lora,
+    )
+
+    lcfg = dataclasses.replace(qcfg, text=dataclasses.replace(qcfg.text, lora_rank=GRPO_RANK))
+    ncfg = dataclasses.replace(lcfg, text=dataclasses.replace(lcfg.text, act_quant="none"))
+    q4_targets = DEFAULT_TARGETS.replace("kernel(_q)?", "kernel(_q4?)?")
+    insert_lora(model, make_lora_params(model, GRPO_RANK, q4_targets, seed=0), cfg=lcfg)
+    runner = GlimpsePruneRunner(lcfg, model)
+
+    def prefill(cfg, keep_logits=None):
+        r = GlimpsePruneRunner(cfg, model.set_config(cfg))
+        reset_launches()
+        ml, st = r.glimpse_delayed(row)
+        out = r.apply_selection(st, ml if keep_logits is None else keep_logits, row.out_len)
+        launches = read_launches(["flash_attention_int8[*]"])  # K6: the A8 run's
+        model.set_config(lcfg)
+        return ml, out, launches
+
+    def decode(out):
+        reset_launches()
+        pre = (out.logits, out.valid, out.position_ids, out.kv_k, out.kv_v)
+        toks, lg = stepwise_decode(runner, pre, MAX_NEW_TOKENS)
+        return toks, torch.stack(lg), read_launches(["matmul_int4[*]"])
+
+    with torch.inference_mode():
+        ml_on, out_on, pre_on = prefill(lcfg)
+        got, got_lg, dec_on = decode(out_on)
+        with lora_disabled(model):
+            ml_off, out_off, _ = prefill(ncfg, ml_on)
+            ml_a8, out_a8, pre_a8 = prefill(lcfg)
+            want, want_lg, _ = decode(out_on)
+    remove_lora(model).set_config(qcfg)
+
+    def k6(launches):
+        return sum(v for k, v in launches.items() if k.startswith("matmul_int4_prefill[a8"))
+
+    rec = {"decode_tokens_equal": bool(np.array_equal(got, want)),
+           "decode_logits_bit_equal": bool(torch.equal(got_lg, want_lg)),
+           "prefill_mask_logits_bit_equal": bool(torch.equal(ml_on, ml_off)),
+           "prefill_first_logits_bit_equal": bool(torch.equal(out_on.logits, out_off.logits)),
+           "a8_mask_logits_rel_dist": rel_err(ml_on[-1], ml_a8[-1]),
+           "a8_first_logits_rel_dist": rel_err(out_on.logits, out_a8.logits),
+           "a8_keep_equal": bool(torch.equal(out_on.keep_img, out_a8.keep_img)),
+           "k6_prefill_launches_adapted": k6(pre_on), "k6_prefill_launches_a8": k6(pre_a8),
+           "k4_decode_launches": sum(v for k, v in dec_on.items() if k.startswith("matmul_int4[")),
+           "launches": {k: pre_on[k] + dec_on[k] for k in pre_on if pre_on[k] + dec_on[k]}}
+    print("phase 13 (vi) " + json.dumps(rec))
+    if not (rec["decode_tokens_equal"] and rec["decode_logits_bit_equal"]):
+        raise AssertionError(f"(vi) zero-B adapters changed the decode: {rec}")
+    if not (rec["prefill_mask_logits_bit_equal"] and rec["prefill_first_logits_bit_equal"]):
+        raise AssertionError(f"(vi) zero-B adapters changed the A16 prefill: {rec}")
+    if rec["k6_prefill_launches_adapted"] or not rec["k6_prefill_launches_a8"]:
+        raise AssertionError(f"(vi) the adapted layers still ran W4A8 (K6): {rec}")
+    if not rec["k4_decode_launches"]:
+        raise AssertionError("(vi) the adapted decode launched no K4")
+    return rec
+
+
 def compressor_kwargs(method):
     if method in ("divprune", "cdpruner", "vscan"):
         return {"visual_token_num": VISUAL_TOKEN_NUM}
@@ -3348,9 +3646,10 @@ def run_quant_tier(cfg, tier: str, cases, rows_a, rows_u, smi):
     continuous = (run_continuous_serving(qcfg, runner, dict(cases)["a"], rows_a, rows_u, tier,
                                          smi)
                   if tier == "q4" else None)
+    lora = check_lora_q4(qcfg, model, rows_a[0]) if tier == "q4" else None
     del runner, model
     torch.cuda.empty_cache()
-    return runs, launches, decode, continuous
+    return runs, launches, decode, continuous, lora
 
 
 def check_small_quant(cfg_tier: str):
@@ -3755,6 +4054,10 @@ def main() -> int:
     continuous = {"bf16": run_continuous_serving(cfg, GlimpsePruneRunner(cfg, model), prep_a,
                                                  rows_a, rows_u, "bf16", smi)}
     continuous_s = time.perf_counter() - t_cont
+    # phase 13: delayed selection, the oracle masks, harvest_rows and a
+    # GlimpsePrune+ (GRPO) run, which leaves the model as it found it
+    glimpse_plus, glimpse_plus_launches = run_glimpse_plus(cfg, model, prep_a, prompts_a,
+                                                           images)
     small = check_small_reference()
 
     # phase 10: the compressed serving path, before training changes the model
@@ -3797,10 +4100,12 @@ def main() -> int:
     t_quant = time.perf_counter()
     quant_runs, quant_launches, small_quant = [], {}, {}
     for tier in QUANT_TIERS:
-        tier_runs, quant_launches[tier], decode_checks[tier], cont = run_quant_tier(
+        tier_runs, quant_launches[tier], decode_checks[tier], cont, lora = run_quant_tier(
             cfg, tier, [("a", prep_a), ("b", prep_b)], rows_a, rows_u, smi)
         if cont is not None:
             continuous[tier] = cont
+        if lora is not None:
+            glimpse_plus["q4_lora"] = lora
         quant_runs += tier_runs
         small_quant[tier] = check_small_quant(tier)
     quant_s = time.perf_counter() - t_quant
@@ -3836,8 +4141,20 @@ def main() -> int:
         k["launches_continuous"] = {tier: {side["side"]: side["launches"].get(k["name"], 0)
                                            for side in c["sides"]}
                                     for tier, c in continuous.items()}
+        # phase 13: the whole bf16 phase, and the GRPO steps' own counts
+        k["launches_glimpse_plus"] = {
+            "bf16": glimpse_plus_launches.get(k["name"], 0),
+            "q4_lora": glimpse_plus["q4_lora"]["launches"].get(k["name"], 0),
+            "grpo_per_step": [st["launches"].get(k["name"], 0)
+                              for st in glimpse_plus["grpo"]["steps"]]}
     for k in kernels:
         print(speed(k))
+    g = glimpse_plus["grpo"]
+    print(f"GlimpsePrune+ on {smi}: " + ", ".join(
+        f"step {st['step']} {st['ms']:.1f} ms, peak {st['peak_mem_gib']:.2f} GiB, K2-lse causal "
+        f"{st['k2_lse_causal']}, K3 causal {st['k3_causal']}" for st in g["steps"])
+        + f"; peak over the model {g['peak_over_model_gib']:.2f} GiB; phase "
+        f"{glimpse_plus['phase_s']:.1f} s")
     for tier, d in decode_checks.items():
         sv = d["serving"]
         print(f"decode {tier} on {smi}: " + ", ".join(
@@ -3866,7 +4183,7 @@ def main() -> int:
                       "compressed_path_s": compressed_s,
                       "k9_shards": k9_report, "sp_path_s": sp_s, "sp_launches": sp_launches,
                       "sp_ranks": sp_ranks, "continuous_serving": continuous,
-                      "continuous_bf16_s": continuous_s,
+                      "continuous_bf16_s": continuous_s, "glimpse_plus": glimpse_plus,
                       "total_s": time.perf_counter() - t_start}, default=str))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

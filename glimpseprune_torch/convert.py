@@ -9,7 +9,12 @@ Flax names (``layers_0``) become ModuleList indices (``layers.0``). A
 quantized JAX tree (quantization.quantize_int8 / quantize_int4) carries
 ``kernel_q``/``kernel_scale`` or ``kernel_q4``/``kernel_scale4`` leaves in
 place of ``kernel``; they become the buffers of the port's QuantLinear as
-they are (same layout, int8 and f32), stacked ones split per layer.
+they are (same layout, int8 and f32), stacked ones split per layer. A flax
+``LayerNorm``'s ``scale`` becomes ``weight`` (the layernorm glimpse norm).
+LoRA leaves (``lora_a`` [L, in, r], ``lora_b`` [L, r, out], the tree of JAX
+``training/lora.insert_lora``) become each projection's ``lora_a`` /
+``lora_b`` in the same [in, r] / [r, out] layout (a bare adapter tree goes
+in through ``training.lora.insert_lora``).
 
 ``init_random`` builds full-width random weights directly on a device with
 the JAX init's scales: matrices normal / sqrt(fan_in) (lecun normal,
@@ -55,6 +60,8 @@ def _leaf(name: str, arr: np.ndarray):
         return name[: -len("kernel")] + "weight", arr.T
     if name.endswith(".embedding"):
         return name[: -len("embedding")] + "weight", arr
+    if name.endswith(".scale"):
+        return name[: -len("scale")] + "weight", arr
     return name, arr
 
 
@@ -97,7 +104,9 @@ def init_random(cfg: ModelConfig, seed: int, device, dtype=torch.bfloat16) -> Qw
     gen = torch.Generator(device=device).manual_seed(seed)
     with torch.no_grad():
         for name, p in model.named_parameters():
-            if name == "learnable_embeddings":
+            if name.endswith((".lora_a", ".lora_b")):  # the JAX init's zero slots
+                p.zero_()
+            elif name == "learnable_embeddings":
                 p.normal_(0.0, 0.02, generator=gen)
             elif name.endswith("embed_tokens.weight"):
                 p.normal_(0.0, p.shape[1] ** -0.5, generator=gen)

@@ -2,15 +2,18 @@
 compaction, the remaining layers, and the unpruned comparator.
 
 Counterpart of glimpseprune_tpu/models/qwen2_5_vl/gp_model.py:
-``vision_encode``, ``_le_vectors_all`` :166, ``_le_geometry`` :181,
-``glimpse_encode`` :191 (with its training outputs: every fuser layer's
-logits and the answer loss ``le_loss``, :269-285), ``reduce_and_resume``
-:341, ``glimpse_prefill`` :417, the baseline compressors' staged in-LLM
-drop ``staged_prefill`` :427 and full-depth ``prefill_embeds`` :595,
-``vanilla_prefill`` :516, ``decode_chunk`` :607, ``decode_step`` :693,
-``embed_with_images`` :704 and ``prefill_chunk`` :718; ``DecodeState.admit``
+``vision_encode``, ``_le_vectors_all`` :183, ``_le_geometry`` :198,
+``glimpse_encode`` :208 (with its training outputs: every fuser layer's
+logits and the answer loss ``le_loss``, :286-302, and the oracle masks of
+``use_ref_masks`` / ``gp.use_zero_masks``, :241-262, :306-310),
+``reduce_and_resume`` :358 (``gp.per_image_policy`` :370), ``glimpse_prefill``
+:434, the baseline compressors' staged in-LLM drop ``staged_prefill`` :444
+and full-depth ``prefill_embeds`` :612, ``vanilla_prefill`` :533, the GRPO
+teacher-forcing forwards ``completion_logits`` :551, ``completion_logprobs``
+:570 and ``text_prefill_logits`` :597, ``decode_chunk`` :624, ``decode_step``
+:710, ``embed_with_images`` :721 and ``prefill_chunk`` :735; ``DecodeState.admit``
 is the continuous batcher's admission (JAX serving.py:101-121). The row
-scatters and gathers (:88-115) are index operations here, not the JAX
+scatters and gathers (:105-132) are index operations here, not the JAX
 package's one-hot matmuls.
 
 Decode: ``decode_state_step`` is one step of JAX ``decode_chunk``'s scan,
@@ -31,7 +34,7 @@ from torch import nn
 
 from glimpseprune_torch.config import ModelConfig
 from glimpseprune_torch.gp.fuser import make_fuser
-from glimpseprune_torch.models.layers import Linear, RMSNorm
+from glimpseprune_torch.models.layers import LayerNorm, Linear, RMSNorm, attach_lora
 from glimpseprune_torch.models.qwen2_5_vl.language import TextDecoder
 from glimpseprune_torch.models.qwen2_5_vl.vision import VisionTransformer
 from glimpseprune_torch.ops.compaction import (
@@ -40,33 +43,43 @@ from glimpseprune_torch.ops.compaction import (
     gather_positions,
     gather_tokens,
 )
-from glimpseprune_torch.ops.keep_policy import descending_rank, keep_scores_with_policy
+from glimpseprune_torch.ops.keep_policy import (
+    descending_rank,
+    keep_scores_with_policy,
+    keep_scores_with_policy_grouped,
+)
 from glimpseprune_torch.ops.kv_cache import Cache, cache_fill_rows, cache_t
 from glimpseprune_torch.ops.rope import mrope_cos_sin
 
 
 class GlimpseState(NamedTuple):
-    """What the keep policy and the remaining layers need after encode."""
+    """What the keep policy and the remaining layers need after encode (a
+    delayed selection's state, JAX gp_model.py:61-76)."""
 
     input_ids: torch.Tensor     # [B, S]
+    embeds: torch.Tensor        # [B, S, H] layer-0 embeddings (GRPO teacher-forces over them)
     hidden: torch.Tensor        # [B, S, H] after reduce_layer
     kv_k: torch.Tensor          # [n_red, B, S, Hkv, D]
     kv_v: torch.Tensor
+    valid: torch.Tensor         # [B, S] (the glimpse slots cleared under use_ref_masks)
     position_ids: torch.Tensor  # [3, B, S]
     keep_base: torch.Tensor     # [B, S] text-keep mask (valid minus le slots)
     img_slots: torch.Tensor     # [B, N]
     img_valid: torch.Tensor     # [B, N]
+    img_group: Optional[torch.Tensor]  # [B, N] image index of each slot (multi-image rows)
 
 
 class GlimpseOutputs(NamedTuple):
     logits: torch.Tensor        # [B, 1, V] last position
     input_ids: torch.Tensor     # [B, R]
+    embeds: torch.Tensor        # [B, R, H] the kept layer-0 embeddings
     valid: torch.Tensor         # [B, R]
     position_ids: torch.Tensor  # [3, B, R]
     kv_k: torch.Tensor          # [L, B, R, Hkv, D]
     kv_v: torch.Tensor
     mask_logits: torch.Tensor   # [n_out, B, N]
     keep_img: torch.Tensor      # [B, N]
+    le_loss: Optional[torch.Tensor] = None
 
 
 def sample_next(logits: torch.Tensor, temperature: Optional[torch.Tensor] = None,
@@ -199,14 +212,20 @@ class Qwen2_5_VL_GP(nn.Module):
         self.cfg = c = cfg
         self.visual = VisionTransformer(c.vision, tap_layers=c.gp.selected_visual_layers)
         self.text = TextDecoder(c.text)
+        if c.text.lora_rank > 0:  # zero adapters: the JAX init's LoRA slots
+            attach_lora([m for m in self.text.layers.modules() if isinstance(m, Linear)],
+                        c.text.lora_rank)
         self.attn_fuser = make_fuser(c)
         if c.gp.has_le:
-            if c.gp.le_norm_type != "rmsnorm":
-                raise ValueError(f"le_norm_type {c.gp.le_norm_type!r} is not ported")
             self.learnable_embeddings = nn.Parameter(
                 torch.zeros(len(c.gp.le_layers), c.gp.le_length, c.text.hidden_size))
             self.le_proj = Linear(c.text.hidden_size, c.text.hidden_size)
-            self.le_norm = RMSNorm(c.text.hidden_size, c.text.rms_norm_eps)
+            if c.gp.le_norm_type == "rmsnorm":
+                self.le_norm = RMSNorm(c.text.hidden_size, c.text.rms_norm_eps)
+            elif c.gp.le_norm_type == "layernorm":  # flax nn.LayerNorm: eps 1e-6
+                self.le_norm = LayerNorm(c.text.hidden_size)
+            else:
+                raise ValueError(f"Unsupported le_norm_type {c.gp.le_norm_type!r}")
 
     @property
     def dtype(self) -> torch.dtype:
@@ -288,7 +307,9 @@ class Qwen2_5_VL_GP(nn.Module):
                        fuser_reverse_index, fuser_segment_ids, fuser_pos_ids,
                        le_start: Optional[torch.Tensor], img_group=None,
                        labels: Optional[torch.Tensor] = None, training: bool = False,
-                       generator: Optional[torch.Generator] = None):
+                       generator: Optional[torch.Generator] = None,
+                       ref_token_masks: Optional[torch.Tensor] = None,
+                       use_ref_masks: bool = False):
         """Layers 0..reduce_layer with the glimpse embeddings injected, the
         glimpse query's harvest at selected_layers, and the fuser's mask
         logits -> (mask_logits [n_out, B, N], GlimpseState, le_loss).
@@ -298,14 +319,24 @@ class Qwen2_5_VL_GP(nn.Module):
         le_loss is the answer's mean next-token NLL (``chunked_nll``);
         otherwise le_loss is None. ``training`` selects the fuser's training
         outputs and the glimpse-embedding dropout, whose mask comes from
-        ``generator``."""
+        ``generator``.
+
+        ``use_ref_masks`` (the oracle masks, JAX :224-233, :289-293): no
+        glimpse embedding is injected, the reserved glimpse slots become
+        invalid (invisible to attention, dropped by the reduction), nothing
+        is harvested, and the mask logits are +inf where ``ref_token_masks``
+        [B, N] is set, -inf elsewhere. ``gp.use_zero_masks`` gives -inf at
+        every slot, so that only the keep policy's floor survives."""
         c, gp = self.cfg, self.cfg.gp
         b, s = input_ids.shape
         embeds = self.embed_with_images(input_ids, image_embeds, packed_idx, img_slots,
                                         img_valid)
+        inject_le = gp.has_le and not use_ref_masks and le_start is not None
         le_mask = torch.zeros((b, s), dtype=torch.bool, device=input_ids.device)
         le_vecs = le_offset = le_inside = None
-        if gp.has_le and le_start is not None:
+        if gp.has_le and le_start is not None and not inject_le:
+            valid = valid & ~self._le_geometry(le_start, s, gp.le_length)[1]
+        if inject_le:
             le_vecs = self._le_vectors_all(training, generator)
             le_offset, le_inside = self._le_geometry(le_start, s, gp.le_length)
             le_mask = le_inside
@@ -318,10 +349,11 @@ class Qwen2_5_VL_GP(nn.Module):
 
         cos, sin = self._cos_sin(position_ids)
         reduce_layer = min(gp.reduce_layer, c.text.num_hidden_layers - 1)
+        predicted = not (use_ref_masks or gp.use_zero_masks)  # the fuser predicts the masks
         x, (kv_k, kv_v), harvests = self.text.run_layers(
             embeds, cos, sin, valid, layer_start=0, layer_end=reduce_layer,
             le_vecs=le_vecs, le_offset=le_offset, le_inside=le_inside,
-            harvest_layers=tuple(gp.selected_layers), q_index=q_index,
+            harvest_layers=tuple(gp.selected_layers) if predicted else (), q_index=q_index,
             use_attention_logits=gp.use_attention_logits,
         )
         le_loss = None
@@ -332,34 +364,53 @@ class Qwen2_5_VL_GP(nn.Module):
                     h, cos, sin, valid, layer_start=reduce_layer + 1, le_vecs=le_vecs,
                     le_offset=le_offset, le_inside=le_inside, collect_kv=False)
             le_loss = self.text.chunked_nll(self.text.final_norm(h), labels)
-        attn_map = torch.stack([harvests[l] for l in gp.selected_layers], dim=2)
-        # log-softmax rows hold -inf at masked slots; the gathered image slots
-        # are finite, the clamp keeps the gather free of -inf (gp_model.py:302)
-        attn_map = attn_map.reshape(b, s, -1).clamp(min=-1e30)
-        attn_map = _gather_rows(attn_map, img_slots, img_valid)
-        taps_rows = [_gather_packed(t, packed_idx, img_valid) for t in taps]
-        mask_logits = self.attn_fuser(attn_map, taps_rows, fuser_window_index,
-                                      fuser_reverse_index, fuser_segment_ids,
-                                      fuser_pos_ids, img_valid, group_ids=img_group,
-                                      training=training, dtype=self.dtype)
-        state = GlimpseState(input_ids=input_ids, hidden=x, kv_k=kv_k, kv_v=kv_v,
-                             position_ids=position_ids,
+        if use_ref_masks:
+            if ref_token_masks is None:
+                raise ValueError("use_ref_masks needs ref_token_masks (the prep's bboxes)")
+            inf = torch.tensor(float("inf"), device=img_valid.device)
+            mask_logits = torch.where(ref_token_masks, inf, -inf)[None]
+        elif gp.use_zero_masks:
+            mask_logits = torch.full((1,) + tuple(img_valid.shape), -float("inf"),
+                                     device=img_valid.device)
+        else:
+            attn_map = torch.stack([harvests[l] for l in gp.selected_layers], dim=2)
+            # log-softmax rows hold -inf at masked slots; the gathered image
+            # slots are finite, the clamp keeps the gather free of -inf (:319)
+            attn_map = attn_map.reshape(b, s, -1).clamp(min=-1e30)
+            attn_map = _gather_rows(attn_map, img_slots, img_valid)
+            taps_rows = [_gather_packed(t, packed_idx, img_valid) for t in taps]
+            mask_logits = self.attn_fuser(attn_map, taps_rows, fuser_window_index,
+                                          fuser_reverse_index, fuser_segment_ids,
+                                          fuser_pos_ids, img_valid, group_ids=img_group,
+                                          training=training, dtype=self.dtype)
+        state = GlimpseState(input_ids=input_ids, embeds=embeds, hidden=x, kv_k=kv_k,
+                             kv_v=kv_v, valid=valid, position_ids=position_ids,
                              keep_base=valid & ~le_mask, img_slots=img_slots,
-                             img_valid=img_valid)
+                             img_valid=img_valid, img_group=img_group)
         return mask_logits, state, le_loss
 
     # ---- phase 2: keep policy + compaction + remaining layers
 
     def reduce_and_resume(self, state: GlimpseState, mask_logits: torch.Tensor,
                           out_len: int, anchor_mask=None) -> GlimpseOutputs:
+        """The keep policy on the last mask logits (per image with
+        ``gp.per_image_policy`` on multi-image rows, JAX :369-384), the
+        compaction of the state to out_len slots and the remaining layers
+        over them."""
         c, gp = self.cfg, self.cfg.gp
         probs = torch.sigmoid(mask_logits[-1].float())
-        keep_img = keep_scores_with_policy(probs, state.img_valid, gp.reduce_threshold,
-                                           gp.max_remain_ratio, gp.min_remain_num,
-                                           anchor_mask)
+        if gp.per_image_policy and state.img_group is not None:
+            keep_img = keep_scores_with_policy_grouped(
+                probs, state.img_valid, state.img_group, gp.reduce_threshold,
+                gp.max_remain_ratio, gp.min_remain_num, anchor_mask)
+        else:
+            keep_img = keep_scores_with_policy(probs, state.img_valid, gp.reduce_threshold,
+                                               gp.max_remain_ratio, gp.min_remain_num,
+                                               anchor_mask)
         keep = _scatter_rows(state.keep_base, state.img_slots, keep_img, state.img_valid)
         plan = compaction_indices(keep, out_len)
         r_ids = gather_tokens(state.input_ids, plan, fill=c.pad_token_id)
+        r_embeds = gather_tokens(state.embeds, plan)
         r_pos = gather_positions(state.position_ids, plan)
         r_k = gather_kv(state.kv_k, plan)
         r_v = gather_kv(state.kv_v, plan)
@@ -372,13 +423,14 @@ class Qwen2_5_VL_GP(nn.Module):
             r_k = torch.cat([r_k, k2])
             r_v = torch.cat([r_v, v2])
         logits = self.text.logits(self.text.final_norm(x[:, -1:]))
-        return GlimpseOutputs(logits=logits, input_ids=r_ids, valid=plan.valid,
-                              position_ids=r_pos, kv_k=r_k, kv_v=r_v,
+        return GlimpseOutputs(logits=logits, input_ids=r_ids, embeds=r_embeds,
+                              valid=plan.valid, position_ids=r_pos, kv_k=r_k, kv_v=r_v,
                               mask_logits=mask_logits, keep_img=keep_img)
 
     def glimpse_prefill(self, out_len: int, anchor_mask=None, **encode_kwargs) -> GlimpseOutputs:
-        mask_logits, state, _ = self.glimpse_encode(**encode_kwargs)
-        return self.reduce_and_resume(state, mask_logits, out_len, anchor_mask)
+        mask_logits, state, le_loss = self.glimpse_encode(**encode_kwargs)
+        out = self.reduce_and_resume(state, mask_logits, out_len, anchor_mask)
+        return out._replace(le_loss=le_loss)
 
     # ---- staged in-LLM dropping (PyramidDrop) and compressed sequences
 
@@ -435,6 +487,45 @@ class Qwen2_5_VL_GP(nn.Module):
         cos, sin = self._cos_sin(position_ids)
         x, (kv_k, kv_v), _ = self.text.run_layers(embeds, cos, sin, valid)
         return self.text.logits(self.text.final_norm(x[:, -1:])), kv_k, kv_v
+
+    # ---- teacher forcing (the GRPO policy and reference forwards)
+
+    def _teacher_forced(self, prompt_embeds, prompt_valid, prompt_pos, completion_ids,
+                        completion_valid, completion_pos) -> torch.Tensor:
+        """Every layer over [prompt embeds ; completion tokens] -> the hidden
+        state after the final norm [B, R + T, H]."""
+        embeds = torch.cat([prompt_embeds, self.text.embed(completion_ids)], 1)
+        valid = torch.cat([prompt_valid, completion_valid], 1)
+        cos, sin = self._cos_sin(torch.cat([prompt_pos, completion_pos], 2))
+        x, _, _ = self.text.run_layers(embeds, cos, sin, valid, collect_kv=False)
+        return self.text.final_norm(x)
+
+    def completion_logits(self, prompt_embeds, prompt_valid, prompt_pos, completion_ids,
+                          completion_valid, completion_pos) -> torch.Tensor:
+        """Logits [B, R + T, V] of teacher forcing over the pruned prompt's
+        embeddings [B, R, H] and the completion ids [B, T] (JAX :551-568)."""
+        return self.text.logits(self._teacher_forced(
+            prompt_embeds, prompt_valid, prompt_pos, completion_ids, completion_valid,
+            completion_pos))
+
+    def completion_logprobs(self, prompt_embeds, prompt_valid, prompt_pos, completion_ids,
+                            completion_valid, completion_pos) -> torch.Tensor:
+        """log p(completion token) [B, T] fp32 under teacher forcing (JAX
+        :570-595): the head runs on the T positions that predict the
+        completion only, in chunks (``chunked_token_logprobs``), so no
+        [B, T, V] logits are kept."""
+        x = self._teacher_forced(prompt_embeds, prompt_valid, prompt_pos, completion_ids,
+                                 completion_valid, completion_pos)
+        r = prompt_embeds.shape[1]  # the hidden state at r - 1 predicts token 0
+        return self.text.chunked_token_logprobs(x[:, r - 1:-1], completion_ids)
+
+    def text_prefill_logits(self, input_ids, valid, position_ids) -> torch.Tensor:
+        """Logits [B, S, V] of teacher forcing over a token sequence, every
+        position projected (JAX :597-610)."""
+        cos, sin = self._cos_sin(position_ids)
+        x, _, _ = self.text.run_layers(self.text.embed(input_ids), cos, sin, valid,
+                                       collect_kv=False)
+        return self.text.logits(self.text.final_norm(x))
 
     # ---- decode
 

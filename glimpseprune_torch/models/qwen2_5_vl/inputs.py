@@ -2,7 +2,8 @@
 
 A numpy copy of the JAX package's host prep: ``PreparedInputs`` and
 ``prepare_inputs`` (glimpseprune_tpu/models/qwen2_5_vl/runner.py:34-354),
-``_vis_dense_hint`` (runner.py:410), and ``FuserGeometry`` with
+``prepare_chat_inputs`` (runner.py:355-399), ``_vis_dense_hint``
+(runner.py:410), and ``FuserGeometry`` with
 ``build_fuser_geometry`` (glimpseprune_tpu/gp/fuser.py:34-106). It is a
 copy, not an import, because both of those modules import jax at module
 top and the port never loads jax. tests/test_torch_inputs.py holds the copy
@@ -13,7 +14,7 @@ calls (``config``, ``preprocessing``) are the port's own copies.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -409,6 +410,51 @@ def prepare_inputs(
         labels=labels,
     )
 
+
+def prepare_chat_inputs(
+    cfg: ModelConfig,
+    messages_list: Sequence[Sequence[dict]],
+    images: Sequence[np.ndarray],
+    tokenize,
+    special_ids: Optional[Dict[str, int]] = None,
+    is_sft: bool = False,
+    add_vision_id: bool = False,
+    im_start_id: int = 151644,
+    **kwargs,
+) -> PreparedInputs:
+    """Chat-messages entry point: render the Qwen chat template, tokenize,
+    and build model inputs (reference GPCollator train_qwen_gp.py:600-662 /
+    lmms wrapper apply_chat_template my_lmms_eval/models/qwen2_5_vl_gp.py:
+    337-356).
+
+    messages_list[b] is one HF-format conversation. ``is_sft`` conversations
+    end with the assistant turn; its tokens become the answer (labels), the
+    rendered prefix incl. "<|im_start|>assistant\\n" becomes the prompt —
+    identical label coverage to the reference's mask-until-last-im_start+3.
+    ``tokenize`` maps plain text -> ids; special markers are mapped directly
+    via ``special_ids`` (default: the released Qwen2.5-VL vocabulary ids).
+    """
+    from glimpseprune_torch.preprocessing.chat import (
+        chat_prompt_ids,
+        qwen_special_ids,
+        render_qwen_chat,
+        split_sft_conversation,
+    )
+
+    sids = special_ids or qwen_special_ids(cfg, im_start_id=im_start_id)
+    prompts: List[List[int]] = []
+    answers: Optional[List[List[int]]] = [] if is_sft else None
+    for messages in messages_list:
+        if is_sft:
+            p, a = split_sft_conversation(messages, tokenize, sids)
+            prompts.append(p)
+            answers.append(a)
+        else:
+            text = render_qwen_chat(
+                messages, add_generation_prompt=True, add_vision_id=add_vision_id
+            )
+            prompts.append(chat_prompt_ids(text, tokenize, sids))
+    return prepare_inputs(cfg, prompts, images, answer_ids=answers, **kwargs)
 
 
 def _vis_dense_hint(prep) -> bool:

@@ -3,9 +3,12 @@ glimpse harvest, decode against a KV cache, final norm and LM head.
 
 Counterpart of glimpseprune_tpu/models/qwen2_5_vl/language.py
 (``TextDecoder`` :238, ``_layer_prefill`` :113, ``_layer_decode`` :135,
-``harvest_postprocess`` :169, ``chunked_nll`` :293, ``run_layers`` :393,
-``decode_step`` :500, with ``inputs_embeds``, ``logits_index`` and
-``new_valid`` for chunked prefill).
+``harvest_postprocess`` :169, ``chunked_nll`` :293,
+``chunked_token_logprobs`` :364, ``run_layers`` :393 with the multi-query
+harvest of ``harvest_q_start``, ``decode_step`` :500, with
+``inputs_embeds``, ``logits_index`` and ``new_valid`` for chunked prefill).
+The in-layer LoRA of ``lora_rank > 0`` lives in the projections
+(models/layers.py).
 The JAX package scans one stacked parameter tree; here the layers are a
 ModuleList run by a Python loop, and a layer range is a slice of that loop.
 ``cfg.remat`` (the JAX ``jax.checkpoint`` of the scan body, :462) becomes
@@ -205,6 +208,27 @@ class TextDecoder(nn.Module):
                 total = total + self._chunk_nll_sum(xc, yc)
         return total / (ys != -100).sum().clamp(min=1).float()
 
+    def _chunk_token_logprobs(self, xc: torch.Tensor, yc: torch.Tensor) -> torch.Tensor:
+        lg = self.logits(xc).float()
+        return torch.gather(lg, -1, yc[..., None])[..., 0] - torch.logsumexp(lg, dim=-1)
+
+    def chunked_token_logprobs(self, x: torch.Tensor, tokens: torch.Tensor,
+                               chunk: int = 512) -> torch.Tensor:
+        """x [B, T, H] after the final norm and token ids [B, T] -> log
+        p(token) [B, T] fp32, the head and its log-sum-exp run per chunk of
+        C positions (under ``torch.utils.checkpoint`` while autograd
+        records), so no [B, T, V] logits are kept (``chunked_nll``'s memory
+        argument, for the GRPO policy and reference forwards)."""
+        tokens = tokens.long()
+        out = []
+        for start in range(0, x.shape[1], chunk):
+            xc, yc = x[:, start:start + chunk], tokens[:, start:start + chunk]
+            if torch.is_grad_enabled():
+                out.append(checkpoint(self._chunk_token_logprobs, xc, yc, use_reentrant=False))
+            else:
+                out.append(self._chunk_token_logprobs(xc, yc))
+        return torch.cat(out, 1)
+
     def decode_step(self, input_ids: Optional[torch.Tensor], cos: torch.Tensor,
                     sin: torch.Tensor, k_cache, v_cache, kv_valid: torch.Tensor,
                     write_idx: Union[int, torch.Tensor],
@@ -245,6 +269,7 @@ class TextDecoder(nn.Module):
         q_index: Optional[torch.Tensor] = None,
         use_attention_logits: bool = False,
         collect_kv: bool = True,
+        harvest_q_start: Optional[int] = None,
     ) -> Tuple[torch.Tensor, Optional[Tuple[torch.Tensor, torch.Tensor]],
                Dict[int, torch.Tensor]]:
         """Run layers [layer_start, layer_end] (inclusive).
@@ -258,7 +283,13 @@ class TextDecoder(nn.Module):
         backward instead of kept for the whole depth. Under sequence
         parallelism the layers run on this rank's shard when S divides
         (``sp_split``); every input and output is still the whole
-        sequence."""
+        sequence.
+
+        ``harvest_q_start`` switches the harvest to the multi-query rows of
+        the reference's Sep model (JAX :431-448): {layer: [B, S - q_start,
+        S, Hq]}, the softmax over the keys, causal and pad masked, of every
+        query from q_start on, computed in plain torch from the layer's q
+        and k (visualization-scale work, not under sequence parallelism)."""
         cfg = self.cfg
         if layer_end is None:
             layer_end = cfg.num_hidden_layers - 1
@@ -267,6 +298,8 @@ class TextDecoder(nn.Module):
             q_index = torch.full((b,), s - 1, dtype=torch.long, device=x.device)
         remat = cfg.remat and torch.is_grad_enabled()
         sp = sp_split(s)
+        if sp is not None and harvest_q_start is not None:
+            raise ValueError("the multi-query harvest does not run under sequence parallelism")
         valid_all = valid
         if sp is not None:
             rows = sp.slice(s)
@@ -288,7 +321,16 @@ class TextDecoder(nn.Module):
             if collect_kv:
                 ks.append(k)
                 vs.append(v)
-            if lid in harvest_layers:
+            if lid in harvest_layers and harvest_q_start is not None:
+                k_exp = k.float().repeat_interleave(g, dim=2)  # [B, S, Hq, D]
+                raw = torch.einsum("bqhd,bthd->bqht", q[:, harvest_q_start:].float(), k_exp)
+                raw = raw / cfg.head_dim ** 0.5
+                qpos = harvest_q_start + torch.arange(raw.shape[1], device=x.device)
+                keys = torch.arange(s, device=x.device)
+                allowed = (keys[None, None, :] <= qpos[None, :, None]) & valid[:, None, :]
+                raw = raw.masked_fill(~allowed[:, :, None, :], -float("inf"))
+                harvests[lid] = torch.softmax(raw, dim=-1).permute(0, 1, 3, 2)
+            elif lid in harvest_layers:
                 sel_q = _glimpse_query(q, q_index, sp)
                 k_local = k if sp is None else k[:, rows]
                 k_exp = k_local.float().repeat_interleave(g, dim=2)  # [B, S, Hq, D]

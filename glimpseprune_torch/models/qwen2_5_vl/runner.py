@@ -2,8 +2,10 @@
 the baseline compressors.
 
 Counterpart of glimpseprune_tpu/models/qwen2_5_vl/runner.py
-(``GlimpsePruneRunner.__init__`` / ``glimpse`` / ``generate`` :437-936,
-``vanilla_prefill_chunked`` / ``vanilla_prefill_chunked_steps`` /
+(``GlimpsePruneRunner.__init__`` / ``glimpse`` / ``generate`` :437-936, with
+``use_ref_masks``; the delayed selection ``glimpse_delayed`` /
+``apply_selection`` :777-836; the visualization harvest ``harvest_rows``
+:707; ``vanilla_prefill_chunked`` / ``vanilla_prefill_chunked_steps`` /
 ``_chunked_prefill_gen`` :938-1051, ``_decode_loop`` / ``_run_decode`` /
 ``_trim_eos`` / ``_first_stop_match`` :1053-1190, ``stream_generate``
 :1192 and ``generate_compressed`` :1243 with the bodies of
@@ -66,8 +68,10 @@ from glimpseprune_torch.models.qwen2_5_vl.decode_graph import DecodeGraphs, Eage
 from glimpseprune_torch.models.qwen2_5_vl.gp_model import (
     DecodeState,
     GlimpseOutputs,
+    GlimpseState,
     Qwen2_5_VL_GP,
     _gather_packed,
+    _gather_rows,
     _scatter_rows,
     sample_next,
 )
@@ -76,7 +80,7 @@ from glimpseprune_torch.models.qwen2_5_vl.inputs import (
     _round_up,
     _vis_dense_hint,
 )
-from glimpseprune_torch.models.layers import QuantLinear
+from glimpseprune_torch.models.layers import QuantLinear, lora_rank, lora_state
 from glimpseprune_torch.ops.compaction import (
     compaction_indices,
     gather_positions,
@@ -141,11 +145,11 @@ def check_config(cfg: ModelConfig, model: Qwen2_5_VL_GP) -> None:
     config declares."""
     if cfg.model_family != "qwen2_5_vl":
         raise ValueError(f"model_family {cfg.model_family!r} is not ported to the torch runner")
-    for knob in ("use_ref_masks", "use_zero_masks", "per_image_policy"):
-        if getattr(cfg.gp, knob):
-            raise ValueError(f"gp.{knob} is not ported to the torch runner yet")
-    if cfg.text.lora_rank > 0:
-        raise ValueError("text.lora_rank > 0 (in-layer LoRA) is not ported to the torch runner")
+    have_rank = lora_rank(model.text)
+    if have_rank != cfg.text.lora_rank:
+        raise ValueError(f"text.lora_rank is {cfg.text.lora_rank} but the model's decoder "
+                         f"carries adapters of rank {have_rank}: build the model from the "
+                         "config, or attach them with training.lora.insert_lora")
     if cfg.text.kv_cache_quant not in ("none", "int8"):
         raise ValueError(f"text.kv_cache_quant must be none or int8, "
                          f"got {cfg.text.kv_cache_quant!r}")
@@ -205,7 +209,7 @@ class GlimpsePruneRunner:
         self.device = model.text.embed_tokens.weight.device
         self.decode_graphs = DecodeGraphs(self.model)
 
-    def _device_inputs(self, prep: PreparedInputs) -> dict:
+    def _device_inputs(self, prep: PreparedInputs, use_ref_masks: bool = False) -> dict:
         check_binding(self.cfg, self.model)
         def t(a, dtype=torch.long):
             return torch.as_tensor(np.asarray(a), device=self.device).to(dtype)
@@ -233,6 +237,11 @@ class GlimpsePruneRunner:
         }
         d["le_start"] = None if prep.le_start is None else t(prep.le_start)
         d["anchor_mask"] = None if prep.anchor_mask is None else t(prep.anchor_mask, torch.bool)
+        d["ref_token_masks"] = None
+        if use_ref_masks:
+            if prep.ref_token_masks is None:
+                raise ValueError("use_ref_masks needs bboxes (prepare_inputs(normed_bboxes=...))")
+            d["ref_token_masks"] = t(prep.ref_token_masks, torch.bool)
         return d
 
     def _vision(self, inputs: dict, prep: PreparedInputs, emit_importance: bool = False):
@@ -241,14 +250,12 @@ class GlimpsePruneRunner:
                                         dense_attn=_vis_dense_hint(prep),
                                         emit_importance=emit_importance)
 
-    @torch.inference_mode()
-    def glimpse(self, prep: PreparedInputs) -> GlimpseOutputs:
-        """The pruned prefill: ViT, glimpse encode, keep policy, compaction
-        and the remaining layers over the survivors."""
-        inputs = self._device_inputs(prep)
+    def _encode_kwargs(self, prep: PreparedInputs, use_ref_masks: bool):
+        """The ViT, then (the anchor mask, ``glimpse_encode``'s keyword
+        arguments)."""
+        inputs = self._device_inputs(prep, use_ref_masks)
         merged, taps = self._vision(inputs, prep)
-        return self.model.glimpse_prefill(
-            prep.out_len, anchor_mask=inputs["anchor_mask"],
+        return inputs["anchor_mask"], dict(
             input_ids=inputs["input_ids"], valid=inputs["valid"],
             position_ids=inputs["position_ids"], image_embeds=merged, taps=taps,
             packed_idx=inputs["packed_idx"], img_slots=inputs["img_slots"],
@@ -257,14 +264,71 @@ class GlimpsePruneRunner:
             fuser_reverse_index=inputs["fuser_reverse_index"],
             fuser_segment_ids=inputs["fuser_segment_ids"],
             fuser_pos_ids=inputs["fuser_pos_ids"], le_start=inputs["le_start"],
-            img_group=inputs["img_group"],
-        )
+            img_group=inputs["img_group"], ref_token_masks=inputs["ref_token_masks"],
+            use_ref_masks=use_ref_masks)
 
     @torch.inference_mode()
-    def prefill(self, prep: PreparedInputs, do_selection: bool = True) -> PrefillResult:
+    def glimpse(self, prep: PreparedInputs, use_ref_masks: bool = False) -> GlimpseOutputs:
+        """The pruned prefill: ViT, glimpse encode, keep policy, compaction
+        and the remaining layers over the survivors. ``use_ref_masks``
+        prunes with the prep's bbox masks (``ref_token_masks``) instead of
+        the predicted ones."""
+        anchor, kwargs = self._encode_kwargs(prep, use_ref_masks)
+        return self.model.glimpse_prefill(prep.out_len, anchor_mask=anchor, **kwargs)
+
+    @torch.inference_mode()
+    def glimpse_delayed(self, prep: PreparedInputs, use_ref_masks: bool = False,
+                        training: bool = False) -> Tuple[torch.Tensor, GlimpseState]:
+        """Delayed selection, phase 1 (JAX :777-815): the ViT and
+        ``glimpse_encode`` -> (mask_logits [n_out, B, N], GlimpseState).
+        Pass the logits, or others in their place, to ``apply_selection``."""
+        _, kwargs = self._encode_kwargs(prep, use_ref_masks)
+        mask_logits, state, _ = self.model.glimpse_encode(training=training, **kwargs)
+        return mask_logits, state
+
+    @torch.inference_mode()
+    def apply_selection(self, state: GlimpseState, mask_logits: torch.Tensor, out_len: int,
+                        anchor_mask: Optional[torch.Tensor] = None) -> GlimpseOutputs:
+        """Delayed selection, phase 2 (JAX :817-836): the keep policy on
+        mask_logits [n_out, B, N] (possibly overridden), the compaction to
+        out_len slots and the remaining layers."""
+        check_binding(self.cfg, self.model)
+        return self.model.reduce_and_resume(state, mask_logits, out_len, anchor_mask)
+
+    @torch.inference_mode()
+    def harvest_rows(self, prep: PreparedInputs, layers: Optional[Sequence[int]] = None,
+                     q_start: Optional[int] = None) -> dict:
+        """Attention rows per layer and head over the image tokens, for
+        visualization (JAX :707-775), from a prefill of layers 0..max(layers)
+        without the glimpse embeddings. q_start None: {layer: [B, N, Hq]},
+        the last position's log-prob rows (clamped at -1e30), or its raw
+        logits under ``gp.use_attention_logits``; q_start an int: {layer:
+        [B, S - q_start, N, Hq]}, the softmax rows of every query from
+        q_start on. Invalid image slots hold 0."""
+        cfg = self.cfg
+        layers = tuple(layers) if layers else tuple(cfg.gp.selected_layers)
+        inputs = self._device_inputs(prep)
+        merged, _ = self._vision(inputs, prep)
+        slots, img_valid = inputs["img_slots"], inputs["img_valid"]
+        embeds = self.model.embed_with_images(inputs["input_ids"], merged, inputs["packed_idx"],
+                                              slots, img_valid)
+        cos, sin = self.model._cos_sin(inputs["position_ids"])
+        _, _, harvests = self.model.text.run_layers(
+            embeds, cos, sin, inputs["valid"], layer_end=max(layers), harvest_layers=layers,
+            use_attention_logits=cfg.gp.use_attention_logits, collect_kv=False,
+            harvest_q_start=q_start)
+        if q_start is None:
+            return {l: _gather_rows(row.clamp(min=-1e30), slots, img_valid)
+                    for l, row in harvests.items()}
+        return {l: _gather_rows(row.transpose(1, 2), slots, img_valid).transpose(1, 2)
+                for l, row in harvests.items()}
+
+    @torch.inference_mode()
+    def prefill(self, prep: PreparedInputs, do_selection: bool = True,
+                use_ref_masks: bool = False) -> PrefillResult:
         """Pruned (do_selection) or unpruned prefill up to the first logits."""
         if do_selection:
-            out = self.glimpse(prep)
+            out = self.glimpse(prep, use_ref_masks)
             return PrefillResult(out.logits, out.valid, out.position_ids, out.kv_k,
                                  out.kv_v, out.keep_img, out.mask_logits)
         inputs = self._device_inputs(prep)
@@ -359,16 +423,18 @@ class GlimpsePruneRunner:
                  do_selection: bool = True, eos_token_id: Optional[int] = None,
                  stop_sequences: Optional[Sequence[Sequence[int]]] = None,
                  check_eos_every: Optional[int] = None, temperature: float = 0.0,
-                 rng: Optional[torch.Generator] = None) -> GenerateResult:
+                 rng: Optional[torch.Generator] = None,
+                 use_ref_masks: bool = False) -> GenerateResult:
         """Generation after the pruned (do_selection) or unpruned prefill
-        (JAX :848-936). stop_sequences: token-id sequences; a matched row
+        (JAX :848-936); ``use_ref_masks`` prunes with the prep's bbox masks.
+        stop_sequences: token-id sequences; a matched row
         stops and is trimmed before the match (plain eos is trimmed
         inclusively). check_eos_every: the decode chunk, the steps between
         the host's early-exit checks (None: 32). temperature > 0 samples
         from softmax(logits / temperature) with rng (a torch.Generator on
         the model's device; None: seed 0), else greedy."""
         eos = self.cfg.eos_token_id if eos_token_id is None else eos_token_id
-        pre = self.prefill(prep, do_selection)
+        pre = self.prefill(prep, do_selection, use_ref_masks)
         chunk = DECODE_CHUNK if check_eos_every is None else max(1, check_eos_every)
         seqs, n_gen = self._decode_loop(pre.logits, pre.valid, pre.position_ids, pre.kv_k,
                                         pre.kv_v, max_new_tokens, eos, temperature, rng,
@@ -380,13 +446,14 @@ class GlimpsePruneRunner:
                         do_selection: bool = True, eos_token_id: Optional[int] = None,
                         chunk_size: int = 4, temperature: float = 0.0,
                         rng: Optional[torch.Generator] = None,
-                        stop_sequences: Optional[Sequence[Sequence[int]]] = None):
+                        stop_sequences: Optional[Sequence[Sequence[int]]] = None,
+                        use_ref_masks: bool = False):
         """Streaming generation (JAX :1192-1237): yields each [B, chunk_size]
         block of new tokens (numpy, before eos trimming) as its chunk lands;
         the GenerateResult, as ``generate`` returns it, is the generator's
         return value (``res = yield from runner.stream_generate(...)``)."""
         eos = self.cfg.eos_token_id if eos_token_id is None else eos_token_id
-        pre = self.prefill(prep, do_selection)
+        pre = self.prefill(prep, do_selection, use_ref_masks)
         seqs = yield from self._run_decode(pre.logits, pre.valid, pre.position_ids, pre.kv_k,
                                            pre.kv_v, max_new_tokens, eos, temperature, rng,
                                            chunk_size, stop_sequences=stop_sequences)
@@ -631,7 +698,9 @@ class GlimpsePruneRunner:
         if prealloc:  # the graph writes the caller's buffers: they key it
             owner = tuple((x.data_ptr(), x.dtype, x.shape, x.stride()) for c in (kv_k, kv_v)
                           for x in (c.values() if is_quantized(c) else [c]))
-        key = (b, t, self.cfg.text.kv_cache_quant, sampled, owner)
+        # a step captured with the adapters on computes another model than
+        # one captured under lora_disabled: their state is part of the key
+        key = (b, t, self.cfg.text.kv_cache_quant, sampled, owner, lora_state(model.text))
         steps = self.decode_graphs.steps(key, make_state, begin)
         if prealloc:
             # replays write by address, which the key holds: a kept graph

@@ -9,12 +9,17 @@ model_gp.py:941-952): ``{"attn_fuser": fuser state dict,
 "learnable_embeddings": tensor, "le_proj": {"weight", "bias"},
 "le_norm": {"weight"}}``, which the JAX package reads through
 ``import_torch_new_modules`` (persistence.py:80).
+
+The GlimpsePrune+ adapters (``save_lora`` / ``load_lora``, JAX :28-42) are
+saved apart, as ``lora_adapter.pt``: the adapter tree of training/lora.py
+({kernel path: {"a", "b"}}, fp32 CPU tensors) in torch's format; the port
+does not read the JAX package's msgpack.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Tuple
+from typing import Dict, Mapping, Tuple
 
 import torch
 from torch import nn
@@ -22,6 +27,24 @@ from torch import nn
 from glimpseprune_torch.config import ModelConfig
 
 NEW_MODULES_FILE = "new_modules_gp.pt"
+LORA_FILE = "lora_adapter.pt"
+
+
+def save_lora(lora: Mapping, directory: str) -> str:
+    """Write an adapter tree (``make_lora_params`` / ``lora_tree``) as
+    ``lora_adapter.pt`` into directory."""
+    state = {path: {k: torch.as_tensor(v).detach().float().cpu() for k, v in ab.items()}
+             for path, ab in lora.items()}
+    os.makedirs(directory, exist_ok=True)
+    torch.save(state, os.path.join(directory, LORA_FILE))
+    return directory
+
+
+def load_lora(directory: str) -> Dict[str, Dict[str, torch.Tensor]]:
+    """The adapter tree saved in directory (``insert_lora`` puts it into a
+    model)."""
+    return torch.load(os.path.join(directory, LORA_FILE), map_location="cpu",
+                      weights_only=True)
 
 
 def save_new_modules(model: nn.Module, cfg: ModelConfig, directory: str) -> str:

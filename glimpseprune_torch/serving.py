@@ -46,6 +46,7 @@ from typing import Callable, List, Sequence, Tuple
 import numpy as np
 import torch
 
+from glimpseprune_torch.models.layers import lora_state
 from glimpseprune_torch.models.qwen2_5_vl.decode_graph import EagerSteps, StepGraph
 from glimpseprune_torch.models.qwen2_5_vl.gp_model import DecodeState
 from glimpseprune_torch.models.qwen2_5_vl.runner import check_binding
@@ -98,7 +99,7 @@ class ContinuousBatcher:
                       for _ in range(2)]
             self.state = DecodeState.alloc(*caches, self.total_chunks * self.inter,
                                            t.vocab_size, self.temperature > 0)
-        self._steps = None
+        self._steps = self._lora = None
 
     def _begin(self) -> None:
         """Every slot free, the cursor at step 0 (slot R)."""
@@ -109,14 +110,20 @@ class ContinuousBatcher:
 
     def _decode_steps(self):
         """The batcher's decode step: captured on the first call on a CUDA
-        model (a capture that fails raises), run eagerly on a CPU model."""
+        model (a capture that fails raises), run eagerly on a CPU model.
+        A captured step keeps the LoRA adapters' state (on, off, absent) it
+        was captured with: a later call under another state raises."""
+        model = self.runner.model
         if self._steps is None:
             self._begin()
-            model = self.runner.model
             if self.runner.device.type != "cuda":
                 self._steps = EagerSteps(model, self.state)
             else:
+                self._lora = lora_state(model.text)
                 self._steps = StepGraph(model, self.state, torch.cuda.Stream(self.runner.device))
+        elif self._lora is not None and lora_state(model.text) != self._lora:
+            raise ValueError("the batcher's decode step was captured with the LoRA adapters "
+                             f"in state {self._lora}, not {lora_state(model.text)}")
         return self._steps
 
     @torch.inference_mode()

@@ -7,7 +7,8 @@ mapper plus additional mappers, an optional prompt template and per-entry
 score_funcs; the entries concatenate into one dataset. Train rows are
 VisCoT-style jsonl: {question, answer, image, width, height, bboxs,
 dataset, split}. Host-side Python and numpy only; ``yaml`` is imported only
-when a config is given as a path.
+when a config is given as a path. ``RepeatRandomSampler`` is the GRPO
+batches' G-repeat order.
 """
 
 from __future__ import annotations
@@ -176,3 +177,24 @@ class GPDataset:
         end = len(idx) - (len(idx) % batch_size) if drop_last else len(idx)
         for start in range(0, end, batch_size):
             yield [self.samples[i] for i in idx[start:start + batch_size]]
+
+
+class RepeatRandomSampler:
+    """G-repeat sampling for GRPO batches (JAX data.py:202-219, reference
+    train_qwen_gp.py:665-712): the indices in an order shuffled by
+    ``np.random.default_rng(seed)``, each ``num_repeats`` times in a row."""
+
+    def __init__(self, n: int, num_repeats: int, seed: int = 0):
+        self.n = n
+        self.num_repeats = num_repeats
+        self.seed = seed
+
+    def __iter__(self) -> Iterator[int]:
+        idx = np.arange(self.n)
+        np.random.default_rng(self.seed).shuffle(idx)
+        for i in idx:
+            for _ in range(self.num_repeats):
+                yield int(i)
+
+    def __len__(self) -> int:
+        return self.n * self.num_repeats

@@ -150,6 +150,33 @@ def default_collate(cfg: ModelConfig, samples: Sequence[TrainSample], tokenize: 
     return batch_from_prep(prep, device)
 
 
+def chat_collate(cfg: ModelConfig, samples: Sequence[TrainSample], tokenize: Callable,
+                 load_image: Callable, tcfg: TrainerConfig, is_sft: bool = True,
+                 special_ids=None, im_start_id: int = 151644, device="cuda"):
+    """GPCollator parity (JAX trainer.py:108-139, reference
+    train_qwen_gp.py:600-662): one user turn with [image, query] parts (and
+    the assistant's answer turn when SFT), rendered through the Qwen chat
+    template; the labels cover exactly the tokens after the last
+    "<|im_start|>assistant\\n"."""
+    from glimpseprune_torch.models.qwen2_5_vl.inputs import prepare_chat_inputs
+
+    messages, images, bboxes = [], [], []
+    for s in samples:
+        turns = [{"role": "user",
+                  "content": [{"type": "image"}, {"type": "text", "text": s.query}]}]
+        if is_sft:
+            turns.append({"role": "assistant",
+                          "content": [{"type": "text", "text": s.answer}]})
+        messages.append(turns)
+        images.append(load_image(s.img_path))
+        bboxes.append(s.normed_bboxes)
+    prep = prepare_chat_inputs(cfg, messages, images, tokenize, special_ids=special_ids,
+                               is_sft=is_sft, im_start_id=im_start_id, normed_bboxes=bboxes,
+                               seq_multiple=tcfg.seq_multiple,
+                               patch_multiple=tcfg.patch_multiple, max_pixels=tcfg.max_pixels)
+    return batch_from_prep(prep, device)
+
+
 def step_generator(seed: int, step: int, device) -> torch.Generator:
     """The step's own random stream, a function of (seed, step) alone (the
     JAX trainer's ``fold_in(PRNGKey(seed), step)``), so a resumed run draws

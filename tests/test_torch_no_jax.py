@@ -42,7 +42,7 @@ def test_port_imports_no_jax():
     for name in ("compressors", "compressors.visionzip", "compressors.divprune",
                  "compressors.cdpruner", "compressors.vscan", "compressors.staged",
                  "ops.cuda.window_attention", "parallel", "parallel.sequence",
-                 "parallel.launch"):
+                 "parallel.launch", "preprocessing.chat", "training.lora", "training.grpo"):
         assert f"glimpseprune_torch.{name}" in out["modules"]
     assert out["jax"] == []
 
