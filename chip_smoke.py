@@ -179,6 +179,37 @@ Phases, each of which raises on failure (the script then exits non-zero):
      act_quant launches K6, the adapted one none (A8 is off on adapted
      layers), and their distance is printed. The kernels line carries the phase's launches as
      ``launches_glimpse_plus``.
+ 14. LLaVA-1.5-7B (``configs/model_llava1_5_7b_gp``, CLIP ViT-L/336 with
+     CDPruner's text tower, run after phase 11 once the earlier models are
+     gone): K2 at the decoder's MHA causal shape (32 q over 32 kv heads)
+     and the fuser's Dqk != Dv over 576 tokens in one segment, held as in
+     phase 4 (controls included, times beside SDPA's); the tiny LLaVA
+     config on the card against the CPU (first logits, mask logits, 8
+     decode steps within 10%, keep sets and greedy tokens equal); the 7B's
+     weights made as random HF-layout dicts on the card (merged LLaVA-1.5
+     with a CLIPVisionModelWithProjection tower, and a
+     CLIPTextModelWithProjection), converted by the port's converters and
+     taken by ``init_random(base=)``, which draws the GlimpsePrune modules
+     alone (every HF tensor used, every base parameter loaded without a
+     copy, the fp32 LayerNorms holding the dicts' values); pruned and
+     unpruned ``generate`` at B = 2 (two 336x336 images, prompts of 30 and
+     22 ids, 32 greedy tokens) under LLAVA_REMAIN_RATIO (random weights
+     keep every token without a cap: fewer than 576 must be kept a row, so
+     that the prefill compacts and layers 22-31 and the decode run over the
+     kept rows), with one decode capture a mode and the replays counted,
+     phase 6's captured-decode check on the pruned prefill; the all-kept equivalence
+     (reduce_threshold -1: 576 kept a row, the pruned run's tokens against
+     the unpruned run's by phase 12's cross_check, two arithmetics of one
+     function); ``generate_compressed``
+     CDPruner with ``clip_text_ids`` keeping 64 a row; two base train steps
+     (finite losses, the glimpse embeddings moved, base weights
+     bit-identical, K2-lse and K3 launched); the (q8) tier quantized in
+     place (CLIP unquantized), 16 tokens pruned with phase 9's checks and
+     the decode check. The kernels line carries the K2 rows at the two
+     shapes, each with ``launches_llava`` (main path, train, q8) and no
+     count of phases 12-13; a row of an earlier phase carries
+     ``launches_llava`` only where no LLaVA row has its name (K2-lse, K3),
+     so that each of phase 14's counts stands on one row.
 Every kernel row carries its time (CUDA events over 10 calls) and
 ``device_ms``, the card's own time from torch.profiler, without the
 host's launch cost, its plain version's time, one PyTorch
@@ -369,10 +400,10 @@ COMPRESSED_NEW_TOKENS = 8
 # the image-token budget of divprune, cdpruner and vscan (the papers' 128
 # setting): under every row's image-token count, so each row really prunes
 VISUAL_TOKEN_NUM = 128
-# device_ms_by_kernel: calls inside a trace before and after the timed ones,
-# each group apart from them by this long an idle card
+# device_ms_by_kernel: calls inside a trace before and after the timed ones
 TRACE_PAD_CALLS = 10
-IDLE_S = 0.02
+# the kernel that torch.cuda._sleep launches, and its length (~10 us)
+TRACE_MARK, TRACE_MARK_CYCLES = "spin_kernel", 20000
 # full attention at three of the 7B's four blocks: the last one is windowed,
 # so its importance goes through K8 (a config that is not in configs/)
 WINDOWED_LAST_FULLATT = (7, 15, 23)
@@ -426,14 +457,16 @@ def device_ms_by_kernel(fn, iters: int = 10, tries: int = 5, per_call=None):
     without the host's launch cost, which cuda_ms includes when the host is
     slower than the card. A trace in a long-lived process can lose the
     records of its first and its last kernels, up to several calls' worth,
-    so TRACE_PAD_CALLS calls run before and after the ``iters`` that count,
-    each group apart by IDLE_S of idle card: the kernels that count are
-    those between the trace's two longest idle gaps. Each kernel's count
-    there must be a whole number per call (``fn`` launches the same kernels
-    every call), and its total is divided by ``iters``; ``per_call``, a
-    dict, receives each kernel's launches per call. A trace that falls short
-    of that, or recorded no device time, is taken again, up to ``tries``
-    times; then the result is None (not measured)."""
+    and can hold records left over from an earlier trace, so
+    TRACE_PAD_CALLS calls run before and after the ``iters`` that count,
+    and a marker kernel (``torch.cuda._sleep``, which no path launches)
+    ends each of the first two groups: the kernels that count are those
+    between the trace's last two markers. Each kernel's count there must be
+    a whole number per call (``fn`` launches the same kernels every call),
+    and its total is divided by ``iters``; ``per_call``, a dict, receives
+    each kernel's launches per call. A trace that falls short of that, or
+    recorded no device time, is taken again, up to ``tries`` times; then
+    the result is None (not measured)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -442,21 +475,17 @@ def device_ms_by_kernel(fn, iters: int = 10, tries: int = 5, per_call=None):
     torch.cuda.synchronize()
     for _ in range(tries):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for calls in (TRACE_PAD_CALLS, iters, TRACE_PAD_CALLS):
+            for group, calls in enumerate((TRACE_PAD_CALLS, iters, TRACE_PAD_CALLS)):
                 for _ in range(calls):
                     fn()
+                if group < 2:
+                    torch.cuda._sleep(TRACE_MARK_CYCLES)
                 torch.cuda.synchronize()
-                time.sleep(IDLE_S)
         kernels = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
                           and e.time_range.elapsed_us() > 0), key=lambda e: e.time_range.start)
-        gaps, end = [], None  # (idle us before kernel i, i)
-        for i, e in enumerate(kernels):
-            if end is not None:
-                gaps.append((e.time_range.start - end, i))
-            end = e.time_range.end if end is None else max(end, e.time_range.end)
-        idle = sorted(i for gap, i in sorted(gaps)[-2:] if gap >= IDLE_S * 1e6 / 2)
+        marks = [i for i, e in enumerate(kernels) if TRACE_MARK in e.name][-2:]
         total, count = Counter(), Counter()
-        for e in kernels[idle[0]:idle[1]] if len(idle) == 2 else ():
+        for e in kernels[marks[0] + 1:marks[1]] if len(marks) == 2 else ():
             total[e.name] += e.time_range.elapsed_us()
             count[e.name] += 1
         short = [(k[:60], c) for k, c in count.items() if c % iters]
@@ -467,7 +496,7 @@ def device_ms_by_kernel(fn, iters: int = 10, tries: int = 5, per_call=None):
                 per_call.update({k: c // iters for k, c in count.items()})
             return {k: t / iters / 1e3 for k, t in total.items()}
         else:
-            print(f"device_ms: {len(idle)} of the 2 idle gaps in a trace of {len(kernels)} "
+            print(f"device_ms: {len(marks)} of the 2 markers in a trace of {len(kernels)} "
                   "kernels; again")
     return None
 
@@ -508,7 +537,7 @@ def speed(row) -> str:
         rate = f"{share * PEAK_INT8_OPS / 1e12:.1f} TOP/s"
     else:
         rate = f"{share * PEAK_BF16_FLOPS / 1e12:.1f} TFLOP/s"
-    recorded = RECORDED_MS.get(row["name"])
+    recorded = None if "phase" in row else RECORDED_MS.get(row["name"])
     before = ("" if recorded is None
               else f", recorded {recorded:.4f} ms ({recorded / row['ms']:.1f}x)")
     device = ""
@@ -745,8 +774,46 @@ def control_attention(q, k, v, allowed, round_p: bool = False, drop_keys: int = 
     return (p @ vf).masked_fill(~allowed.any(-1, keepdim=True), 0.0)
 
 
+def seg_ids(a):
+    import torch
+
+    return torch.as_tensor(np.asarray(a), dtype=torch.int32, device="cuda")
+
+
+def llm_fuser_cases(cfg, prep, tag=""):
+    """K2's LLM causal and fuser call sites on a prepared batch:
+    flash_cases entries."""
+    t, gp = cfg.text, cfg.gp
+    n_fuse = len(gp.selected_visual_layers)
+    dqk = (gp.attn_fuse_size + (gp.visual_cond_size if n_fuse else 0)) // gp.attn_fuse_num_heads
+    dv = gp.attn_fuse_size // gp.attn_fuse_num_heads
+    return [
+        (tag + "llm_causal", prep.valid.shape[0], t.num_attention_heads,
+         t.num_key_value_heads, prep.valid.shape[1], t.head_dim, t.head_dim,
+         seg_ids(np.where(prep.valid, 0, -1)), True),
+        (tag + "fuser", prep.fuser.segment_ids.shape[0], gp.attn_fuse_num_heads,
+         gp.attn_fuse_num_heads, prep.fuser.segment_ids.shape[1], dqk, dv,
+         seg_ids(prep.fuser.segment_ids), False),
+    ]
+
+
 def check_flash_attention(cfg, prep_a, prep_b, gen):
     """K2 at its four serving call sites."""
+    v = cfg.vision
+    return flash_cases([
+        # (name, B, Hq, Hkv, S, Dqk, Dv, segment ids or None, causal)
+        ("vit_dense", 1, v.num_heads, v.num_heads, prep_b.patches.shape[0], v.head_dim,
+         v.head_dim, None, False),
+        ("vit_segmented", 1, v.num_heads, v.num_heads, prep_a.patches.shape[0], v.head_dim,
+         v.head_dim, seg_ids(prep_a.full_seg[None]), False),
+    ] + llm_fuser_cases(cfg, prep_a), gen)
+
+
+def flash_cases(cases, gen):
+    """K2 on each case against its plain version, within KERNEL_ATOL and
+    relative to the output's size, with the two controls that must fail;
+    its event and device ms beside the plain version's and SDPA's -> kernel
+    rows."""
     import torch
 
     from glimpseprune_torch.ops.cuda.flash_attention import (
@@ -755,27 +822,6 @@ def check_flash_attention(cfg, prep_a, prep_b, gen):
         flavour,
     )
 
-    v, t, gp = cfg.vision, cfg.text, cfg.gp
-    n_fuse = len(gp.selected_visual_layers)
-    dqk = (gp.attn_fuse_size + (gp.visual_cond_size if n_fuse else 0)) // gp.attn_fuse_num_heads
-    dv = gp.attn_fuse_size // gp.attn_fuse_num_heads
-
-    def seg(a):
-        return torch.as_tensor(np.asarray(a), dtype=torch.int32, device="cuda")
-
-    cases = [
-        # (name, B, Hq, Hkv, S, Dqk, Dv, segment ids or None, causal)
-        ("vit_dense", 1, v.num_heads, v.num_heads, prep_b.patches.shape[0], v.head_dim,
-         v.head_dim, None, False),
-        ("vit_segmented", 1, v.num_heads, v.num_heads, prep_a.patches.shape[0], v.head_dim,
-         v.head_dim, seg(prep_a.full_seg[None]), False),
-        ("llm_causal", prep_a.valid.shape[0], t.num_attention_heads, t.num_key_value_heads,
-         prep_a.valid.shape[1], t.head_dim, t.head_dim,
-         seg(np.where(prep_a.valid, 0, -1)), True),
-        ("fuser", prep_a.fuser.segment_ids.shape[0], gp.attn_fuse_num_heads,
-         gp.attn_fuse_num_heads, prep_a.fuser.segment_ids.shape[1], dqk, dv,
-         seg(prep_a.fuser.segment_ids), False),
-    ]
     rows = []
     for name, b, hq, hkv, s, d_qk, d_v, segs, causal in cases:
         q, k, vv, pairs, mask = attention_case(gen, b, hq, hkv, s, d_qk, d_v, segs, causal)
@@ -1149,16 +1195,18 @@ def timed_ms(fn):
     return start.elapsed_time(end), out
 
 
-def check_outputs(cfg, prep, pre, res, do_selection):
-    """Shapes, finiteness and the keep policy's bounds on one generate."""
+def check_outputs(cfg, prep, pre, res, do_selection, n_new=None):
+    """Shapes, finiteness and the keep policy's bounds on one generate of
+    n_new tokens (MAX_NEW_TOKENS by default)."""
     import torch
 
+    n_new = MAX_NEW_TOKENS if n_new is None else n_new
     b = prep.input_ids.shape[0]
     assert pre.logits.shape == (b, 1, cfg.text.vocab_size), pre.logits.shape
     assert torch.isfinite(pre.logits.float()).all(), "non-finite prefill logits"
-    assert res.sequences.shape == (b, MAX_NEW_TOKENS), res.sequences.shape
+    assert res.sequences.shape == (b, n_new), res.sequences.shape
     assert ((res.sequences >= 0) & (res.sequences < cfg.text.vocab_size)).all()
-    assert ((res.num_generated >= 0) & (res.num_generated <= MAX_NEW_TOKENS)).all()
+    assert ((res.num_generated >= 0) & (res.num_generated <= n_new)).all()
     if not do_selection:
         assert res.keep_img is None
         return
@@ -1166,7 +1214,8 @@ def check_outputs(cfg, prep, pre, res, do_selection):
     keep, img_valid = res.keep_img, prep.img_valid
     assert not (keep & ~img_valid).any(), "kept a padding slot"
     n_valid = img_valid.sum(1)
-    cap = np.floor(np.float32(gp.max_remain_ratio) * n_valid.astype(np.float32))
+    cap = (n_valid if gp.max_remain_ratio is None else
+           np.floor(np.float32(gp.max_remain_ratio) * n_valid.astype(np.float32)))
     kept = keep.sum(1)
     assert (kept >= np.minimum(gp.min_remain_num, n_valid)).all(), kept
     assert (kept <= np.maximum(cap, gp.min_remain_num)).all(), (kept, cap)
@@ -1235,10 +1284,14 @@ def read_launches(required):
     return launches
 
 
-def run_main_path(cfg, model, cases):
+QWEN_SERVE_KERNELS = ["window_attention_fused"] + [
+    f"flash_attention[{k}]" for k in ("causal", "dense", "dqk_ne_dv", "segmented")]
+
+
+def run_main_path(cfg, model, cases, required=QWEN_SERVE_KERNELS, tag="main path"):
     """Pruned and unpruned generate on each prepared batch, every decode
     chunk's replays under sync_checked; returns per-run timings and the
-    kernels' launch counts."""
+    kernels' launch counts, which must include ``required``."""
     import torch
 
     from glimpseprune_torch.models.qwen2_5_vl.runner import GlimpsePruneRunner
@@ -1268,12 +1321,11 @@ def run_main_path(cfg, model, cases):
             if do_sel:
                 run["kept_img_tokens"] = res.keep_img.sum(1).tolist()
                 run["prune_ratio"] = [float(x) for x in res.prune_ratio]
-            print("main path " + json.dumps(run))
+            print(f"{tag} " + json.dumps(run))
             runs.append(run)
     torch.cuda.synchronize()
-    launches = read_launches(["window_attention_fused"] + [
-        f"flash_attention[{k}]" for k in ("causal", "dense", "dqk_ne_dv", "segmented")])
-    print("serving-path launches " + json.dumps(launches))
+    launches = read_launches(required)
+    print(f"{tag} launches " + json.dumps(launches))
     return runs, launches
 
 
@@ -4004,6 +4056,435 @@ def run_sp_path(cases):
     return ranks, launches, secs
 
 
+# ---- phase 14: LLaVA-1.5-7B
+
+LLAVA_DIR = "configs/model_llava1_5_7b_gp"
+LLAVA_SEED = 0
+LLAVA_PROMPT_TEXT = ((12, 17), (12, 9))  # text ids before and after the image marker a row
+LLAVA_CDP_KEEP = 64  # CDPruner's budget with the CLIP-text relevance
+LLAVA_Q8_TOKENS = 16
+LLAVA_TRAIN_STEPS = 2
+LLAVA_TRAIN_LR = 1e-4
+LLAVA_KERNELS = ["flash_attention[causal]", "flash_attention[dqk_ne_dv]"]
+# Qwen2.5-VL-7B's cap (configs/model_qwen2_5_7b_gp): the random fuser's
+# mask logits pass the 0.5 threshold everywhere, and the published LLaVA
+# config has no cap, so without one the pruned run would keep all 576
+LLAVA_REMAIN_RATIO = 0.111
+
+
+def llava_prompts(cfg, rng):
+    """One row per LLAVA_PROMPT_TEXT entry: random text ids (clear of the
+    special ids at the vocabulary's top), the image marker, more text."""
+    return [[int(x) for x in rng.integers(3, 31000, a)] + [cfg.image_token_id]
+            + [int(x) for x in rng.integers(3, 31000, b)] for a, b in LLAVA_PROMPT_TEXT]
+
+
+def hf_llava_shapes(cfg, cc):
+    """(name, shape) of every tensor of an HF LLaVA-1.5 checkpoint in the
+    merged layout, the CLIP tower being a CLIPVisionModelWithProjection
+    (``visual_projection`` and ``post_layernorm`` for CDPruner); and of a
+    CLIPTextModelWithProjection. Written out from HF's module names, not
+    derived from the port's."""
+    t, d = cfg.text, cc.hidden_size
+    clip = "model.vision_tower.vision_tower.vision_model."
+
+    def block(prefix, h, inter):
+        out = []
+        for p in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            out += [(f"{prefix}.self_attn.{p}.weight", (h, h)), (f"{prefix}.self_attn.{p}.bias", (h,))]
+        for ln in ("layer_norm1", "layer_norm2"):
+            out += [(f"{prefix}.{ln}.weight", (h,)), (f"{prefix}.{ln}.bias", (h,))]
+        return out + [(f"{prefix}.mlp.fc1.weight", (inter, h)), (f"{prefix}.mlp.fc1.bias", (inter,)),
+                      (f"{prefix}.mlp.fc2.weight", (h, inter)), (f"{prefix}.mlp.fc2.bias", (h,))]
+
+    llava = [(clip + "embeddings.patch_embedding.weight", (d, 3, cc.patch_size, cc.patch_size)),
+             (clip + "embeddings.class_embedding", (d,)),
+             (clip + "embeddings.position_embedding.weight", (cc.grid ** 2 + 1, d)),
+             (clip + "pre_layrnorm.weight", (d,)), (clip + "pre_layrnorm.bias", (d,)),
+             (clip + "post_layernorm.weight", (d,)), (clip + "post_layernorm.bias", (d,)),
+             ("visual_projection.weight", (cc.projection_dim, d))]
+    for i in range(cc.depth):
+        llava += block(f"{clip}encoder.layers.{i}", d, cc.intermediate_size)
+    h = t.hidden_size
+    llava += [("model.mm_projector.0.weight", (h, d)), ("model.mm_projector.0.bias", (h,)),
+              ("model.mm_projector.2.weight", (h, h)), ("model.mm_projector.2.bias", (h,)),
+              ("model.embed_tokens.weight", (t.vocab_size, h)), ("model.norm.weight", (h,)),
+              ("lm_head.weight", (t.vocab_size, h))]
+    dkv = t.num_key_value_heads * t.head_dim
+    for i in range(t.num_hidden_layers):
+        p = f"model.layers.{i}"
+        llava += [(f"{p}.self_attn.q_proj.weight", (h, h)), (f"{p}.self_attn.k_proj.weight", (dkv, h)),
+                  (f"{p}.self_attn.v_proj.weight", (dkv, h)), (f"{p}.self_attn.o_proj.weight", (h, h)),
+                  (f"{p}.mlp.gate_proj.weight", (t.intermediate_size, h)),
+                  (f"{p}.mlp.up_proj.weight", (t.intermediate_size, h)),
+                  (f"{p}.mlp.down_proj.weight", (h, t.intermediate_size)),
+                  (f"{p}.input_layernorm.weight", (h,)),
+                  (f"{p}.post_attention_layernorm.weight", (h,))]
+    th = cc.text_hidden_size
+    text = [("text_model.embeddings.token_embedding.weight", (cc.text_vocab_size, th)),
+            ("text_model.embeddings.position_embedding.weight", (cc.text_max_positions, th)),
+            ("text_model.final_layer_norm.weight", (th,)),
+            ("text_model.final_layer_norm.bias", (th,)),
+            ("text_projection.weight", (cc.projection_dim, th))]
+    for i in range(cc.text_depth):
+        text += block(f"text_model.encoder.layers.{i}", th, cc.text_intermediate_size)
+    return llava, text
+
+
+def hf_random_state(shapes, gen):
+    """Random bf16 tensors on the card at init_random's scales: matrices
+    normal / sqrt(fan_in), token embeddings normal / sqrt(hidden), CLIP's
+    class and position embeddings normal(0.02), biases 0, norm scales 1."""
+    import torch
+
+    out = {}
+    for name, shape in shapes:
+        t = torch.empty(shape, dtype=torch.bfloat16, device="cuda")
+        if name.endswith(("class_embedding", "position_embedding.weight")):
+            t.normal_(0.0, 0.02, generator=gen)
+        elif name.endswith(("embed_tokens.weight", "token_embedding.weight")):
+            t.normal_(0.0, shape[1] ** -0.5, generator=gen)
+        elif name.endswith(".bias"):
+            t.zero_()
+        elif len(shape) == 1:
+            t.fill_(1.0)
+        else:
+            t.normal_(0.0, float(np.prod(shape[1:])) ** -0.5, generator=gen)
+        out[name] = t
+    return out
+
+
+def build_llava(cfg, cc):
+    """The 7B through the HF converters: random HF-layout dicts on the card
+    -> convert_llava_state_dict + convert_clip_text -> init_random(base=),
+    which draws the glimpse modules. Every HF tensor must be taken, every
+    base parameter loaded (without a copy but for the fp32 LayerNorms),
+    the GlimpsePrune modules alone drawn. -> (model, record)."""
+    import torch
+
+    from glimpseprune_torch.convert import init_random
+    from glimpseprune_torch.models.llava.convert import convert_clip_text, convert_llava_state_dict
+    from glimpseprune_torch.quantization import quantized_bytes
+    from glimpseprune_torch.training.train_step import new_module_filter
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(LLAVA_SEED)
+    llava_shapes, text_shapes = hf_llava_shapes(cfg, cc)
+    hf = {**hf_random_state(llava_shapes, gen), **hf_random_state(text_shapes, gen)}
+    hf_bytes = nbytes(*hf.values())
+    state = {**convert_llava_state_dict(hf, cfg, cc), **convert_clip_text(hf, cc)}
+    unused = sorted(set(v.data_ptr() for v in hf.values())
+                    - set(v.data_ptr() for v in state.values()))
+    model = init_random(cfg, LLAVA_SEED, "cuda", torch.bfloat16, clip_cfg=cc, base=state)
+    torch.cuda.synchronize()
+    slots = model.state_dict()
+    drawn = sorted(set(slots) - set(state))
+    copied = sorted(k for k, v in state.items() if slots[k].data_ptr() != v.data_ptr()
+                    and slots[k].dtype == v.dtype)
+    # the fp32 LayerNorms: a copy up to fp32, which must hold the dicts' values
+    changed = sorted(k for k, v in state.items() if slots[k].dtype != v.dtype
+                     and not torch.equal(slots[k], v.to(slots[k].dtype)))
+    rec = {"hf_tensors": len(hf), "hf_bytes": hf_bytes, "converted": len(state),
+           "drawn": len(drawn), "weight_bytes": quantized_bytes(model),
+           "build_s": time.perf_counter() - t0,
+           "allocated_gib": torch.cuda.memory_allocated() / 2**30}
+    print("phase 14 weights " + json.dumps(rec))
+    del hf, state
+    if unused:
+        raise AssertionError(f"the converters left {len(unused)} HF tensors unused")
+    if not drawn or not all(new_module_filter(k) for k in drawn):
+        raise AssertionError(f"parameters not loaded from the HF dicts: "
+                             f"{[k for k in drawn if not new_module_filter(k)][:5]}")
+    if copied:
+        raise AssertionError(f"base weights copied, not taken: {copied[:5]}")
+    if changed:
+        raise AssertionError(f"base weights changed on loading: {changed[:5]}")
+    return model, rec
+
+
+def llava_prep(cfg, cc, images, prompts, **kw):
+    from glimpseprune_torch.models.llava.runner import prepare_llava_inputs
+
+    return prepare_llava_inputs(cfg, cc, prompts, images, **kw)
+
+
+@contextlib.contextmanager
+def replays():
+    """A one-element list that counts the steps every StepGraph.run
+    replays while open."""
+    from glimpseprune_torch.models.qwen2_5_vl import decode_graph
+
+    run, count = decode_graph.StepGraph.run, [0]
+
+    def counting(self, n, rng=None):
+        count[0] += n
+        return run(self, n, rng)
+
+    decode_graph.StepGraph.run = counting
+    try:
+        yield count
+    finally:
+        decode_graph.StepGraph.run = run
+
+
+def greedy_with_logits(runner, pre, n: int):
+    """n greedy tokens of the runner's captured step over a B-row prefill,
+    replayed one step at a time: (tokens [B, n], logits [n][B, V]), token
+    j from logits[j] (the prefill's last logits, then each step's)."""
+    import torch
+
+    from glimpseprune_torch.models.qwen2_5_vl.decode_graph import StepGraph
+
+    logits, valid, pos, kv_k, kv_v = tuple(pre[:5])
+    steps = runner.decode_steps(logits, valid, pos, kv_k, kv_v, valid.shape[1] + n, -1)
+    if not isinstance(steps, StepGraph):
+        raise AssertionError("the card's decode did not run a captured step")
+    lg = [logits[:, -1].float()]
+    for _ in range(n - 1):
+        steps.run(1)
+        lg.append(steps.logits.float().clone())
+    toks = torch.cat([steps.state.toks[:, :n - 1], steps.state.tok[:, None]], 1)
+    return toks.cpu().numpy(), lg
+
+
+def check_llava_all_kept(cfg, model, images, prompts):
+    """JAX test_llava_gp_generate at full width: reduce_threshold -1 and no
+    ratio cap keep all 576 tokens a row, and each row's greedy tokens of
+    the pruned run against the unpruned run's pass phase 12's
+    ``cross_check``: two arithmetics of one function (the pruned prefill
+    runs S = 640 rows and the glimpse slot through layers 0-21, then a
+    compacted cache; the unpruned one 639 rows: other GEMM shapes, other
+    key counts), so every step's logits up to the first token that differs
+    within CROSS_LOGIT_RTOL, and the tie rule at that bound. -> record."""
+    from glimpseprune_torch.models.qwen2_5_vl.runner import GlimpsePruneRunner
+
+    cfg_all = cfg.replace_gp(reduce_threshold=-1.0, max_remain_ratio=None)
+    prep = llava_prep(cfg_all, model.clip_cfg, images, prompts)
+    runner = GlimpsePruneRunner(cfg_all, model.set_config(cfg_all))
+    try:
+        pruned, unpruned = runner.prefill(prep, True), runner.prefill(prep, False)
+        kept = pruned.keep_img.sum(1).tolist()
+        if kept != [int(n) for n in prep.n_img_tokens]:
+            raise AssertionError(f"all-kept prefill kept {kept}")
+        (got, got_lg), (want, want_lg) = (greedy_with_logits(runner, p, MAX_NEW_TOKENS)
+                                          for p in (pruned, unpruned))
+    finally:
+        model.set_config(cfg)
+    rec = {"kept": kept, "tokens_equal": bool((got == want).all()),
+           "first_logits_rel_dist": rel_err(pruned.logits, unpruned.logits),
+           "rows": [cross_check(f"all-kept row {b}", got[b], want[b],
+                                [x[b] for x in got_lg], [x[b] for x in want_lg])
+                    for b in range(got.shape[0])]}
+    print("phase 14 all-kept equivalence " + json.dumps(rec))
+    return rec
+
+
+def check_small_llava():
+    """The tiny LLaVA config (tests/test_llava.py's shapes; 56-pixel
+    images, one padded to a square, so no resize) on the card, bf16 with
+    the kernels, against the same weights on the CPU in fp32 with the
+    plain versions: the unpruned first logits, the mask logits and 8
+    captured decode steps within phase 6's 10% of max |ref|, the same keep
+    sets and the same greedy tokens, pruned and unpruned."""
+    import dataclasses
+
+    import torch
+
+    from glimpseprune_torch.config import GPConfig
+    from glimpseprune_torch.convert import init_random
+    from glimpseprune_torch.models.llava.gp_model import (CLIPTowerConfig, llama_text_config,
+                                                          llava_config)
+    from glimpseprune_torch.models.qwen2_5_vl.runner import GlimpsePruneRunner
+
+    cc = CLIPTowerConfig(depth=3, hidden_size=32, num_heads=4, intermediate_size=64,
+                         patch_size=14, image_size=56)
+    text = llama_text_config(hidden_size=64, intermediate_size=128, num_hidden_layers=3,
+                             num_attention_heads=4, num_key_value_heads=4, vocab_size=512,
+                             rms_norm_eps=1e-6)
+    gp = GPConfig(selected_layers=(1,), reduce_layer=1, selected_visual_layers=(1, 0),
+                  attn_fuse_size=16, visual_cond_size=16, attn_fuse_num_heads=4,
+                  attn_fuse_global=True, le_layers=(0, 1, 2), le_length=1, max_remain_ratio=0.5)
+    cfg = dataclasses.replace(llava_config(clip=cc, text=text, gp=gp), image_token_id=500,
+                              eos_token_id=502, pad_token_id=0)
+    rng = np.random.default_rng(1)
+    images = [rng.integers(0, 255, (40, 56, 3), dtype=np.uint8),
+              rng.integers(0, 255, (56, 56, 3), dtype=np.uint8)]
+    prep = llava_prep(cfg, cc, images, [[7, 8, 500, 9, 10], [11, 500, 12, 13, 14, 15]],
+                      seq_multiple=8)
+    cpu_model = init_random(cfg, seed=1, device="cpu", dtype=torch.float32, clip_cfg=cc)
+    gpu_model = copy.deepcopy(cpu_model).to(device="cuda", dtype=torch.bfloat16)
+    ref_run, got_run = GlimpsePruneRunner(cfg, cpu_model), GlimpsePruneRunner(cfg, gpu_model)
+    errs = {}
+    for do_sel, field in ((False, "logits"), (True, "mask_logits")):
+        ref = getattr(ref_run.prefill(prep, do_sel), field).float()
+        got = getattr(got_run.prefill(prep, do_sel), field).float().cpu()
+        errs[field] = ((got - ref).abs().max() / ref.abs().max()).item()
+    errs["decode_logits"] = small_decode_err(ref_run, got_run, prep)
+    same = {}
+    for do_sel in (True, False):
+        ref, got = (r.generate(prep, max_new_tokens=8, do_selection=do_sel)
+                    for r in (ref_run, got_run))
+        same["pruned" if do_sel else "unpruned"] = bool((ref.sequences == got.sequences).all())
+        if do_sel:
+            same["keep_sets"] = bool((ref.keep_img == got.keep_img).all())
+    print("phase 14 tiny LLaVA, card bf16 vs CPU fp32, max error / max |ref|: "
+          + json.dumps(errs) + ", equal: " + json.dumps(same))
+    bad = {k: v for k, v in errs.items() if not v <= 0.1}
+    if bad or not all(same.values()):
+        raise AssertionError(f"the card's tiny LLaVA disagrees with the CPU: {bad}, {same}")
+    return {**errs, **same}
+
+
+def llava_train_steps(cfg, model, images, prompts):
+    """LLAVA_TRAIN_STEPS base train steps (make_train_step, AdamW, the
+    GlimpsePrune modules alone trainable) at B = 2 with answers and one box
+    a row: finite losses, the glimpse embeddings moved, every base weight
+    bit-identical (against a host copy); K2-lse and K3 launched. ->
+    (record, launches)."""
+    import torch
+
+    from glimpseprune_torch.training.train_step import (AdamW, init_trainable,
+                                                        make_train_step, split_params)
+    from glimpseprune_torch.training.trainer import batch_from_prep
+
+    rng = np.random.default_rng(14)
+    answers = [[int(x) for x in rng.integers(3, 31000, 12)] for _ in prompts]
+    prep = llava_prep(cfg, model.clip_cfg, images, prompts, answer_ids=answers,
+                      normed_bboxes=[[[0.1, 0.1, 0.5, 0.6]], [[0.3, 0.2, 0.9, 0.7]]])
+    batch = batch_from_prep(prep, "cuda")
+    _, frozen = split_params(model)
+    frozen_before = {k: p.detach().cpu() for k, p in frozen.items()}
+    adamw = AdamW(init_trainable(model), LLAVA_TRAIN_LR, max_grad_norm=1.0)
+    le0 = model.learnable_embeddings.detach().clone()
+    step = make_train_step(cfg, model, adamw)
+    reset_launches()
+    steps = []
+    for i in range(LLAVA_TRAIN_STEPS):
+        torch.cuda.reset_peak_memory_stats()
+        ms, metrics = timed_ms(lambda: step(batch))
+        steps.append({"step": i + 1, "ms": ms, "peak_mem_gib": torch.cuda.max_memory_allocated()
+                      / 2**30, **{k: float(v) for k, v in metrics.items()}})
+        print("phase 14 train step " + json.dumps(steps[-1]))
+    torch.cuda.synchronize()
+    launches = read_launches([f"{fn}[{k}]" for fn in ("flash_attention_lse",
+                                                      "flash_attention_backward")
+                              for k in ("causal", "dqk_ne_dv")])
+    model.requires_grad_(False)
+    moved = [k for k, p in frozen.items() if not torch.equal(p.cpu(), frozen_before[k])]
+    le_moved = (model.learnable_embeddings.detach() - le0).abs().max().item()
+    rec = {"S": int(prep.input_ids.shape[1]), "steps": steps,
+           "learnable_embeddings_max_change": le_moved, "frozen_changed": len(moved),
+           "frozen_tensors": len(frozen)}
+    if not all(np.isfinite(st["loss"]) for st in steps) or not le_moved > 0 or moved:
+        raise AssertionError(f"phase 14 training: {rec}, changed frozen {moved[:5]}")
+    return rec, launches
+
+
+def llava_q8(cfg, model, prep, smi):
+    """The (q8) tier on the trained 7B, quantized in place: int8 decoder
+    and head, W8A8 prefill, int8 KV, CLIP unquantized; LLAVA_Q8_TOKENS
+    greedy tokens pruned, with phase 9's checks (outputs, the first
+    logits' distance from bf16, the weight and KV bytes) and phase 6's
+    decode checks. -> (record, launches)."""
+    import torch
+
+    from glimpseprune_torch.models.layers import QuantLinear
+    from glimpseprune_torch.models.qwen2_5_vl.runner import GlimpsePruneRunner
+    from glimpseprune_torch.ops.kv_cache import cache_nbytes
+    from glimpseprune_torch.quantization import quantize_model, quantized_bytes
+
+    ref = GlimpsePruneRunner(cfg, model).prefill(prep, True).logits.float().cpu()
+    qcfg = quant_config(cfg, "q8")
+    t0 = time.perf_counter()
+    quantize_model(model, "int8", cfg=qcfg)
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t0
+    if any(isinstance(m, QuantLinear) for m in model.visual.modules()):
+        raise AssertionError("(q8) quantized the CLIP tower")
+    runner = GlimpsePruneRunner(qcfg, model)
+    reset_launches()
+    with sync_checked():
+        runner.generate(prep, max_new_tokens=LLAVA_Q8_TOKENS)
+        torch.cuda.reset_peak_memory_stats()
+        prefill_ms, pre = timed_ms(lambda: runner.prefill(prep, True))
+        generate_ms, res = timed_ms(lambda: runner.generate(prep, max_new_tokens=LLAVA_Q8_TOKENS))
+        peak = torch.cuda.max_memory_allocated()
+    torch.cuda.synchronize()
+    launches = read_launches(LLAVA_KERNELS)
+    check_outputs(qcfg, prep, pre, res, True, LLAVA_Q8_TOKENS)
+    t_cache = pre.valid.shape[1] + LLAVA_Q8_TOKENS
+    rec = {"quantize_s": quant_s, "weight_bytes": quantized_bytes(model),
+           "kv_cache_bytes": sum(cache_nbytes(runner.decode_cache(kv, t_cache))
+                                 for kv in (pre.kv_k, pre.kv_v)),
+           "prefill_ms": prefill_ms, "generate_ms": generate_ms, "peak_mem_gib": peak / 2**30,
+           "kept_img_tokens": res.keep_img.sum(1).tolist(),
+           "first_logits_rel_dist_from_bf16": rel_err(pre.logits.float().cpu(), ref)}
+    print(f"phase 14 (q8) on {smi}: " + json.dumps(rec))
+    with torch.inference_mode():
+        rec["decode"] = check_captured_decode(qcfg, runner, prep, True, "llava-q8")
+    return rec, launches
+
+
+def run_llava_phase(gen, smi):
+    """Phase 14: LLaVA-1.5-7B at full width -> (kernel rows, record,
+    {"serve", "train", "q8": launches})."""
+    import torch
+
+    from glimpseprune_torch.models.llava.gp_model import load_llava_config
+    from glimpseprune_torch.models.qwen2_5_vl.runner import GlimpsePruneRunner
+
+    t0 = time.perf_counter()
+    cfg, cc = load_llava_config(str(ROOT / LLAVA_DIR), with_text_tower=True)
+    cfg = cfg.replace_gp(max_remain_ratio=LLAVA_REMAIN_RATIO)
+    rng = np.random.default_rng(LLAVA_SEED)
+    images = [rng.integers(0, 256, (cc.image_size, cc.image_size, 3), dtype=np.uint8)
+              for _ in LLAVA_PROMPT_TEXT]
+    prompts = llava_prompts(cfg, rng)
+    prep = llava_prep(cfg, cc, images, prompts)
+    # K2 at LLaVA's two new shapes: the decoder's MHA causal prefill (32 q
+    # over 32 kv heads) and the fuser's Dqk != Dv over 576 tokens, one segment
+    rows = flash_cases(llm_fuser_cases(cfg, prep, "llava_"), gen)
+    small = check_small_llava()
+    model, weights = build_llava(cfg, cc)
+    with captures() as caught, replays() as replayed:
+        runs, serve_launches = run_main_path(cfg, model, [("l", prep)], LLAVA_KERNELS,
+                                             "phase 14 main path")
+    if len(caught) != 2:  # one captured step a mode, replayed by the timed runs
+        raise AssertionError(f"phase 14 captured {len(caught)} decode steps, not 2")
+    kept = runs[0]["kept_img_tokens"]
+    if not all(0 < k < n for k, n in zip(kept, prep.n_img_tokens)):
+        raise AssertionError(f"phase 14's pruned run kept {kept} of {prep.n_img_tokens}: "
+                             "the keep policy cut nothing")
+    for k in rows:
+        k.update(phase=14, launches=serve_launches[k["name"]])
+    runner = GlimpsePruneRunner(cfg, model)
+    with torch.inference_mode():
+        decode = check_captured_decode(cfg, runner, prep, True, "llava-bf16")
+    all_kept = check_llava_all_kept(cfg, model, images, prompts)
+    segments = np.zeros((2, cc.text_max_positions), dtype=np.int64)
+    for m, n in enumerate((14, 9)):  # BOS, words, EOT (the largest id), zero padding
+        segments[m, 0], segments[m, n + 1] = 49406, 49407
+        segments[m, 1:n + 1] = rng.integers(300, 49000, n)
+    cdp_ms, cdp = timed_ms(lambda: runner.generate_compressed(
+        prep, "cdpruner", max_new_tokens=COMPRESSED_NEW_TOKENS, visual_token_num=LLAVA_CDP_KEEP,
+        clip_text_ids=segments))
+    if cdp.keep_img.sum(1).tolist() != [LLAVA_CDP_KEEP] * len(prompts):
+        raise AssertionError(f"CDPruner kept {cdp.keep_img.sum(1).tolist()}")
+    train, train_launches = llava_train_steps(cfg, model, images, prompts)
+    q8, q8_launches = llava_q8(cfg, model, prep, smi)
+    del runner, model
+    torch.cuda.empty_cache()
+    rec = {"weights": weights, "runs": runs, "captures": len(caught),
+           "capture_ms": [c * 1e3 for c in caught], "replayed_steps": replayed[0],
+           "decode": decode, "all_kept": all_kept, "tiny": small,
+           "cdpruner": {"kept": cdp.keep_img.sum(1).tolist(), "ms": cdp_ms,
+                        "tokens": COMPRESSED_NEW_TOKENS},
+           "train": train, "q8": q8, "phase_s": time.perf_counter() - t0}
+    print("phase 14 " + json.dumps({k: v for k, v in rec.items() if k in (
+        "captures", "replayed_steps", "cdpruner", "phase_s")}))
+    return rows, rec, {"serve": serve_launches, "train": train_launches, "q8": q8_launches}
+
+
 def main() -> int:
     smi = find_card()
     import torch
@@ -4120,6 +4601,9 @@ def main() -> int:
     for k in k9_rows:
         k["launches"] = sp_launches[k["name"]]
         k["launches_per_rank"] = [r["launches"].get(k["name"], 0) for r in sp_ranks]
+    # phase 14: LLaVA-1.5-7B (the parent's earlier models are gone)
+    torch.cuda.empty_cache()
+    llava_rows, llava, llava_launches = run_llava_phase(gen, smi)
 
     for k in kernels:
         path = train_launches if k["name"].startswith(("flash_attention_lse",
@@ -4137,7 +4621,11 @@ def main() -> int:
             k["note"] = next(v for p, v in off_path.items() if k["name"].startswith(p))
     kernels += quant_kernels
     kernels += k9_rows
+    llava_names = {k["name"] for k in llava_rows}
     for k in kernels:  # phase 12's timed serves' launches, bf16 and (q4)
+        if k["name"] not in llava_names:
+            k["launches_llava"] = {part: counts.get(k["name"], 0)
+                                   for part, counts in llava_launches.items()}
         k["launches_continuous"] = {tier: {side["side"]: side["launches"].get(k["name"], 0)
                                            for side in c["sides"]}
                                     for tier, c in continuous.items()}
@@ -4147,6 +4635,10 @@ def main() -> int:
             "q4_lora": glimpse_plus["q4_lora"]["launches"].get(k["name"], 0),
             "grpo_per_step": [st["launches"].get(k["name"], 0)
                               for st in glimpse_plus["grpo"]["steps"]]}
+    for k in llava_rows:  # phase 14: LLaVA's main path, its two train steps, its (q8) tier
+        k["launches_llava"] = {part: counts.get(k["name"], 0)
+                               for part, counts in llava_launches.items()}
+    kernels += llava_rows
     for k in kernels:
         print(speed(k))
     g = glimpse_plus["grpo"]
@@ -4155,6 +4647,13 @@ def main() -> int:
         f"{st['k2_lse_causal']}, K3 causal {st['k3_causal']}" for st in g["steps"])
         + f"; peak over the model {g['peak_over_model_gib']:.2f} GiB; phase "
         f"{glimpse_plus['phase_s']:.1f} s")
+    ll = llava["runs"]
+    print(f"LLaVA-1.5-7B on {smi}: " + ", ".join(
+        f"{r['mode']} prefill {r['prefill_ms']:.1f} ms, decode {r['decode_ms_per_token']:.2f} "
+        f"ms/token, peak {r['peak_mem_gib']:.2f} GiB" for r in ll)
+        + f"; kept {ll[0]['kept_img_tokens']} of 576; train steps "
+        + ", ".join(f"{st['ms']:.1f} ms" for st in llava["train"]["steps"])
+        + f"; (q8) prefill {llava['q8']['prefill_ms']:.1f} ms; phase {llava['phase_s']:.1f} s")
     for tier, d in decode_checks.items():
         sv = d["serving"]
         print(f"decode {tier} on {smi}: " + ", ".join(
@@ -4184,6 +4683,7 @@ def main() -> int:
                       "k9_shards": k9_report, "sp_path_s": sp_s, "sp_launches": sp_launches,
                       "sp_ranks": sp_ranks, "continuous_serving": continuous,
                       "continuous_bf16_s": continuous_s, "glimpse_plus": glimpse_plus,
+                      "llava": llava,
                       "total_s": time.perf_counter() - t_start}, default=str))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -16,10 +16,21 @@ LoRA leaves (``lora_a`` [L, in, r], ``lora_b`` [L, r, out], the tree of JAX
 ``lora_b`` in the same [in, r] / [r, out] layout (a bare adapter tree goes
 in through ``training.lora.insert_lora``).
 
+The LLaVA family (``cfg.model_family == "llava"``, with the CLIP tower's
+``clip_cfg``) gives a ``Llava_GP``. Its JAX tree keeps the CLIP blocks per
+layer (``layers_{i}``, not stacked), raw ``class_embedding`` /
+``position_embedding`` arrays, which keep their names, and a Flax ``Conv``
+patch kernel [kh, kw, in, out], which becomes the torch ``Conv2d`` weight
+[out, in, kh, kw] (``transpose(3, 2, 0, 1)``, not the 2-D ``.T``).
+
 ``init_random`` builds full-width random weights directly on a device with
 the JAX init's scales: matrices normal / sqrt(fan_in) (lecun normal,
-language.py:203-205, vision.py:145-148), embeddings normal / sqrt(hidden),
-glimpse embeddings normal(0.02) (gp_model.py:136), biases 0, norms 1.
+language.py:203-205, vision.py:145-148; a conv kernel's fan-in is in * kh
+* kw), embeddings normal / sqrt(hidden), glimpse embeddings and CLIP's
+class and position embeddings normal(0.02) (gp_model.py:136, clip.py:206,
+:213), biases 0, norms 1. With ``base``, a state dict of the base weights
+(``models/*/convert.py`` from an HF checkpoint), the model takes those
+tensors and draws only the rest: the GlimpsePrune modules.
 Under a config with quantized weights both functions return the model with
 its Linears swapped for QuantLinears in each tower's tier (``init_random``
 quantizes its random weights on the device, one layer at a time).
@@ -28,12 +39,14 @@ quantizes its random weights on the device, one layer at a time).
 from __future__ import annotations
 
 import re
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
+from torch import nn
 
 from glimpseprune_torch.config import ModelConfig
+from glimpseprune_torch.models.llava.gp_model import CLIPTowerConfig, Llava_GP
 from glimpseprune_torch.models.qwen2_5_vl.gp_model import Qwen2_5_VL_GP
 from glimpseprune_torch.quantization import DEFAULT_INCLUDE, quantize_model
 
@@ -56,8 +69,9 @@ def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
 
 
 def _leaf(name: str, arr: np.ndarray):
-    if name.endswith(".kernel"):
-        return name[: -len("kernel")] + "weight", arr.T
+    if name.endswith(".kernel"):  # Dense [in, out]; Conv [kh, kw, in, out]
+        return name[: -len("kernel")] + "weight", (arr.transpose(3, 2, 0, 1) if arr.ndim == 4
+                                                   else arr.T)
     if name.endswith(".embedding"):
         return name[: -len("embedding")] + "weight", arr
     if name.endswith(".scale"):
@@ -86,9 +100,20 @@ def params_from_jax(params: Mapping, cfg: ModelConfig) -> Dict[str, torch.Tensor
     return state
 
 
+def new_model(cfg: ModelConfig, clip_cfg: Optional[CLIPTowerConfig] = None) -> Qwen2_5_VL_GP:
+    """The model class of cfg's family: a Llava_GP over clip_cfg (default
+    ``CLIPTowerConfig()``) for "llava", else a Qwen2_5_VL_GP."""
+    if cfg.model_family == "llava":
+        return Llava_GP(cfg, clip_cfg)
+    if clip_cfg is not None:
+        raise ValueError(f"clip_cfg is for the llava family, not {cfg.model_family!r}")
+    return Qwen2_5_VL_GP(cfg)
+
+
 def quantize_towers(model: Qwen2_5_VL_GP, cfg: ModelConfig) -> Qwen2_5_VL_GP:
     """quantize_model on each tower whose config declares quantized weights,
-    over that tower's part of DEFAULT_INCLUDE."""
+    over that tower's part of DEFAULT_INCLUDE (which no CLIP kernel
+    matches: LLaVA's tower stays unquantized, as in JAX)."""
     for tower, prefix in ((cfg.text, "text/"), (cfg.vision, "visual/")):
         if tower.weight_quant != "none":
             quantize_model(model, tower.weight_quant,
@@ -96,34 +121,59 @@ def quantize_towers(model: Qwen2_5_VL_GP, cfg: ModelConfig) -> Qwen2_5_VL_GP:
     return model
 
 
-def init_random(cfg: ModelConfig, seed: int, device, dtype=torch.bfloat16) -> Qwen2_5_VL_GP:
-    """A Qwen2_5_VL_GP with random weights made on `device` from `seed`."""
+def _draw(name: str, p: torch.Tensor, gen: torch.Generator) -> None:
+    """Fill p in place by the JAX init's rule for the parameter ``name``."""
+    if name.endswith((".lora_a", ".lora_b")):  # the JAX init's zero slots
+        p.zero_()
+    elif name in ("learnable_embeddings", "visual.class_embedding",
+                  "visual.position_embedding", "clip_text.position_embedding"):
+        p.normal_(0.0, 0.02, generator=gen)
+    elif name.endswith(("embed_tokens.weight", "token_embedding.weight")):
+        p.normal_(0.0, p.shape[1] ** -0.5, generator=gen)
+    elif name.endswith(".bias"):
+        p.zero_()
+    elif p.ndim == 1:  # norm scales
+        p.fill_(1.0)
+    else:  # Linear.weight [out, in], Conv2d.weight [out, in, kh, kw]
+        p.normal_(0.0, p[0].numel() ** -0.5, generator=gen)
+
+
+def init_random(cfg: ModelConfig, seed: int, device, dtype=torch.bfloat16,
+                clip_cfg: Optional[CLIPTowerConfig] = None,
+                base: Optional[Mapping[str, torch.Tensor]] = None) -> Qwen2_5_VL_GP:
+    """The model of cfg's family with random weights made on `device` from
+    `seed`. ``base``: weights the model takes as they are (cast to dtype
+    on device, without a copy where they already are), a key the model
+    lacks raising; only the parameters base lacks are drawn."""
     with torch.device("meta"):
-        model = Qwen2_5_VL_GP(cfg)
-    model = model.to(dtype).to_empty(device=device)
+        model = new_model(cfg, clip_cfg).to(dtype)
+    base = dict(base or {})
+    slots = model.state_dict()
+    unknown = sorted(set(base) - set(slots))
+    if unknown:
+        raise ValueError(f"the base weights hold {len(unknown)} keys the model lacks, "
+                         f"such as {unknown[:3]}")
+    model.load_state_dict({k: v.to(device=device, dtype=slots[k].dtype)
+                           for k, v in base.items()}, strict=False, assign=True)
+    for mod in model.modules():
+        for leaf, p in mod._parameters.items():
+            if p is not None and p.is_meta:
+                mod._parameters[leaf] = nn.Parameter(
+                    torch.empty(p.shape, dtype=p.dtype, device=device), p.requires_grad)
+    model.to(device=device, dtype=dtype)  # the fp32 LayerNorms' rule, nothing else moves
     gen = torch.Generator(device=device).manual_seed(seed)
     with torch.no_grad():
         for name, p in model.named_parameters():
-            if name.endswith((".lora_a", ".lora_b")):  # the JAX init's zero slots
-                p.zero_()
-            elif name == "learnable_embeddings":
-                p.normal_(0.0, 0.02, generator=gen)
-            elif name.endswith("embed_tokens.weight"):
-                p.normal_(0.0, p.shape[1] ** -0.5, generator=gen)
-            elif name.endswith(".bias"):
-                p.zero_()
-            elif p.ndim == 1:  # norm scales
-                p.fill_(1.0)
-            else:  # Linear.weight [out, in]
-                p.normal_(0.0, p.shape[1] ** -0.5, generator=gen)
+            if name not in base:
+                _draw(name, p, gen)
     return quantize_towers(model, cfg).requires_grad_(False).eval()
 
 
-def load_from_jax(params: Mapping, cfg: ModelConfig, device="cuda",
-                  dtype=torch.float32) -> Qwen2_5_VL_GP:
-    """A Qwen2_5_VL_GP holding the JAX params' weights, on the card unless
-    the caller asks for another device."""
+def load_from_jax(params: Mapping, cfg: ModelConfig, device="cuda", dtype=torch.float32,
+                  clip_cfg: Optional[CLIPTowerConfig] = None) -> Qwen2_5_VL_GP:
+    """The model of cfg's family holding the JAX params' weights, on the
+    card unless the caller asks for another device."""
     with torch.device("meta"):
-        model = quantize_towers(Qwen2_5_VL_GP(cfg), cfg)
+        model = quantize_towers(new_model(cfg, clip_cfg), cfg)
     model.load_state_dict(params_from_jax(params, cfg), strict=True, assign=True)
     return model.to(device=device, dtype=dtype).requires_grad_(False).eval()

@@ -205,12 +205,16 @@ def _gather_packed(packed: torch.Tensor, packed_idx: torch.Tensor,
 
 
 class Qwen2_5_VL_GP(nn.Module):
-    """Visual tower + text decoder + the GlimpsePrune modules."""
+    """Visual tower + text decoder + the GlimpsePrune modules. A model
+    family subclasses it for its own vision side (``_init_vision``,
+    ``_bind_vision``, ``vision_encode``); the rest is shared."""
+
+    model_family = "qwen2_5_vl"
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         self.cfg = c = cfg
-        self.visual = VisionTransformer(c.vision, tap_layers=c.gp.selected_visual_layers)
+        self._init_vision()
         self.text = TextDecoder(c.text)
         if c.text.lora_rank > 0:  # zero adapters: the JAX init's LoRA slots
             attach_lora([m for m in self.text.layers.modules() if isinstance(m, Linear)],
@@ -227,6 +231,10 @@ class Qwen2_5_VL_GP(nn.Module):
             else:
                 raise ValueError(f"Unsupported le_norm_type {c.gp.le_norm_type!r}")
 
+    def _init_vision(self) -> None:
+        self.visual = VisionTransformer(self.cfg.vision,
+                                        tap_layers=self.cfg.gp.selected_visual_layers)
+
     @property
     def dtype(self) -> torch.dtype:
         return self.text.embed_tokens.weight.dtype
@@ -239,14 +247,21 @@ class Qwen2_5_VL_GP(nn.Module):
         cfg=...)`` calls it once, and a runner refuses a model bound to a
         config other than its own. The weights must already fit cfg."""
         self.cfg = cfg
-        self.visual.cfg = cfg.vision
-        for block in self.visual.blocks:
-            block.cfg = cfg.vision
+        self._bind_vision(cfg)
         self.text.cfg = cfg.text
         for layer in self.text.layers:
             layer.cfg = cfg.text
         self.attn_fuser.gp = cfg.gp
         return self
+
+    def _bind_vision(self, cfg: ModelConfig) -> None:
+        self.visual.cfg = cfg.vision
+        for block in self.visual.blocks:
+            block.cfg = cfg.vision
+
+    def vision_weight_tier(self, cfg: ModelConfig) -> str:
+        """The tier the vision tower's weights must be in under cfg."""
+        return cfg.vision.weight_quant
 
     def _cos_sin(self, position_ids):
         t = self.cfg.text

@@ -22,6 +22,10 @@ caller's cache, which already holds the prefix (serving assembly:
 ``ops/kv_cache.cache_fill_rows``). Sampling (``temperature > 0``) draws
 from ``rng``, a torch.Generator on the model's device.
 
+Both model families run through this runner: a Qwen2_5_VL_GP with the
+Qwen prep (inputs.py), a Llava_GP with the LLaVA prep (models/llava/),
+whose vision side alone differs (JAX :444).
+
 The runner's config must be the model's, as the JAX runner builds its
 model from its config: the model is bound to a config once (built from it,
 or ``quantize_model(..., cfg=...)`` / ``Qwen2_5_VL_GP.set_config``), and
@@ -143,8 +147,12 @@ def check_config(cfg: ModelConfig, model: Qwen2_5_VL_GP) -> None:
     """Raise ValueError, naming the knob, for a config knob the port does
     not implement, or for a model whose weights are not in the tier the
     config declares."""
-    if cfg.model_family != "qwen2_5_vl":
+    if cfg.model_family not in ("qwen2_5_vl", "llava"):
         raise ValueError(f"model_family {cfg.model_family!r} is not ported to the torch runner")
+    if model.model_family != cfg.model_family:
+        raise ValueError(f"model_family is {cfg.model_family!r} but the model is a "
+                         f"{type(model).__name__} of the {model.model_family!r} family: build "
+                         "it from the config (convert.new_model)")
     have_rank = lora_rank(model.text)
     if have_rank != cfg.text.lora_rank:
         raise ValueError(f"text.lora_rank is {cfg.text.lora_rank} but the model's decoder "
@@ -161,10 +169,11 @@ def check_config(cfg: ModelConfig, model: Qwen2_5_VL_GP) -> None:
             raise ValueError(f"{name}.act_quant must be none, int8 or prefill, "
                              f"got {tower.act_quant!r}")
         have = _weight_tier(mod)
-        if have != tower.weight_quant:
+        want = model.vision_weight_tier(cfg) if name == "vision" else tower.weight_quant
+        if have != want:
             raise ValueError(f"{name}.weight_quant is {tower.weight_quant!r} but the model's "
-                             f"{name} weights are {have!r}: quantize the model with "
-                             "quantization.quantize_model")
+                             f"{name} weights are {have!r}, not {want!r}: quantize the model "
+                             "with quantization.quantize_model")
     check_binding(cfg, model)
 
 
@@ -487,11 +496,17 @@ class GlimpsePruneRunner:
         if get_sequence_parallel() is not None:
             raise ValueError("the compressors are not sequence-parallel: call "
                              "generate_compressed / prefill_compressed outside sequence_parallel")
-        if clip_text_ids is not None:
-            raise ValueError("clip_text_ids (CDPruner's CLIP-text relevance) needs the LLaVA "
-                             "model, which is not ported to the torch runner")
         cfg = self.cfg
         inputs = self._device_inputs(prep)
+        relevance = None
+        if clip_text_ids is not None:
+            if getattr(self.model, "clip_text", None) is None or method != "cdpruner":
+                raise ValueError("clip_text_ids (CDPruner's CLIP-text relevance) needs a LLaVA "
+                                 "model with the CLIP text tower (built with_text_tower) and "
+                                 f"method 'cdpruner', not a {type(self.model).__name__} and "
+                                 f"{method!r}")
+            relevance = self.model.cdpruner_relevance(
+                inputs["patches"], torch.as_tensor(np.asarray(clip_text_ids), device=self.device))
         le_len = cfg.gp.le_length if cfg.gp.has_le else 0
         if le_len:  # the glimpse slots are trailing
             inputs["input_ids"] = inputs["input_ids"][:, :-le_len]
@@ -519,14 +534,16 @@ class GlimpsePruneRunner:
         out_len = _round_up(s - int(prep.n_img_tokens.min()) + min(keep_budget, n), seq_mult)
         out_len = min(out_len, s)
         return self._pre_llm_compress(inputs, prep, method, keep_budget, out_len,
-                                      dominant_ratio, contextual_ratio)
+                                      dominant_ratio, contextual_ratio, relevance)
 
     def _pre_llm_compress(self, inputs: dict, prep: PreparedInputs, method: str, k: int,
-                          out_len: int, dominant_ratio: float,
-                          contextual_ratio: float) -> CompressedPrefill:
+                          out_len: int, dominant_ratio: float, contextual_ratio: float,
+                          relevance: Optional[torch.Tensor] = None) -> CompressedPrefill:
         """Select image tokens before the LLM, compact, prefill (JAX
-        :542-663). CDPruner's relevance is the negated cosine similarity of
-        each image token to the mean text-token embedding (JAX :624-641)."""
+        :542-663). CDPruner's relevance is ``relevance`` [Pm] packed where
+        given (LLaVA's CLIP-text relevance, JAX :614-622), else the negated
+        cosine similarity of each image token to the mean text-token
+        embedding (JAX :624-641)."""
         model = self.model
         input_ids, valid = inputs["input_ids"], inputs["valid"]
         packed_idx, img_slots, img_valid = (inputs["packed_idx"], inputs["img_slots"],
@@ -551,6 +568,8 @@ class GlimpsePruneRunner:
             rows = merge_dropped_into_kept(rows, keep_img, img_valid)
         elif method == "divprune":
             keep_img = divprune_select(rows, img_valid, k)
+        elif relevance is not None:  # cdpruner over the CLIP-text relevance
+            keep_img = cdpruner_select(rows, rows_of(relevance), img_valid, k)
         else:  # cdpruner
             embeds0 = model.text.embed(input_ids)
             text_mask = (valid & ~is_img)[..., None]
@@ -585,8 +604,10 @@ class GlimpsePruneRunner:
         """Run a baseline compressor end to end with greedy decoding:
         visionzip / divprune / cdpruner / vscan prune before the LLM, pdrop
         prunes inside it. visual_token_num is the image-token budget of
-        divprune, cdpruner and vscan; clip_text_ids (the LLaVA model's
-        CLIP-text relevance for CDPruner) is refused until LLaVA is ported."""
+        divprune, cdpruner and vscan; clip_text_ids [M, 77] (zero-padded
+        question segments; a LLaVA model built with the CLIP text tower)
+        switches CDPruner's relevance to the CLIP-text one (JAX
+        :1259-1269)."""
         eos = self.cfg.eos_token_id if eos_token_id is None else eos_token_id
         pre = self.prefill_compressed(prep, method, visual_token_num, dominant_ratio,
                                       contextual_ratio, stages, clip_text_ids)

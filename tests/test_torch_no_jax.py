@@ -42,7 +42,9 @@ def test_port_imports_no_jax():
     for name in ("compressors", "compressors.visionzip", "compressors.divprune",
                  "compressors.cdpruner", "compressors.vscan", "compressors.staged",
                  "ops.cuda.window_attention", "parallel", "parallel.sequence",
-                 "parallel.launch", "preprocessing.chat", "training.lora", "training.grpo"):
+                 "parallel.launch", "preprocessing.chat", "training.lora", "training.grpo",
+                 "models.llava.clip", "models.llava.gp_model", "models.llava.runner",
+                 "models.llava.convert", "models.qwen2_5_vl.convert"):
         assert f"glimpseprune_torch.{name}" in out["modules"]
     assert out["jax"] == []
 
