@@ -210,6 +210,26 @@ Phases, each of which raises on failure (the script then exits non-zero):
      count of phases 12-13; a row of an earlier phase carries
      ``launches_llava`` only where no LLaVA row has its name (K2-lse, K3),
      so that each of phase 14's counts stands on one row.
+ 15. the evaluation path through the port's command lines (run last, when
+     the card holds no model), Qwen2.5-VL-7B at full width with random
+     weights (``--model-config configs/model_qwen2_5_7b_gp --seed 0``):
+     ``tools.train_gp`` trains EVAL_TRAIN_STEPS steps at batch 2 on phase
+     7's synthetic corpus and saves the new modules; ``tools.infer_viscot``
+     loads them and runs a VisCoT-format benchmark of 4 .npy images (2 at
+     896x672, 2 at 672x504; boxes on 3 rows) at batch 2 as ``generate``
+     (EVAL_NEW_TOKENS tokens), ``glimpse`` and ``--compressor visionzip``:
+     4 records each with the JAX harness's fields, mask ratios in (0, 1],
+     the box metrics on the boxed rows, info.json's logger_stats with one
+     timed call per batch; a second call without --overwrite leaves its
+     output as it is; the generate records equal an in-process
+     ``run_inference`` on a model built the same way; each call's model is
+     freed when it returns. ``tools.score_results`` (precise_match) and
+     ``flops_report_from_results`` (GP FLOPs below vanilla) read them.
+     Then the (q4) 7B round trip through ``save_full_params`` /
+     ``load_full_params``: greedy tokens, keep sets, mask logits and first
+     logits bit-identical, the file's bytes and both sides' seconds, and the
+     load's peak no more than the weights it holds. The kernels line carries
+     the phase's launches as ``launches_eval`` (the CLIs; the round trip).
 Every kernel row carries its time (CUDA events over 10 calls) and
 ``device_ms``, the card's own time from torch.profiler, without the
 host's launch cost, its plain version's time, one PyTorch
@@ -4485,6 +4505,280 @@ def run_llava_phase(gen, smi):
     return rows, rec, {"serve": serve_launches, "train": train_launches, "q8": q8_launches}
 
 
+# phase 15: the evaluation path through the port's command lines
+QWEN_DIR = "configs/model_qwen2_5_7b_gp"
+EVAL_DIR = "build/chip_smoke_eval"
+EVAL_SIZES = ((896, 672), (672, 504), (896, 672), (672, 504))  # (h, w) of the 4 images
+EVAL_NEW_TOKENS = 16
+EVAL_TRAIN_STEPS = 2
+# a CLI's model is freed when its main() returns: the card's allocation must
+# come back within this of what it was before the call
+EVAL_LEAK_BYTES = 2**30
+EVAL_RECORD_KEYS = {"question_id", "dataset", "query", "answer", "response", "num_gen_tokens",
+                    "img_path", "mask_ratio", "keep_mask", "token_grid"}
+EVAL_BOX_KEYS = {"tp", "fp", "fn", "tn", "iou", "precision", "recall"}
+
+
+def write_eval_benchmark(work: Path):
+    """4 synthetic .npy images (2 at 896x672, 2 at 672x504) and a
+    VisCoT-format benchmark over them: rows 0-2 carry a pixel box as
+    ``path###[x1, y1, x2, y2]``, row 3 none -> (json path, image dir)."""
+    rng = np.random.default_rng(15)
+    img_dir = work / "bench_imgs"
+    (img_dir / "cot").mkdir(parents=True)
+    rows = []
+    for i, (h, w) in enumerate(EVAL_SIZES):
+        name = f"cot/{i}.npy"
+        np.save(img_dir / name, rng.integers(0, 256, (h, w, 3), dtype=np.uint8))
+        box = [w // 10 * (i + 1), h // 8, w // 2 + w // 10 * i, h // 2 + h // 8 * i]
+        rows.append({"question_id": i, "image": [name, f"{name}###{box}"] if i < 3 else [name],
+                     "conversations": [
+                         {"from": "human", "value": f"<image>\nWhat is the object in region "
+                          f"{i}? Please provide the bounding box coordinate of the region "
+                          "that can help you answer the question better."},
+                         {"from": "gpt", "value": str(box)},
+                         {"from": "human", "value": "<image>"},
+                         {"from": "gpt", "value": f"object {i}"}]})
+    path = work / "bench.json"
+    path.write_text(json.dumps(rows))
+    return path, img_dir
+
+
+def freed_call(fn, base: int, what: str):
+    """(seconds, peak device bytes, result) of one CLI call, whose model
+    must be freed once it returns."""
+    import gc
+
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated() - base
+    if left > EVAL_LEAK_BYTES:
+        raise AssertionError(f"{what} left {left / 2**30:.2f} GiB allocated on the card")
+    return secs, peak, out
+
+
+def check_eval_records(path: str, info_key: str):
+    """4 records with the JAX harness's fields, mask ratios in (0, 1], the
+    box metrics on the boxed rows only, one timed call per batch of 2."""
+    with open(path) as f:
+        recs = [json.loads(x) for x in f]
+    if len(recs) != len(EVAL_SIZES):
+        raise AssertionError(f"{path}: {len(recs)} records, not {len(EVAL_SIZES)}")
+    for i, r in enumerate(recs):
+        want = EVAL_RECORD_KEYS | (EVAL_BOX_KEYS if i < 3 else set())
+        if set(r) != want:
+            raise AssertionError(f"{path} row {i}: fields {sorted(r)}, not {sorted(want)}")
+        if not 0 < r["mask_ratio"] <= 1:
+            raise AssertionError(f"{path} row {i}: mask_ratio {r['mask_ratio']}")
+    with open(path.replace(".jsonl", "_info.json")) as f:
+        info = json.load(f)
+    timed = info["logger_stats"]["time_ms"]
+    if {k: v["count"] for k, v in timed.items()} != {info_key: 2}:
+        raise AssertionError(f"{path}: logger_stats {timed}, not 2 calls of {info_key}")
+    return recs, timed[info_key]["avg"]
+
+
+def in_process_records(cfg, ckpt: Path, bench: Path, img_dir: Path, work: Path):
+    """run_inference (generate) on a model built as the CLI builds it:
+    init_random at seed 0, the saved modules loaded, the stand-in
+    tokenizer."""
+    import dataclasses
+
+    import torch
+
+    from glimpseprune_torch.convert import init_random
+    from glimpseprune_torch.evalsuite import InferenceConfig, load_benchmark, run_inference
+    from glimpseprune_torch.models.qwen2_5_vl.runner import GlimpsePruneRunner
+    from glimpseprune_torch.persistence import load_new_modules
+    from glimpseprune_torch.tools.common import StandInTokenizer, text_codec
+
+    model, saved = load_new_modules(init_random(cfg, 0, "cuda", torch.bfloat16), str(ckpt))
+    cfg = dataclasses.replace(cfg, gp=saved.gp)
+    tokenize, detokenize = text_codec(StandInTokenizer(cfg))
+    out = run_inference(GlimpsePruneRunner(cfg, model.set_config(cfg)),
+                        load_benchmark(str(bench), str(img_dir)), str(work / "in_process"),
+                        "bench", InferenceConfig(task="generate", batch_size=2,
+                                                 max_new_tokens=EVAL_NEW_TOKENS,
+                                                 save_masks=True),
+                        tokenize=tokenize, detokenize=detokenize)
+    with open(out) as f:
+        return [json.loads(x) for x in f]
+
+
+def check_full_params_q4(cfg, prep, work: Path):
+    """The (q4) 7B quantized on the card, saved by save_full_params and
+    loaded by load_full_params onto the meta device: greedy tokens, keep
+    sets, mask logits and first logits bit-identical to the model before
+    saving -> (record, launches of both sides' runs)."""
+    import gc
+
+    import torch
+
+    from glimpseprune_torch.convert import init_random
+    from glimpseprune_torch.models.qwen2_5_vl.runner import GlimpsePruneRunner
+    from glimpseprune_torch.persistence import (
+        FULL_PARAMS_FILE,
+        load_full_params,
+        save_full_params,
+    )
+    from glimpseprune_torch.quantization import quantize_model
+
+    qcfg = quant_config(cfg, "q4")
+    model = quantize_model(init_random(cfg, seed=0, device="cuda", dtype=torch.bfloat16),
+                           "int4", cfg=qcfg)
+    reset_launches()
+
+    def outputs(runner):
+        res = runner.generate(prep, max_new_tokens=EVAL_NEW_TOKENS)
+        pre = runner.prefill(prep, True)
+        return res, pre.logits.float().cpu(), pre.mask_logits.float().cpu()
+
+    want = outputs(GlimpsePruneRunner(qcfg, model))
+    d = work / "full_params_q4"
+    t0 = time.perf_counter()
+    save_full_params(model, qcfg, str(d))
+    save_s = time.perf_counter() - t0
+    nbytes = (d / FULL_PARAMS_FILE).stat().st_size
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loaded, lcfg = load_full_params(str(d), device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    load_peak = torch.cuda.max_memory_allocated() - before
+    held = torch.cuda.memory_allocated() - before
+    got = outputs(GlimpsePruneRunner(lcfg, loaded))
+    launches = read_launches(["matmul_int4[*]", "matmul_int4_prefill[a8,*]",
+                              "flash_attention_int8[*]", "window_attention_fused"])
+    (w, wl, wm), (g, gl, gm) = want, got
+    same = {"tokens": np.array_equal(g.sequences, w.sequences)
+            and np.array_equal(g.num_generated, w.num_generated),
+            "keep": np.array_equal(g.keep_img, w.keep_img),
+            "generate_mask_logits": np.array_equal(g.mask_logits, w.mask_logits),
+            "prefill_mask_logits": torch.equal(gm, wm), "first_logits": torch.equal(gl, wl)}
+    rec = {"file_bytes": nbytes, "save_s": save_s, "load_s": load_s,
+           "load_peak_bytes": load_peak, "loaded_bytes": held, "config_equal": lcfg == qcfg,
+           "bit_identical": same, "kept_img_tokens": g.keep_img.sum(1).tolist()}
+    print("phase 15 (q4) full params " + json.dumps(rec))
+    if not all(same.values()) or lcfg != qcfg:
+        raise AssertionError(f"the reloaded (q4) model differs: {same}")
+    # the loaded weights take the card once: no second copy at the peak
+    if load_peak > 1.1 * held:
+        raise AssertionError(f"load_full_params peaked at {load_peak} bytes for {held} held")
+    del loaded
+    shutil.rmtree(d)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec, launches
+
+
+def run_eval_phase(cfg, prep, smi):
+    """Phase 15: train -> new modules -> inference -> scores through the
+    port's command lines at 7B width, then the (q4) full-params round trip
+    -> (record, {"cli", "q4_full_params": launches})."""
+    import torch
+
+    from glimpseprune_torch.analysis import flops_report_from_results
+    from glimpseprune_torch.tools import infer_viscot, score_results, train_gp
+
+    t_phase = time.perf_counter()
+    work = ROOT / EVAL_DIR
+    shutil.rmtree(work, ignore_errors=True)
+    data_cfg = write_train_corpus(work / "train")
+    (work / "data.json").write_text(json.dumps(data_cfg))
+    (work / "trainer.json").write_text(json.dumps(
+        {"batch_size": 2, "num_epochs": 1, "log_every": 1, "save_every": 0, "seed": 0}))
+    bench, img_dir = write_eval_benchmark(work)
+    model = ["--model-config", str(ROOT / QWEN_DIR), "--seed", "0"]
+    ckpt = work / "ckpt"
+    base = torch.cuda.memory_allocated()
+    reset_launches()
+    train_s, train_peak, _ = freed_call(lambda: train_gp.main(
+        ["--config", str(work / "trainer.json"), "--data-config", str(work / "data.json"),
+         "--img-dir", str(work / "train" / "imgs"), "--output-dir", str(ckpt),
+         "--max-steps", str(EVAL_TRAIN_STEPS)] + model), base, "train_gp")
+    for name in ("new_modules_gp.pt", "config.json", "trainer_state.pt"):
+        if not (ckpt / name).exists():
+            raise AssertionError(f"train_gp saved no {name}")
+    history = json.loads((ckpt / "train_log.json").read_text())
+    if [h["step"] for h in history] != list(range(1, EVAL_TRAIN_STEPS + 1)) or not all(
+            np.isfinite(h[k]) for h in history for k in ("loss", "loc_loss", "le_loss")):
+        raise AssertionError(f"train_gp history {history}")
+    elapsed = [h["elapsed_s"] for h in history]
+    rec = {"train": {"s": train_s, "peak_gib": train_peak / 2**30,
+                     "step_ms": [1e3 * (b - a) for a, b in zip([0.0] + elapsed, elapsed)],
+                     "loss": [h["loss"] for h in history]}}
+
+    def infer_argv(task, *extra):
+        return (["--benchmark", str(bench), "--img-dir", str(img_dir), "--task", task,
+                 "--batch-size", "2", "--max-new-tokens", str(EVAL_NEW_TOKENS),
+                 "--out-dir", str(work / "results"), "--new-modules", str(ckpt),
+                 "--save-masks"] + list(extra) + model)
+
+    paths = {}
+    for tag, task, key, extra in (
+            ("generate", "generate", "generate", ()),
+            ("glimpse", "glimpse", "glimpse", ()),
+            ("visionzip", "generate", "generate_compressed",
+             ("--compressor", "visionzip", "--dataset-name", "bench_visionzip"))):
+        secs, peak, path = freed_call(lambda: infer_viscot.main(infer_argv(task, *extra)),
+                                      base, f"infer_viscot {tag}")
+        recs, ms = check_eval_records(path, f"GlimpsePruneRunner.{key}")
+        paths[tag] = path
+        rec[tag] = {"s": secs, "peak_gib": peak / 2**30, "ms_per_call": ms,
+                    "gen_tokens": [r["num_gen_tokens"] for r in recs],
+                    "mask_ratio": [r["mask_ratio"] for r in recs],
+                    "iou": [r.get("iou") for r in recs]}
+        print(f"phase 15 infer_viscot {tag} on {smi}: " + json.dumps(rec[tag]))
+    torch.cuda.synchronize()
+    cli_launches = read_launches(["window_attention_fused", "flash_attention[causal]",
+                                  "flash_attention[segmented]", "flash_attention[dqk_ne_dv]",
+                                  "flash_attention_lse[causal]",
+                                  "flash_attention_backward[causal]"])
+    print("phase 15 CLI launches " + json.dumps(cli_launches))
+
+    gen_path = paths["generate"]
+    mtime = Path(gen_path).stat().st_mtime_ns
+    again_s, _, again = freed_call(lambda: infer_viscot.main(infer_argv("generate")), base,
+                                   "infer_viscot resume")
+    if again != gen_path or Path(gen_path).stat().st_mtime_ns != mtime:
+        raise AssertionError("a second infer_viscot call without --overwrite rewrote its output")
+    rec["resume_s"] = again_s
+    with open(gen_path) as f:
+        cli_recs = [json.loads(x) for x in f]
+    _, _, ref = freed_call(lambda: in_process_records(cfg, ckpt, bench, img_dir, work), base,
+                           "in-process run_inference")
+    if cli_recs != ref:
+        raise AssertionError("infer_viscot's records differ from an in-process run_inference")
+    rec["records_equal_in_process"] = True
+
+    [summary] = score_results.main([gen_path, "--scorer", "precise_match"])
+    if summary["num_scored"] != len(EVAL_SIZES):
+        raise AssertionError(f"score_results: {summary}")
+    flops = flops_report_from_results(gen_path, cfg)
+    if not flops["avg_gp_tflops"] < flops["avg_vanilla_tflops"]:
+        raise AssertionError(f"GP FLOPs not below vanilla: {flops}")
+    rec.update(score=summary["mean_score"], flops=flops)
+
+    rec["full_params_q4"], fp_launches = check_full_params_q4(cfg, prep, work)
+    shutil.rmtree(work)
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 15 on {smi}: " + json.dumps(
+        {k: rec[k] for k in ("train", "resume_s", "score", "flops", "phase_s")}))
+    return rec, {"cli": cli_launches, "q4_full_params": fp_launches}
+
+
 def main() -> int:
     smi = find_card()
     import torch
@@ -4604,6 +4898,9 @@ def main() -> int:
     # phase 14: LLaVA-1.5-7B (the parent's earlier models are gone)
     torch.cuda.empty_cache()
     llava_rows, llava, llava_launches = run_llava_phase(gen, smi)
+    # phase 15: the evaluation path through the command lines (no model held)
+    torch.cuda.empty_cache()
+    evaluation, eval_launches = run_eval_phase(cfg, prep_a, smi)
 
     for k in kernels:
         path = train_launches if k["name"].startswith(("flash_attention_lse",
@@ -4639,6 +4936,9 @@ def main() -> int:
         k["launches_llava"] = {part: counts.get(k["name"], 0)
                                for part, counts in llava_launches.items()}
     kernels += llava_rows
+    for k in kernels:  # phase 15: the CLIs' calls, and the (q4) full-params round trip
+        k["launches_eval"] = {part: counts.get(k["name"], 0)
+                              for part, counts in eval_launches.items()}
     for k in kernels:
         print(speed(k))
     g = glimpse_plus["grpo"]
@@ -4654,6 +4954,14 @@ def main() -> int:
         + f"; kept {ll[0]['kept_img_tokens']} of 576; train steps "
         + ", ".join(f"{st['ms']:.1f} ms" for st in llava["train"]["steps"])
         + f"; (q8) prefill {llava['q8']['prefill_ms']:.1f} ms; phase {llava['phase_s']:.1f} s")
+    ev, fp = evaluation, evaluation["full_params_q4"]
+    print(f"evaluation path on {smi}: train_gp {ev['train']['s']:.1f} s (steps "
+          + ", ".join(f"{ms:.1f}" for ms in ev["train"]["step_ms"])
+          + f" ms, peak {ev['train']['peak_gib']:.2f} GiB); infer_viscot "
+          + ", ".join(f"{t} {ev[t]['ms_per_call']:.1f} ms a call ({ev[t]['s']:.1f} s)"
+                      for t in ("generate", "glimpse", "visionzip"))
+          + f"; (q4) full params {fp['file_bytes']} bytes, save {fp['save_s']:.1f} s, load "
+          f"{fp['load_s']:.1f} s; phase {ev['phase_s']:.1f} s")
     for tier, d in decode_checks.items():
         sv = d["serving"]
         print(f"decode {tier} on {smi}: " + ", ".join(
@@ -4684,6 +4992,7 @@ def main() -> int:
                       "sp_ranks": sp_ranks, "continuous_serving": continuous,
                       "continuous_bf16_s": continuous_s, "glimpse_plus": glimpse_plus,
                       "llava": llava,
+                      "evaluation": evaluation,
                       "total_s": time.perf_counter() - t_start}, default=str))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -10,6 +10,9 @@ Counterpart of glimpseprune_tpu/models/qwen2_5_vl/runner.py
 ``_trim_eos`` / ``_first_stop_match`` :1053-1190, ``stream_generate``
 :1192 and ``generate_compressed`` :1243 with the bodies of
 ``_staged_impl`` :525 and ``_pre_llm_compress_impl`` :542).
+``glimpse``, ``generate`` and ``generate_compressed`` carry JAX's
+profiling decorators (:836-847, :1242; utils/profiling.py), which call
+straight through unless a ``LoggerControl`` turns them on.
 
 Decode: the JAX package runs a chunk of steps as one jitted ``lax.scan``
 (``gp_model.decode_chunk``); here a chunk is n replays of one captured
@@ -98,6 +101,7 @@ from glimpseprune_torch.ops.kv_cache import (
     quantize_kv,
 )
 from glimpseprune_torch.parallel.sequence import get_sequence_parallel
+from glimpseprune_torch.utils.profiling import debug_calls, time_logger
 
 DECODE_CHUNK = 32  # default decode steps between host-side eos / stop-sequence checks
 
@@ -276,12 +280,19 @@ class GlimpsePruneRunner:
             img_group=inputs["img_group"], ref_token_masks=inputs["ref_token_masks"],
             use_ref_masks=use_ref_masks)
 
+    @time_logger
+    @debug_calls()
     @torch.inference_mode()
     def glimpse(self, prep: PreparedInputs, use_ref_masks: bool = False) -> GlimpseOutputs:
         """The pruned prefill: ViT, glimpse encode, keep policy, compaction
         and the remaining layers over the survivors. ``use_ref_masks``
         prunes with the prep's bbox masks (``ref_token_masks``) instead of
         the predicted ones."""
+        return self._glimpse(prep, use_ref_masks)
+
+    def _glimpse(self, prep: PreparedInputs, use_ref_masks: bool) -> GlimpseOutputs:
+        # generate's pruned prefill calls this body, so that the profiling
+        # stats hold one entry per public call, as JAX's do
         anchor, kwargs = self._encode_kwargs(prep, use_ref_masks)
         return self.model.glimpse_prefill(prep.out_len, anchor_mask=anchor, **kwargs)
 
@@ -337,7 +348,7 @@ class GlimpsePruneRunner:
                 use_ref_masks: bool = False) -> PrefillResult:
         """Pruned (do_selection) or unpruned prefill up to the first logits."""
         if do_selection:
-            out = self.glimpse(prep, use_ref_masks)
+            out = self._glimpse(prep, use_ref_masks)
             return PrefillResult(out.logits, out.valid, out.position_ids, out.kv_k,
                                  out.kv_v, out.keep_img, out.mask_logits)
         inputs = self._device_inputs(prep)
@@ -427,6 +438,8 @@ class GlimpsePruneRunner:
                 yield i
         return logits, valid, pos, k_cache, v_cache
 
+    @time_logger
+    @debug_calls()
     @torch.inference_mode()
     def generate(self, prep: PreparedInputs, max_new_tokens: int = 128,
                  do_selection: bool = True, eos_token_id: Optional[int] = None,
@@ -592,6 +605,7 @@ class GlimpsePruneRunner:
         return CompressedPrefill(logits, r_ids, plan.valid, r_pos, kv_k, kv_v, keep_img,
                                  keep_img.sum(-1))
 
+    @time_logger
     @torch.inference_mode()
     def generate_compressed(
         self, prep: PreparedInputs, method: str, max_new_tokens: int = 128,

@@ -14,10 +14,19 @@ The GlimpsePrune+ adapters (``save_lora`` / ``load_lora``, JAX :28-42) are
 saved apart, as ``lora_adapter.pt``: the adapter tree of training/lora.py
 ({kernel path: {"a", "b"}}, fp32 CPU tensors) in torch's format; the port
 does not read the JAX package's msgpack.
+
+Full-model checkpoints (``save_full_params`` / ``load_full_params``, JAX
+:156-171, which uses orbax) are the model's whole state dict in torch's
+format, ``full_params.pt``, beside ``config.json`` (and, for a LLaVA
+model, ``clip_config.json``): every tensor in its own dtype and layout,
+the quantized tiers' int8 / int4 buffers and fp32 scales included, so a
+model converted or quantized once is not converted again at each start.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import json
 import os
 from typing import Dict, Mapping, Tuple
 
@@ -28,6 +37,8 @@ from glimpseprune_torch.config import ModelConfig
 
 NEW_MODULES_FILE = "new_modules_gp.pt"
 LORA_FILE = "lora_adapter.pt"
+FULL_PARAMS_FILE = "full_params.pt"
+CLIP_CONFIG_FILE = "clip_config.json"
 
 
 def save_lora(lora: Mapping, directory: str) -> str:
@@ -78,3 +89,38 @@ def load_new_modules(model: nn.Module, directory: str) -> Tuple[nn.Module, Model
         model.le_proj.load_state_dict(state["le_proj"], strict=True)
         model.le_norm.load_state_dict(state["le_norm"], strict=True)
     return model, cfg
+
+
+def save_full_params(model: nn.Module, cfg: ModelConfig, directory: str) -> str:
+    """Write model's whole state dict as ``full_params.pt``, and cfg (the
+    config the model is bound to) as ``config.json``, into directory."""
+    os.makedirs(directory, exist_ok=True)
+    torch.save(model.state_dict(), os.path.join(directory, FULL_PARAMS_FILE))
+    cfg.save(directory)
+    clip_cfg = getattr(model, "clip_cfg", None)
+    if clip_cfg is not None:
+        with open(os.path.join(directory, CLIP_CONFIG_FILE), "w") as f:
+            json.dump(dataclasses.asdict(clip_cfg), f, indent=2)
+    return directory
+
+
+def load_full_params(directory: str, device="cuda") -> Tuple[nn.Module, ModelConfig]:
+    """(the model saved by ``save_full_params`` on device, its config). The
+    model is built on the meta device, in its config's weight tiers, and
+    takes the loaded tensors as they are (``assign``), so no weight is
+    allocated twice; the file is memory-mapped, not read whole."""
+    from glimpseprune_torch.convert import new_model, quantize_towers
+    from glimpseprune_torch.models.llava.gp_model import CLIPTowerConfig
+
+    cfg = ModelConfig.load(directory)
+    clip_cfg = None
+    clip_path = os.path.join(directory, CLIP_CONFIG_FILE)
+    if os.path.exists(clip_path):
+        with open(clip_path) as f:
+            clip_cfg = CLIPTowerConfig(**json.load(f))
+    with torch.device("meta"):
+        model = quantize_towers(new_model(cfg, clip_cfg), cfg)
+    state = torch.load(os.path.join(directory, FULL_PARAMS_FILE), map_location=device,
+                       weights_only=True, mmap=True)
+    model.load_state_dict(state, strict=True, assign=True)
+    return model.requires_grad_(False).eval(), cfg

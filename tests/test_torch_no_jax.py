@@ -44,7 +44,11 @@ def test_port_imports_no_jax():
                  "ops.cuda.window_attention", "parallel", "parallel.sequence",
                  "parallel.launch", "preprocessing.chat", "training.lora", "training.grpo",
                  "models.llava.clip", "models.llava.gp_model", "models.llava.runner",
-                 "models.llava.convert", "models.qwen2_5_vl.convert"):
+                 "models.llava.convert", "models.qwen2_5_vl.convert",
+                 "evalsuite", "evalsuite.data", "evalsuite.scorers", "evalsuite.judge",
+                 "evalsuite.protocols", "evalsuite.shortform", "evalsuite.infer", "analysis",
+                 "utils.profiling", "utils.viz", "tools.common", "tools.train_gp",
+                 "tools.infer_viscot", "tools.score_results", "tools.demo"):
         assert f"glimpseprune_torch.{name}" in out["modules"]
     assert out["jax"] == []
 
