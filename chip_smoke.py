@@ -230,6 +230,40 @@ Phases, each of which raises on failure (the script then exits non-zero):
      logits bit-identical, the file's bytes and both sides' seconds, and the
      load's peak no more than the weights it holds. The kernels line carries
      the phase's launches as ``launches_eval`` (the CLIs; the round trip).
+ 16. the tools (run after phase 15, when the card holds no model, on its
+     outputs), 7B width, random weights: (a) the native image prep
+     (``preprocessing/native.py``, built with the kernels) on a 4086x4086
+     and a 1000x750 image against the numpy path where no resize is needed
+     (within 1e-6, grids equal), its ms on the 16k image, and, with PIL
+     hidden, the numpy path's ImportError naming ``use_native_preproc`` and
+     ``prepare_inputs(use_native_preproc=True)`` running without PIL;
+     ``device_random_params`` (q8): its seconds, the dequantized std of 8
+     sampled columns of every int8 linear within 5% of fan_in ** -0.5, and
+     the draw's peak within 5% of the weights it leaves (no bf16 copy);
+     (b) ``tools.profile_prefill`` (q8) on the 4086x4086 image with the
+     native prep (S = 16448, 65,536 patches, 16,384 image tokens) and its
+     ViT split, then bf16 at the default 1036x1036 cap: stages, prep ms,
+     kept tokens (at least min_remain_num), peak, finite first logits; (c)
+     ``tools.profile_decode`` (q8) + int8 KV and bf16 at T = 2048, 8192,
+     16896, (q4) at 2048: ms/step, the slope per 1k tokens of context and
+     the bytes a step it implies; (d) ``tools.profile_train_step`` (q8) at
+     side 3584 with fallback sides 3584, 2688, 1792, 3 steps: the side that
+     ran, step ms, peak, finite losses; (e) ``tools.profile_grpo_step``
+     (q8, rows 16, prompt 2048, completion 256, rank 8): chunked and
+     full-logits step and reference logprobs, ms and peak or "oom", the
+     losses within 1e-3 relative where both ran; (f) ``tools.demo_server``
+     in a thread on 127.0.0.1, port 0 (bf16), two requests with the
+     1000x750 image as ``image_npy``, GP on (streamed) and off: their
+     tokens equal an in-process ``stream_generate`` / ``generate`` on the
+     same model and inputs, the overlay PNG read back with zlib equals
+     ``apply_mask_on_image`` of the kept mask, no ``error`` event; each
+     request's time to its first event, total ms and capture ms; (g)
+     ``tools.save_attn_maps`` (--per-head, 4 query maps): the expected PNG
+     count, finite heatmaps, harvest rows summing to at most 1 over the
+     image keys; (h) ``tools.compare_results`` and ``tools.compare_server``
+     on phase 15's generate and visionzip results: 4 joined rows, every
+     page 200 with 4 rows, one ``.npy`` overlay rendered. The kernels line
+     carries the phase's launches as ``launches_tools``.
 Every kernel row carries its time (CUDA events over 10 calls) and
 ``device_ms``, the card's own time from torch.profiler, without the
 host's launch cost, its plain version's time, one PyTorch
@@ -447,8 +481,14 @@ def build_kernels():
     from glimpseprune_torch.ops.cuda.build import library_path, load_library
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNEL_LIBS)) as pool:
-        list(pool.map(load_library, KERNEL_LIBS))
+    from glimpseprune_torch.preprocessing import native
+
+    with ThreadPoolExecutor(len(KERNEL_LIBS) + 1) as pool:
+        built = [pool.submit(load_library, name) for name in KERNEL_LIBS]
+        built.append(pool.submit(native.build))  # the image prep's host library (g++)
+        for b in built:
+            b.result()
+    print(f"built {Path(native.library_path()).name} (g++, host image prep)")
     for name in KERNEL_LIBS:
         print(f"built {name}: {library_path(name).with_suffix('.log').read_text().strip()}")
     secs = time.perf_counter() - t0
@@ -4772,11 +4812,394 @@ def run_eval_phase(cfg, prep, smi):
     rec.update(score=summary["mean_score"], flops=flops)
 
     rec["full_params_q4"], fp_launches = check_full_params_q4(cfg, prep, work)
-    shutil.rmtree(work)
     rec["phase_s"] = time.perf_counter() - t_phase
     print(f"phase 15 on {smi}: " + json.dumps(
         {k: rec[k] for k in ("train", "resume_s", "score", "flops", "phase_s")}))
+    # phase 16 reads the results and their images; it removes the folder
+    rec["outputs"] = {"generate": paths["generate"], "visionzip": paths["visionzip"],
+                      "img_dir": str(img_dir), "work": str(work)}
     return rec, {"cli": cli_launches, "q4_full_params": fp_launches}
+
+
+TOOLS_SIDES = "3584,2688,1792"  # profile_train_step --fallback-sides
+TOOLS_DECODE_T = ("2048", "8192", "16896")
+TOOLS_NEW_TOKENS = 16  # each demo request
+TOOLS_HARVEST_QUERIES = 4  # save_attn_maps --q-start S - 4
+BENCH_MAX_PIXELS = 12845056  # bench.py's default image cap: 4086 px -> ~16k image tokens
+FASTINIT_STD_TOL = 0.05
+FASTINIT_PEAK_SLACK = 0.05
+TOOLS_KERNELS = ["window_attention_fused", "flash_attention[causal]",
+                 "flash_attention[dense]", "flash_attention[segmented]",
+                 "flash_attention[dqk_ne_dv]", "flash_attention_lse[causal]",
+                 "flash_attention_backward[causal]", "matmul_int4[*]"]
+
+
+def check_native_prep(cfg, img16k, img_small):
+    """(a) The native prep against the numpy path where no resize is needed
+    (no PIL there): the native resize, then both paths' normalize +
+    patchify on its output, within 1e-6 with equal grids, and the fused
+    native call equal to the two steps; the 16k image's native ms; with PIL
+    hidden, the PIL path's named ImportError and ``prepare_inputs`` through
+    the native path -> record."""
+    from glimpseprune_torch.models.qwen2_5_vl.inputs import prepare_inputs
+    from glimpseprune_torch.preprocessing import native
+    from glimpseprune_torch.preprocessing.image import preprocess_image, smart_resize
+
+    rec = {}
+    for name, img, max_px in (("16k", img16k, BENCH_MAX_PIXELS), ("1000x750", img_small, None)):
+        kw = {} if max_px is None else {"max_pixels": max_px}
+        hw = smart_resize(img.shape[0], img.shape[1], 28, **({"max_pixels": max_px}
+                                                              if max_px else {}))
+        t0 = time.perf_counter()
+        fused, grid = native.preprocess_image_native(img, **kw)
+        ms = 1e3 * (time.perf_counter() - t0)
+        resized = native.resize_bicubic_native(img, *hw)
+        two_step, grid2 = native.preprocess_image_native(resized, resized_hw=hw)
+        ref, grid_ref = preprocess_image(resized, resized_hw=hw)
+        err = float(np.abs(two_step - ref).max())
+        if tuple(grid) != tuple(grid_ref) or tuple(grid2) != tuple(grid_ref) or err > 1e-6:
+            raise AssertionError(f"native prep {name}: grids {grid} / {grid2} / {grid_ref}, "
+                                 f"max |native - numpy| {err}")
+        if not np.array_equal(fused, two_step):
+            raise AssertionError(f"native prep {name}: the fused call differs from resize + "
+                                 "patchify")
+        rec[name] = {"input_hw": list(img.shape[:2]), "resized_hw": list(hw),
+                     "grid": [int(g) for g in grid], "patches": int(fused.shape[0]),
+                     "native_ms": ms, "max_abs_err_no_resize": err}
+    try:
+        import PIL  # noqa: F401
+
+        rec["pil"] = "installed on this machine: hidden for the check"
+    except ImportError:
+        rec["pil"] = "not installed"
+    saved = sys.modules.get("PIL")
+    sys.modules["PIL"] = None  # an import of PIL now raises ImportError
+    try:
+        try:
+            preprocess_image(img_small)
+        except ImportError as e:
+            if "use_native_preproc" not in str(e) or "GP_NATIVE_PREPROC" not in str(e):
+                raise AssertionError(f"the PIL path's ImportError names no native path: {e}")
+            rec["pil_path_error"] = str(e)
+        else:
+            raise AssertionError("without PIL the numpy path resized an image")
+        prompt = [cfg.vision_start_token_id, cfg.image_token_id, cfg.vision_end_token_id, 1000]
+        prep = prepare_inputs(cfg, [prompt], [img_small], use_native_preproc=True)
+        rec["prepare_inputs_without_pil"] = {"n_img_tokens": int(prep.n_img_tokens[0])}
+    finally:
+        if saved is None:
+            sys.modules.pop("PIL", None)
+        else:
+            sys.modules["PIL"] = saved
+    print("phase 16 (a) native prep " + json.dumps(rec))
+    return rec
+
+
+def check_fastinit(cfg):
+    """device_random_params in (q8) at 7B: its time, the dequantized std
+    of 8 sampled columns of every quantized linear within FASTINIT_STD_TOL
+    of fan_in ** -0.5, and the draw's peak within FASTINIT_PEAK_SLACK of
+    the finished weights (no bf16 copy) -> record."""
+    import gc
+
+    import torch
+
+    from glimpseprune_torch.models.layers import QuantLinear
+    from glimpseprune_torch.tools.common import tier_config
+    from glimpseprune_torch.utils.fastinit import device_random_params
+
+    qcfg = tier_config(cfg, "int8")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = device_random_params(qcfg, 0, "cuda")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    held = torch.cuda.memory_allocated() - base
+    peak = torch.cuda.max_memory_allocated() - base
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    worst, n_lin = 0.0, 0
+    for mod in model.modules():
+        if isinstance(mod, QuantLinear) and mod.mode == "int8":
+            cols = torch.randint(0, mod.kernel_q.shape[1], (8,), generator=gen, device="cuda")
+            w = mod.kernel_q[:, cols].float() * mod.kernel_scale[0, cols]
+            worst = max(worst, abs(float(w.std()) * mod.kernel_q.shape[0] ** 0.5 - 1.0))
+            n_lin += 1
+    rec = {"s": secs, "weight_bytes": held, "peak_bytes": peak, "quantized_linears": n_lin,
+           "worst_std_rel_err": worst}
+    print("phase 16 device_random_params (q8) " + json.dumps(rec))
+    if n_lin == 0 or worst > FASTINIT_STD_TOL:
+        raise AssertionError(f"device_random_params' law: {rec}")
+    if peak > (1 + FASTINIT_PEAK_SLACK) * held:
+        raise AssertionError(f"device_random_params peaked at {peak} bytes for {held} held")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def sse_request(base: str, payload: dict):
+    """(events, ms to the first event, total ms) of one POST /generate."""
+    import urllib.request
+
+    req = urllib.request.Request(base + "/generate", data=json.dumps(payload).encode(),
+                                 headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    first, events, buf = None, [], b""
+    with urllib.request.urlopen(req, timeout=600) as resp:
+        while True:
+            chunk = resp.read1(65536) if hasattr(resp, "read1") else resp.read()
+            if not chunk:
+                break
+            if first is None:
+                first = 1e3 * (time.perf_counter() - t0)
+            buf += chunk
+            while b"\n\n" in buf:
+                block, buf = buf.split(b"\n\n", 1)
+                if block.startswith(b"data: "):
+                    events.append(json.loads(block[6:]))
+    return events, first, 1e3 * (time.perf_counter() - t0)
+
+
+def check_demo_server(image):
+    """(f) The demo server in a thread (bf16 7B, seed 0), two requests with
+    image as image_npy, GP on (streamed) and off: the tokens equal an
+    in-process run on the same model and inputs, the overlay PNG decodes
+    (zlib) to apply_mask_on_image of the kept mask -> (record, the server's
+    state)."""
+    import base64
+    import io
+    import threading
+
+    import torch
+
+    from glimpseprune_torch.models.qwen2_5_vl.inputs import prepare_inputs
+    from glimpseprune_torch.tools import demo_server
+    from glimpseprune_torch.utils.viz import apply_mask_on_image, decode_png
+
+    args = demo_server.parse_args(["--model-config", str(ROOT / QWEN_DIR), "--seed", "0",
+                                   "--native-preproc", "--port", "0"])
+    state = demo_server.DemoState(args)
+    srv = demo_server.make_server(state, "127.0.0.1", 0)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    buf = io.BytesIO()
+    np.save(buf, image)
+    question = "what is in the picture"
+    rec = {}
+    try:
+        base = f"http://127.0.0.1:{srv.server_address[1]}"
+        for mode, sel in (("gp_on", True), ("gp_off", False)):
+            events, first_ms, total_ms = sse_request(base, {
+                "image_npy": base64.b64encode(buf.getvalue()).decode(), "question": question,
+                "do_selection": sel, "max_remain_ratio": 0.111, "reduce_threshold": 0.5,
+                "max_new_tokens": TOOLS_NEW_TOKENS})
+            kinds = [e["type"] for e in events]
+            if "error" in kinds or kinds[-1:] != ["done"]:
+                raise AssertionError(f"demo {mode}: events {events[-1:]}")
+            rec[mode] = {"first_event_ms": first_ms, "total_ms": total_ms,
+                         "events": len(events), "done": {k: v for k, v in events[-1].items()
+                                                         if k != "overlay"},
+                         "tokens": [int(t) for e in events if e["type"] == "token"
+                                    for t in e["text"].split()],
+                         "overlay": events[-1].get("overlay")}
+        rec["captures_ms"] = [r["capture_ms"] for r in state.requests]
+        rec["request_ms"] = [r["ms"] for r in state.requests]
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=10)
+    # the same model and inputs in process
+    runner = state.runner(0.111, 0.5)
+    cfg = runner.cfg
+    state.model.set_config(cfg)
+    ids = state.tok(question)
+    prep = prepare_inputs(cfg, [[cfg.vision_start_token_id, cfg.image_token_id,
+                                 cfg.vision_end_token_id] + ids], [image], seq_multiple=8,
+                          patch_multiple=16, use_native_preproc=True)
+    gen = runner.stream_generate(prep, max_new_tokens=TOOLS_NEW_TOKENS, chunk_size=4)
+    while True:
+        try:
+            next(gen)
+        except StopIteration as stop:
+            res_on = stop.value
+            break
+    res_off = runner.generate(prep, max_new_tokens=TOOLS_NEW_TOKENS, do_selection=False)
+    for mode, res in (("gp_on", res_on), ("gp_off", res_off)):
+        want = [int(t) for t in res.sequences[0, : res.num_generated[0]]
+                if int(t) != cfg.eos_token_id]
+        if rec[mode]["tokens"] != want:
+            raise AssertionError(f"demo {mode}: the server's tokens {rec[mode]['tokens']} are "
+                                 f"not the in-process run's {want}")
+    gh = int(prep.grids[0][1] // cfg.vision.spatial_merge_size)
+    gw = int(prep.grids[0][2] // cfg.vision.spatial_merge_size)
+    mask = res_on.keep_img[0, : gh * gw].reshape(gh, gw)
+    overlay = decode_png(base64.b64decode(rec["gp_on"].pop("overlay")))
+    rec["gp_off"].pop("overlay")
+    if not np.array_equal(overlay, apply_mask_on_image(image, mask)):
+        raise AssertionError("demo: the overlay PNG is not apply_mask_on_image of the kept mask")
+    if abs(rec["gp_on"]["done"]["prune_ratio"] - float(res_on.prune_ratio[0])) > 1e-6:
+        raise AssertionError(f"demo: prune_ratio {rec['gp_on']['done']}")
+    rec["overlay_hw"] = list(overlay.shape[:2])
+    del state, runner, srv
+    torch.cuda.empty_cache()
+    return rec
+
+
+def check_attn_maps(image_path: str, work: Path):
+    """(g) save_attn_maps on the 7B (seed 0): the expected PNG count, finite
+    heatmaps, harvest rows summing to at most 1 over the image keys."""
+    from glimpseprune_torch.config import ModelConfig
+    from glimpseprune_torch.tools import save_attn_maps
+
+    cfg = ModelConfig.load(str(ROOT / QWEN_DIR))
+    out_dir = work / "attn_maps"
+    t0 = time.perf_counter()
+    out = save_attn_maps.main(["--image", image_path, "--question", "what is in the picture",
+                               "--per-head", "--native-preproc", "--q-start",
+                               str(-TOOLS_HARVEST_QUERIES), "--out-dir", str(out_dir),
+                               "--model-config", str(ROOT / QWEN_DIR), "--seed", "0"])
+    secs = time.perf_counter() - t0
+    layers = len(cfg.gp.selected_layers)
+    n_fused = sum(f.startswith("fused_map_") for f in out["files"])
+    pngs = sorted(p.name for p in out_dir.glob("*.png"))
+    want = n_fused + layers * (1 + cfg.text.num_attention_heads) + layers * \
+        TOOLS_HARVEST_QUERIES
+    finite = all(np.isfinite(a).all() for a in out["heatmaps"].values())
+    sums = list(out["harvest_sums"].values()) + list(out["seq_harvest_sums"].values())
+    rec = {"s": secs, "pngs": len(pngs), "expected": want, "fused": n_fused,
+           "grid": out["grid"], "harvest_sums": out["harvest_sums"],
+           "seq_harvest_sums": out["seq_harvest_sums"], "finite": finite}
+    print("phase 16 (g) save_attn_maps " + json.dumps(rec))
+    if n_fused == 0 or len(pngs) != want or sorted(f for f in out["files"]
+                                                   if f.endswith(".png")) != pngs:
+        raise AssertionError(f"save_attn_maps wrote {len(pngs)} PNGs, not {want}")
+    if not finite or not sums or max(sums) > 1 + 1e-3:
+        raise AssertionError(f"save_attn_maps: heatmaps or harvest sums {rec}")
+    return rec
+
+
+def check_compare_tools(outputs):
+    """(h) compare_results and compare_server on phase 15's generate and
+    visionzip results: 4 joined rows, every page 200 with 4 rows, one .npy
+    overlay rendered."""
+    import threading
+    import urllib.request
+
+    from glimpseprune_torch.tools import compare_results, compare_server
+    from glimpseprune_torch.utils.viz import decode_png
+
+    a, b = outputs["generate"], outputs["visionzip"]
+    report = compare_results.main([a, b, "--show", "1"])
+    n = len(EVAL_SIZES)
+    if report["common_samples"] != n:
+        raise AssertionError(f"compare_results joined {report['common_samples']} rows, not {n}")
+    args = compare_server.parse_args([a, b, "--img-dir", outputs["img_dir"], "--port", "0"])
+    srv = compare_server.make_server(args)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+
+    def get(path):
+        with urllib.request.urlopen(base + path, timeout=60) as r:
+            return r.status, r.headers.get("Content-Type"), r.read()
+
+    try:
+        code, _, index = get("/")
+        pages = [code] + [get(f"/sample/{i}")[0] for i in range(n)]
+        rows = index.count(b'<li><a href="/sample/')
+        code, ctype, png = get("/img/0/a")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=10)
+    img = decode_png(png)
+    rec = {"joined": report["common_samples"], "metrics": report["metrics"],
+           "pages": pages, "index_rows": rows, "overlay_hw": list(img.shape[:2])}
+    print("phase 16 (h) compare tools " + json.dumps(rec))
+    if pages != [200] * (n + 1) or rows != n or code != 200 or ctype != "image/png":
+        raise AssertionError(f"compare_server: {rec}")
+    if list(img.shape[:2]) != list(EVAL_SIZES[0]):
+        raise AssertionError(f"compare_server's overlay is {img.shape}, not {EVAL_SIZES[0]}")
+    return rec
+
+
+def run_tools_phase(cfg, outputs, smi):
+    """Phase 16: the native image prep, the four stage profilers, the demo
+    server, the attention maps and the compare tools at 7B width (run after
+    phase 15, when the card holds no model) -> (record, launches)."""
+    import torch
+
+    from glimpseprune_torch.tools import (
+        profile_decode,
+        profile_grpo_step,
+        profile_prefill,
+        profile_train_step,
+    )
+
+    t_phase = time.perf_counter()
+    work = Path(outputs["work"])
+    rng = np.random.default_rng(16)
+    img16k = rng.integers(0, 256, (4086, 4086, 3), dtype=np.uint8)
+    img_small = rng.integers(0, 256, (1000, 750, 3), dtype=np.uint8)
+    small_path = work / "tools_1000x750.npy"
+    np.save(small_path, img_small)
+    rec = {"native_prep": check_native_prep(cfg, img16k, img_small)}
+    del img16k
+    rec["fastinit"] = check_fastinit(cfg)
+    model = ["--model-config", str(ROOT / QWEN_DIR), "--seed", "0"]
+    reset_launches()
+
+    def tool(name, fn, argv):
+        t0 = time.perf_counter()
+        out = fn(argv + model)
+        torch.cuda.synchronize()
+        out["tool_s"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        print(f"phase 16 {name} on {smi}: " + json.dumps(
+            {k: v for k, v in out.items() if k not in ("vision_split",)}))
+        return out
+
+    pre = rec["prefill"] = {
+        "q8_16k": tool("(b) profile_prefill (q8) 16k", profile_prefill.main,
+                       ["--quant", "int8", "--max-pixels", str(BENCH_MAX_PIXELS),
+                        "--native-preproc", "--vision", "--iters", "2"]),
+        "bf16_1036": tool("(b) profile_prefill bf16 1036^2", profile_prefill.main,
+                          ["--native-preproc", "--iters", "2"])}
+    for name, r in pre.items():
+        if not r["first_logits_finite"] or min(r["kept_img_tokens"]) < r["min_remain_num"]:
+            raise AssertionError(f"profile_prefill {name}: {r}")
+    rec["decode"] = {
+        "q8_kv8": tool("(c) profile_decode (q8) + int8 KV", profile_decode.main,
+                       ["--quant", "int8", "--kv-quant", "int8", "--iters", "2",
+                        "--contexts", *TOOLS_DECODE_T]),
+        "bf16": tool("(c) profile_decode bf16", profile_decode.main,
+                     ["--iters", "2", "--contexts", *TOOLS_DECODE_T]),
+        "q4": tool("(c) profile_decode (q4)", profile_decode.main,
+                   ["--quant", "int4", "--iters", "2", "--contexts", "2048"])}
+    train = rec["train_step"] = tool(
+        "(d) profile_train_step (q8)", profile_train_step.main,
+        ["--quant", "int8", "--img-side", TOOLS_SIDES.split(",")[0], "--fallback-sides",
+         TOOLS_SIDES, "--steps", "3", "--native-preproc"])
+    if not train["losses_finite"]:
+        raise AssertionError(f"profile_train_step: non-finite losses {train['losses']}")
+    grpo = rec["grpo_step"] = tool("(e) profile_grpo_step (q8)", profile_grpo_step.main,
+                                   ["--quant", "int8", "--iters", "1"])
+    if isinstance(grpo["step_chunked"], str) or isinstance(grpo["ref_fwd_chunked"], str):
+        raise AssertionError(f"profile_grpo_step: the chunked path ran out of memory {grpo}")
+    if "loss_rel_diff" in grpo and grpo["loss_rel_diff"] > 1e-3:
+        raise AssertionError(f"profile_grpo_step: losses {grpo['losses']} disagree")
+    rec["demo"] = check_demo_server(img_small)
+    print(f"phase 16 (f) demo_server on {smi}: " + json.dumps(rec["demo"]))
+    rec["attn_maps"] = check_attn_maps(str(small_path), work)
+    torch.cuda.synchronize()
+    launches = read_launches(TOOLS_KERNELS)
+    rec["compare"] = check_compare_tools(outputs)
+    shutil.rmtree(work)
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 16 on {smi}: {rec['phase_s']:.1f} s")
+    return rec, launches
 
 
 def main() -> int:
@@ -4901,6 +5324,9 @@ def main() -> int:
     # phase 15: the evaluation path through the command lines (no model held)
     torch.cuda.empty_cache()
     evaluation, eval_launches = run_eval_phase(cfg, prep_a, smi)
+    # phase 16: the native prep, the profilers and the interactive tools (no model held)
+    torch.cuda.empty_cache()
+    tools, tools_launches = run_tools_phase(cfg, evaluation.pop("outputs"), smi)
 
     for k in kernels:
         path = train_launches if k["name"].startswith(("flash_attention_lse",
@@ -4939,6 +5365,8 @@ def main() -> int:
     for k in kernels:  # phase 15: the CLIs' calls, and the (q4) full-params round trip
         k["launches_eval"] = {part: counts.get(k["name"], 0)
                               for part, counts in eval_launches.items()}
+    for k in kernels:  # phase 16: the profilers, the demo server and the attention maps
+        k["launches_tools"] = tools_launches.get(k["name"], 0)
     for k in kernels:
         print(speed(k))
     g = glimpse_plus["grpo"]
@@ -4962,6 +5390,16 @@ def main() -> int:
                       for t in ("generate", "glimpse", "visionzip"))
           + f"; (q4) full params {fp['file_bytes']} bytes, save {fp['save_s']:.1f} s, load "
           f"{fp['load_s']:.1f} s; phase {ev['phase_s']:.1f} s")
+    pf, dc, ts, gr = (tools["prefill"]["q8_16k"], tools["decode"], tools["train_step"],
+                      tools["grpo_step"])
+    print(f"tools on {smi}: (q8) 16k prefill S={pf['S']} vision {pf['vision_encode_ms']:.1f} | "
+          f"glimpse {pf['glimpse_ms']:.1f} | reduce+resume {pf['reduce_resume_ms']:.1f} | total "
+          f"{pf['pruned_prefill_ms']:.1f} ms, prep {pf['prepare_inputs_ms']:.1f} ms, peak "
+          f"{pf['peak_gib']:.2f} GiB; decode slope " + ", ".join(
+              f"{t} {d.get('slope_ms_per_1k_ctx', float('nan')):.4f} ms/1k" for t, d in dc.items())
+          + f"; train step side {ts['img_side']} {ts['train_step_s'] * 1e3:.1f} ms, peak "
+          f"{ts['peak_gib']:.2f} GiB; GRPO chunked {gr['step_chunked']}, full logits "
+          f"{gr['step_full_logits']}; phase {tools['phase_s']:.1f} s")
     for tier, d in decode_checks.items():
         sv = d["serving"]
         print(f"decode {tier} on {smi}: " + ", ".join(
@@ -4992,7 +5430,7 @@ def main() -> int:
                       "sp_ranks": sp_ranks, "continuous_serving": continuous,
                       "continuous_bf16_s": continuous_s, "glimpse_plus": glimpse_plus,
                       "llava": llava,
-                      "evaluation": evaluation,
+                      "evaluation": evaluation, "tools": tools,
                       "total_s": time.perf_counter() - t_start}, default=str))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -13,6 +13,7 @@ calls (``config``, ``preprocessing``) are the port's own copies.
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence
 
@@ -137,6 +138,7 @@ def prepare_inputs(
     max_pixels: Optional[int] = None,
     seq_multiple: int = 64,
     patch_multiple: int = 256,
+    use_native_preproc: Optional[bool] = None,
     videos: Optional[Sequence] = None,
     video_seconds_per_grid: Optional[Sequence] = None,
 ) -> PreparedInputs:
@@ -153,6 +155,11 @@ def prepare_inputs(
     normed_bboxes[b]: bbox list (single image) or list of per-image bbox
     lists. answer_ids: training targets; when given, the glimpse slots are
     spliced in front of the answer and labels are emitted.
+    use_native_preproc: images go through the native C++ prep
+    (preprocessing/native.py), which resizes without PIL; None reads
+    GP_NATIVE_PREPROC ("1": on), as JAX does (runner.py:96-105). Asked for,
+    a native library that does not build or load raises: nothing falls
+    back to the PIL path. Videos always take the numpy path and PIL.
     """
     from glimpseprune_torch.preprocessing.image import (
         DEFAULT_MAX_PIXELS,
@@ -161,6 +168,14 @@ def prepare_inputs(
         preprocess_video,
     )
     from glimpseprune_torch.preprocessing.ref_masks import ref_token_mask_from_bboxes
+
+    if use_native_preproc is None:
+        use_native_preproc = os.environ.get("GP_NATIVE_PREPROC", "") == "1"
+    if use_native_preproc:
+        from glimpseprune_torch.preprocessing.native import load, preprocess_image_native
+
+        load()
+        preprocess_image = preprocess_image_native
 
     v = cfg.vision
     mu = v.spatial_merge_unit

@@ -67,8 +67,17 @@ def smart_resize(
 
 
 def _bicubic_resize(image: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
-    """Resize HWC uint8/float image to (h, w) with PIL bicubic (matches HF)."""
-    from PIL import Image
+    """Resize HWC uint8/float image to (h, w) with PIL bicubic (matches HF).
+    Without PIL this raises an ImportError that names the native path, which
+    resizes images without it (videos still need PIL)."""
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise ImportError(
+            f"resizing a {image.shape[0]}x{image.shape[1]} image to {size[0]}x{size[1]} "
+            "needs PIL, which is not installed: pass prepare_inputs(use_native_preproc=True) "
+            "or set GP_NATIVE_PREPROC=1 to resize images with the native C++ path "
+            "(videos still need PIL)") from e
 
     h, w = size
     if image.dtype != np.uint8:

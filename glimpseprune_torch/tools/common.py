@@ -26,20 +26,24 @@ import argparse
 import dataclasses
 import json
 import os
+import statistics
+import time
 import zlib
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 from glimpseprune_torch.config import ModelConfig, load_yaml_config
 
 
-def add_model_args(ap: argparse.ArgumentParser) -> None:
-    src = ap.add_mutually_exclusive_group(required=True)
+def add_model_args(ap: argparse.ArgumentParser, default_config: Optional[str] = None) -> None:
+    """The model source and device arguments; with ``default_config`` no
+    source is required and ``--model-config`` defaults to it."""
+    src = ap.add_mutually_exclusive_group(required=default_config is None)
     src.add_argument("--hf-model", default=None, help="HF Qwen2.5-VL checkpoint directory")
     src.add_argument("--full-params", default=None,
                      help="directory written by persistence.save_full_params")
-    src.add_argument("--model-config", default=None,
+    src.add_argument("--model-config", default=default_config,
                      help="config directory (config.json): random weights from --seed")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the random weights (--model-config) or of the "
@@ -144,3 +148,127 @@ def text_codec(tok):
     tokens added."""
     return (lambda text: list(tok.encode(text, add_special_tokens=False)),
             lambda ids: tok.decode(list(ids), skip_special_tokens=True))
+
+
+# ---- what the profilers share
+
+DEFAULT_CONFIG = "configs/model_qwen2_5_7b_gp"
+# the serving tiers (bench.py:869-878): int8 = int8 weights, W8A8 prefill,
+# int8 KV; int4 = int4 weights, W4A8 prefill, int8 ViT attention, int8 KV
+QUANT_TIERS = {
+    "int8": dict(act_quant="prefill"),
+    "int4": dict(act_quant="prefill", attn_qk_int8="vision", attn_pv_int8="vision"),
+}
+
+
+def add_profile_args(ap: argparse.ArgumentParser, quant_default: str = "") -> None:
+    """The model source (``--model-config`` defaults to the 7B config),
+    ``--scale tiny`` (the tiny test config, for the CPU), ``--quant``, and
+    ``--json`` (end with one JSON line)."""
+    add_model_args(ap, default_config=DEFAULT_CONFIG)
+    ap.add_argument("--scale", default="full", choices=["full", "tiny"],
+                    help="full: the model source's width; tiny: the tiny test config")
+    ap.add_argument("--quant", default=quant_default, choices=["", "int8", "int4"],
+                    help="weight tier: int8 (the bench's: W8A8 prefill, int8 KV) or int4")
+    ap.add_argument("--json", action="store_true", help="end with one JSON line")
+
+
+def tier_config(cfg: ModelConfig, quant: str, kv_quant: Optional[str] = None,
+                weights_only: bool = False) -> ModelConfig:
+    """cfg in a QUANT_TIERS tier ("" leaves the weights; ``weights_only``:
+    the quantized weights alone, as the JAX training profilers take them);
+    kv_quant (None: the tier's, int8 for a quantized tier) sets the KV
+    cache tier."""
+    from glimpseprune_torch.quantization import quantized_config
+
+    if quant:
+        cfg = quantized_config(cfg, quant, **({} if weights_only else QUANT_TIERS[quant]))
+    kv = ("int8" if quant else "") if kv_quant is None else kv_quant
+    return dataclasses.replace(cfg, text=dataclasses.replace(cfg.text,
+                                                             kv_cache_quant=kv or "none"))
+
+
+def profile_model(args: argparse.Namespace, quant: str = "", kv_quant: Optional[str] = None,
+                  cfg_edit: Optional[Callable[[ModelConfig], ModelConfig]] = None,
+                  weights_only: bool = False
+                  ) -> Tuple[ModelConfig, torch.nn.Module, torch.device]:
+    """(config, model bound to it, device) for a profiler. Random weights
+    (``--model-config`` or ``--scale tiny``) in a quantized tier are drawn
+    straight into it (``utils/fastinit.device_random_params``: no bf16
+    copy); any other source loads through ``load_model`` and is quantized
+    in place. ``cfg_edit`` changes the config before the model is bound."""
+    from glimpseprune_torch.config import tiny_test_config
+    from glimpseprune_torch.convert import init_random
+    from glimpseprune_torch.quantization import quantize_model
+    from glimpseprune_torch.utils.fastinit import device_random_params
+
+    dev = resolve_device(args.device)
+    dtype = torch.bfloat16 if dev.type == "cuda" else torch.float32
+    edit = cfg_edit or (lambda c: c)
+    random_weights = (args.scale == "tiny" or (args.model_config and not args.hf_model
+                                               and not args.full_params))
+    if random_weights and not args.new_modules:
+        base = tiny_test_config() if args.scale == "tiny" else ModelConfig.load(args.model_config)
+        cfg = edit(tier_config(base, quant, kv_quant, weights_only))
+        model = (device_random_params(cfg, args.seed, dev, dtype) if quant
+                 else init_random(cfg, args.seed, dev, dtype))
+        return cfg, model.set_config(cfg), dev
+    cfg, model, _ = load_model(args)
+    qcfg = edit(tier_config(cfg, quant, kv_quant, weights_only))
+    if quant:
+        quantize_model(model, quant, cfg=qcfg)
+    return qcfg, model.set_config(qcfg), dev
+
+
+def sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def time_ms(fn: Callable[[], Any], dev: torch.device, iters: int = 3,
+            warmup: int = 1) -> float:
+    """The median ms of ``iters`` calls of fn after ``warmup`` calls: CUDA
+    events on a card, the host clock on the CPU."""
+    for _ in range(warmup):
+        fn()
+    sync(dev)
+    times = []
+    for _ in range(iters):
+        if dev.type == "cuda":
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        else:
+            t0 = time.perf_counter()
+            fn()
+            times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times)
+
+
+def reset_peak(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        sync(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+
+
+def peak_gib(dev: torch.device) -> Optional[float]:
+    """``max_memory_allocated`` since ``reset_peak`` in GiB (None on the CPU)."""
+    if dev.type != "cuda":
+        return None
+    sync(dev)
+    return torch.cuda.max_memory_allocated(dev) / 2**30
+
+
+def text_ids(cfg: ModelConfig, rng, n: int) -> List[int]:
+    """n ordinary text ids (the stand-in tokenizer's range: no special id)."""
+    tok = StandInTokenizer(cfg)
+    return [int(x) for x in rng.integers(tok.LO, min(tok.hi, 100000), n)]
+
+
+def emit(record: Dict[str, Any], as_json: bool) -> Dict[str, Any]:
+    if as_json:
+        print(json.dumps(record))
+    return record

@@ -48,7 +48,11 @@ def test_port_imports_no_jax():
                  "evalsuite", "evalsuite.data", "evalsuite.scorers", "evalsuite.judge",
                  "evalsuite.protocols", "evalsuite.shortform", "evalsuite.infer", "analysis",
                  "utils.profiling", "utils.viz", "tools.common", "tools.train_gp",
-                 "tools.infer_viscot", "tools.score_results", "tools.demo"):
+                 "tools.infer_viscot", "tools.score_results", "tools.demo",
+                 "preprocessing.native", "utils.failures", "utils.fastinit",
+                 "tools.profile_prefill", "tools.profile_decode", "tools.profile_train_step",
+                 "tools.profile_grpo_step", "tools.demo_server", "tools.save_attn_maps",
+                 "tools.compare_results", "tools.compare_server"):
         assert f"glimpseprune_torch.{name}" in out["modules"]
     assert out["jax"] == []
 
