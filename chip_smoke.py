@@ -117,6 +117,28 @@ Phases, each of which raises on failure (the script then exits non-zero):
      one process and two SP train steps, one SP (q8) generate with the text
      attention in int8 (K9-int8), and the tiny config under SP on the card
      against the CPU; times from CUDA events and peaks per rank.
+     (m) the (data, model) mesh, inside the same ranks after their SP work
+     (no extra 7B is built): rank 0's unsharded run of batch (a) first
+     (prefill ms, captured and eager decode ms/token), then
+     ``shard_params`` over a 1 x 2 mesh (tensor parallelism, TP) and TP
+     prefill and decode (eager: gloo collectives cannot be captured in a
+     CUDA graph), pruned and unpruned, on the trained bf16 7B and on the
+     (q8) 7B (int8 weights, W8A8 prefill, int8 KV, text attention int8),
+     held against the unsharded run (first logits and mask logits within
+     phase 11's bound, the first logits within CROSS_LOGIT_RTOL in bf16,
+     the keep sets equal; in (q8) layer 0's row-parallel W8A8 product
+     bit-equal to the unsharded one and the decoded tokens equal; in bf16
+     every decode step's logits within TP_DECODE_LOGIT_RTOL of the
+     unsharded model fed the mesh's tokens), the same on both ranks; the
+     training batch's loss and gradients on the TP bf16 7B against the
+     unsharded ones (K2-lse and K3 at 14 q / 2 kv heads; the global L2 and
+     every tensor, beside a one-process witness of the mesh's order of
+     summation and a control without the input gradients' all-reduce);
+     the gloo all-reduce and all-gather ms of one layer's tensors, each
+     rank's peak and kernel launches (``launches_tp`` on every
+     kernels-line row, per rank; the SP rows count the SP runs alone);
+     then the tiny config on the card against the CPU: a train step over
+     a 2 x 1 data mesh, and the continuous batcher over the 1 x 2 TP mesh.
  12. continuous serving (``serving.ContinuousBatcher``, run after phase 6's
      decode checks on its bf16 7B, before training changes it, and in phase
      9's (q4) tier after its decode checks): (s-p) batch (a)'s rows 0, 1
@@ -247,7 +269,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
      ``tools.profile_decode`` (q8) + int8 KV and bf16 at T = 2048, 8192,
      16896, (q4) at 2048: ms/step, the slope per 1k tokens of context and
      the bytes a step it implies; (d) ``tools.profile_train_step`` (q8) at
-     side 3584 with fallback sides 3584, 2688, 1792, 3 steps: the side that
+     side 3584 with fallback sides 3584, 2688, 1792, 2 steps: the side that
      ran, step ms, peak, finite losses; (e) ``tools.profile_grpo_step``
      (q8, rows 16, prompt 2048, completion 256, rank 8): chunked and
      full-logits step and reference logprobs, ms and peak or "oom", the
@@ -402,12 +424,12 @@ MAX_NEW_TOKENS = 32
 # must show why: logits within DECODE_LOGIT_RTOL of max |logit| of each
 # other (bf16 logits round at 2**-8 of their size, and a library may pick
 # another algorithm inside a capture) and the top two closer than that.
-DECODE_CHECK_TOKENS = 32
+DECODE_CHECK_TOKENS = 16
 DECODE_LOGIT_RTOL = 1e-2
 # the serving-shaped decode (bench.py:563-628): two B=1 prefills filled
 # into one preallocated cache, then this many greedy tokens in one chunk;
 # the card's idle share is traced over IDLE_TRACE_TOKENS of them
-SERVE_NEW_TOKENS = 256
+SERVE_NEW_TOKENS = 128
 IDLE_TRACE_TOKENS = 32
 # sampled decode checks: at SAMPLE_TINY_T a Gumbel-max sample (noise
 # g = -log(-log u), u an fp32 uniform draw, spans under 20) lies within
@@ -511,14 +533,16 @@ def cuda_ms(fn, warmup: int = 2, iters: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms_by_kernel(fn, iters: int = 10, tries: int = 5, per_call=None):
+def device_ms_by_kernel(fn, iters: int = 10, tries: int = 5, per_call=None,
+                        pad_calls: int = TRACE_PAD_CALLS):
     """{kernel name: mean device ms per call} of the CUDA kernels that one
     call of ``fn`` launches, from torch.profiler: the card's own time,
     without the host's launch cost, which cuda_ms includes when the host is
     slower than the card. A trace in a long-lived process can lose the
     records of its first and its last kernels, up to several calls' worth,
-    and can hold records left over from an earlier trace, so
-    TRACE_PAD_CALLS calls run before and after the ``iters`` that count,
+    and can hold records left over from an earlier trace, so ``pad_calls``
+    calls run before and after the ``iters`` that count (fewer for a call
+    of thousands of kernels, whose trace takes the host seconds to read),
     and a marker kernel (``torch.cuda._sleep``, which no path launches)
     ends each of the first two groups: the kernels that count are those
     between the trace's last two markers. Each kernel's count there must be
@@ -535,7 +559,7 @@ def device_ms_by_kernel(fn, iters: int = 10, tries: int = 5, per_call=None):
     torch.cuda.synchronize()
     for _ in range(tries):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for group, calls in enumerate((TRACE_PAD_CALLS, iters, TRACE_PAD_CALLS)):
+            for group, calls in enumerate((pad_calls, iters, pad_calls)):
                 for _ in range(calls):
                     fn()
                 if group < 2:
@@ -667,6 +691,40 @@ def check_window_attention(cfg, prep, gen):
             "rms_rel_err": errs[1], "control_rms_rel_err": control_errs[1], "ms": ms,
             "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None, "shape": shape}
+
+
+def check_window_attention_tp_heads(cfg, prep, gen):
+    """K1 at the heads one rank holds on a model axis of 2 and of 4 (8 and
+    4 of the ViT's 16; ``plan_window`` takes the head count) against its
+    plain version, within phase 3's limits; -> {heads: (max abs, rel, rms
+    rel)}."""
+    import torch
+
+    from glimpseprune_torch.ops.cuda.window_attention import (
+        window_attention_fused,
+        window_attention_fused_reference,
+    )
+    from glimpseprune_torch.ops.rope import vision_rope_cos_sin
+
+    v = cfg.vision
+    wp = (v.window_size // v.spatial_merge_size // v.patch_size) ** 2 * v.spatial_merge_unit
+    cos, sin = vision_rope_cos_sin(torch.as_tensor(prep.vis_pos_ids, device="cuda"), v.head_dim)
+    cos, sin = cos.bfloat16(), sin.bfloat16()
+    valid = torch.as_tensor(prep.vis_valid, device="cuda")
+    out = {}
+    for heads in (v.num_heads // 2, v.num_heads // 4):
+        qkv = torch.randn((prep.patches.shape[0], 3, heads, v.head_dim), generator=gen,
+                          device="cuda").bfloat16()
+        got = window_attention_fused(qkv, cos, sin, valid, wp)
+        ref = window_attention_fused_reference(qkv.float(), cos.float(), sin.float(), valid, wp)
+        err = (got.float() - ref).abs().max().item()
+        out[heads] = (err,) + tuple(k7_errors(got, ref))
+        if not (err <= KERNEL_ATOL and k7_within(out[heads][1:])):
+            raise AssertionError(f"K1 at {heads} heads disagrees with its plain version: "
+                                 f"{out[heads]}")
+    print("K1 at a rank's heads on a model axis of 2 and 4 (max abs, rel, rms rel): "
+          + json.dumps(out))
+    return out
 
 
 def check_window_attention_unfused(cfg, prep, gen):
@@ -2040,8 +2098,8 @@ def continuous_side(cfg, runner, name, thunks, refs, r, tier, required):
                 b._begin()
                 steps.run(inter)
 
-            per_call = {}
-            device_ms_by_kernel(chunk, iters=2, per_call=per_call)
+            per_call = {}  # a chunk launches ~18,000 kernels: 2 of them pad the trace
+            device_ms_by_kernel(chunk, iters=2, per_call=per_call, pad_calls=2)
             before = launch_counts()
             chunk()
             torch.cuda.synchronize()
@@ -2197,6 +2255,13 @@ def run_continuous_serving(cfg, runner, prep_a, rows_p, rows_u, tier, smi):
     if tier == "q4":
         required["s-p"] += ["matmul_int4_prefill[a8,*]", "matmul_int4[*]"]
         required["s-u"] += ["matmul_int4[*]"]
+    clock = [time.perf_counter()]
+    secs = {}
+
+    def lap(name):  # where the phase's seconds go
+        now = time.perf_counter()
+        secs[name], clock[0] = round(now - clock[0], 1), now
+
     with torch.inference_mode():
         r_p = max(p.out_len for p in rows_p)
         rows_p = [dataclasses.replace(p, out_len=r_p) for p in rows_p]
@@ -2208,7 +2273,9 @@ def run_continuous_serving(cfg, runner, prep_a, rows_p, rows_u, tier, smi):
             if not (loop[0] == toks).all():
                 raise AssertionError(f"row {i}: _decode_loop gave other tokens than its "
                                      "step-wise replays")
+        lap("references")
         chunked_recs, refs_u = check_chunked_prefill(cfg, runner, prep_a, rows_u, n)
+    lap("chunked prefill")
     pruned = continuous_side(cfg, runner, "s-p", [
         (lambda p=rows_p[i]: one_row(runner.prefill(p))) for i in CONT_REQUESTS],
         [refs_p[i] for i in CONT_REQUESTS], r_p, tier, required["s-p"])
@@ -2226,8 +2293,10 @@ def run_continuous_serving(cfg, runner, prep_a, rows_p, rows_u, tier, smi):
     r_u = chunked_recs[0]["S"]
     if any(c["S"] != r_u for c in chunked_recs):
         raise AssertionError(f"the unpruned rows' lengths differ: {chunked_recs}")
+    lap("s-p")
     unpruned = continuous_side(cfg, runner, "s-u", [chunked(rows_u[i]) for i in CONT_REQUESTS],
                                [refs_u[i] for i in CONT_REQUESTS], r_u, tier, required["s-u"])
+    lap("s-u")
     with torch.inference_mode(), chunk_probe(runner.model) as chunk_calls:
         for prep in rows_u:  # an admission's chunks, timed apart
             runner.vanilla_prefill_chunked(prep, CONT_CHUNK)
@@ -2240,11 +2309,14 @@ def run_continuous_serving(cfg, runner, prep_a, rows_p, rows_u, tier, smi):
         sampled = check_sampled_batcher(runner, rows_p[0], r_p)
         prefill_ms = timed_ms(lambda: runner.prefill(rows_p[0]))[0]
     torch.cuda.synchronize()
-    rec = {"tier": tier, "sides": [pruned, unpruned], "chunked_prefill": chunked_recs,
+    lap("chunks, sampled")
+    rec = {"tier": tier, "seconds": secs, "sides": [pruned, unpruned],
+           "chunked_prefill": chunked_recs,
            "sampled": sampled, "pruned_prefill_ms": prefill_ms,
            "chunk_ms": [ms for ms, _ in chunk_calls],
            "chunk_launches": dict(in_chunks)}
     print(f"continuous serving {tier} " + json.dumps(rec))
+    print(f"continuous serving {tier} seconds: " + json.dumps(secs))
     for side in rec["sides"]:
         for i, (a, c) in enumerate(zip(side["ttft_s"], side["completion_s"])):
             print(f"continuous {tier} {side['side']} request {i} on {smi}: ttft {a * 1e3:.1f} ms, "
@@ -3754,11 +3826,16 @@ def run_quant_tier(cfg, tier: str, cases, rows_a, rows_u, smi):
         required += ["flash_attention[segmented]"]
     launches = read_launches(required)
     print(f"{tier} quantized-path launches " + json.dumps(launches))
+    t1 = time.perf_counter()
     decode = run_decode_checks(qcfg, runner, dict(cases)["a"], rows_a, tier)
+    t2 = time.perf_counter()
     continuous = (run_continuous_serving(qcfg, runner, dict(cases)["a"], rows_a, rows_u, tier,
                                          smi)
                   if tier == "q4" else None)
+    t3 = time.perf_counter()
     lora = check_lora_q4(qcfg, model, rows_a[0]) if tier == "q4" else None
+    print(f"{tier} tier seconds: main path {t1 - t0:.1f}, decode checks {t2 - t1:.1f}, "
+          f"continuous serving {t3 - t2:.1f}, LoRA {time.perf_counter() - t3:.1f}", flush=True)
     del runner, model
     torch.cuda.empty_cache()
     return runs, launches, decode, continuous, lora
@@ -3824,7 +3901,7 @@ def launches_since(before, required=()):
     delta = {k: v - before.get(k, 0) for k, v in launch_counts().items()}
     missing = [k for k in required if not delta.get(k)]
     if missing:
-        raise AssertionError(f"the SP path never launched {missing}")
+        raise AssertionError(f"the path never launched {missing}")
     return {k: v for k, v in delta.items() if v}
 
 
@@ -3954,7 +4031,8 @@ def sp_train(cfg, model, rank, work: Path, steps: int = 2):
     """The smoke's training batch 2 on a GPTrainer over the 7B: rank 0's
     single-process loss and gradients (the other ranks wait) against the
     same under SP, the SP gradients equal on every rank (each holds the
-    whole gradient), then ``steps`` SP train steps, timed; -> record."""
+    whole gradient), then ``steps`` SP train steps, timed; -> (record, the
+    loss-and-gradients call on that batch, for phase (m))."""
     import torch
     import torch.distributed as dist
 
@@ -4016,7 +4094,7 @@ def sp_train(cfg, model, rank, work: Path, steps: int = 2):
                              f"{record['worst_grad_rel_diff']}, loss {loss2} vs {loss1}, "
                              f"steps {step_records}")
     shutil.rmtree(work, ignore_errors=True)
-    return record
+    return record, loss_and_grads
 
 
 def sp_rank(rank: int, world: int, cases):
@@ -4031,6 +4109,8 @@ def sp_rank(rank: int, world: int, cases):
     from glimpseprune_torch.models.qwen2_5_vl.runner import GlimpsePruneRunner
     from glimpseprune_torch.quantization import quantize_model
 
+    from glimpseprune_torch.parallel import make_mesh
+
     torch.cuda.set_device(0)
     cfg = ModelConfig.load(str(ROOT / "configs" / "model_qwen2_5_7b_gp"))
     model = init_random(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
@@ -4040,18 +4120,41 @@ def sp_rank(rank: int, world: int, cases):
     out = {"rank": rank, "gloo_gather_ms": gloo_gather_ms(cfg, cases[0][1], world),
            "serve": sp_serve(cfg, GlimpsePruneRunner(cfg, model), cases, rank,
                                            world)}
-    out["train"] = sp_train(cfg, model, rank, ROOT / "build" / f"chip_smoke_sp_train{rank}")
-    del model
+    out["train"], probe = sp_train(cfg, model, rank,
+                                   ROOT / "build" / f"chip_smoke_sp_train{rank}")
+    sp_launches = Counter(launch_counts())  # the SP rows: the SP runs alone
+    # phase (m) on the trained bf16 7B: the mesh's groups, made once by every rank
+    tp_mesh, dp_mesh = make_mesh(world, model_axis=world), make_mesh(world, model_axis=1)
+    tp_launches = Counter()
+    t0 = time.perf_counter()
+    out["tp"] = {"bf16": tp_phase(cfg, model, cases[0][1], rank, tp_mesh, "bf16", probe)}
+    tp_launches.update(out["tp"]["bf16"]["launches"])
+    tp_s = time.perf_counter() - t0
+    del model, probe
     torch.cuda.empty_cache()
     qcfg = sp_q8_config(cfg)
     model = init_random(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
     quantize_model(model, "int8", cfg=qcfg)
+    before = launch_counts()
     out["q8"] = sp_serve(qcfg, GlimpsePruneRunner(qcfg, model), cases[:1], rank, world,
                          tier="q8", modes=(True,))
+    sp_launches.update(launches_since(before))
+    t0 = time.perf_counter()
+    out["tp"]["q8"] = tp_phase(qcfg, model, cases[0][1], rank, tp_mesh, "q8")
+    tp_launches.update(out["tp"]["q8"]["launches"])
     del model
     torch.cuda.empty_cache()
-    out["launches"] = launch_counts()
+    tp_s += time.perf_counter() - t0
     out["tiny"] = check_small_reference(dist.group.WORLD)
+    t0 = time.perf_counter()
+    before = launch_counts()
+    out["tp"]["tiny"] = check_small_mesh(tp_mesh, dp_mesh)
+    tp_launches.update(launches_since(before))
+    tp_s += time.perf_counter() - t0
+    out["tp"]["phase_s"] = tp_s
+    out["tp_launches"] = dict(tp_launches)
+    out["launches"] = dict(sp_launches)
+    print(f"phase (m) on rank {rank}: {tp_s:.1f} s", flush=True)
     return out
 
 
@@ -4114,6 +4217,431 @@ def run_sp_path(cases):
     print(f"SP path over {SP_WORLD} ranks on one card (gloo) in {secs:.1f} s; launches, summed "
           "over the ranks: " + json.dumps(launches))
     return ranks, launches, secs
+
+
+# ---- phase (m): the (data, model) mesh, inside phase 11's ranks
+
+# the kernels a TP prefill must launch, per tier (the (q8) tier of phase
+# 11 runs the text attention in int8: K7)
+TP_KERNELS = {"bf16": ["window_attention_fused", "flash_attention[segmented]",
+                       "flash_attention[causal]"],
+              "q8": ["window_attention_fused", "flash_attention[segmented]",
+                     "flash_attention_int8[causal]"]}
+TP_TRAIN_KERNELS = ["flash_attention_lse[causal]", "flash_attention_backward[causal]"]
+# tokens of each timed decode on the mesh: an eager TP step over gloo on
+# one card takes ~0.2 s
+TP_DECODE_TOKENS = 8
+# bf16 decode on the mesh against the unsharded model fed its tokens: every
+# step's logits, max error over max |ref| (phase 11's bound on SP's logits)
+TP_DECODE_LOGIT_RTOL = 0.1
+# a bf16 TP gradient tensor against one process's, max error over max |ref|:
+# above the sound readings (the mesh and the split-sum witness) and below
+# the control's, whose glimpse-embedding path lacks the input gradients'
+# all-reduce (PERF.md section 6, PR 19)
+TP_GRAD_TENSOR_RTOL = 0.4
+
+
+def same_on_ranks(*tensors) -> bool:
+    """Every rank holds the same values (float64 sums of each tensor,
+    all-gathered)."""
+    import torch
+    import torch.distributed as dist
+
+    sums = torch.stack([torch.as_tensor(t).double().sum().cpu() for t in tensors])
+    parts = [torch.empty_like(sums) for _ in range(dist.get_world_size())]
+    dist.all_gather(parts, sums)
+    return all(torch.equal(parts[0], p) for p in parts)
+
+
+def tp_gloo_ms(cfg, prep, mesh, iters: int = 10):
+    """Host-clock ms of the TP collectives of one layer, bf16 on the card
+    through gloo: the row-parallel all-reduce of a prefill layer [B, S, H]
+    and of a decode step [B, 1, H], and the all-gather of a decode step's
+    vocab-parallel logits [B, 1, V / tp]."""
+    import torch
+    import torch.distributed as dist
+
+    from glimpseprune_torch.parallel import gather_seq
+    from glimpseprune_torch.parallel.sequence import all_reduce_sum
+
+    b, s = prep.input_ids.shape
+    t, tp = cfg.text, mesh.model
+    cases = {"all_reduce_prefill": (lambda x: all_reduce_sum(x, tp.group), (b, s, t.hidden_size)),
+             "all_reduce_decode": (lambda x: all_reduce_sum(x, tp.group), (b, 1, t.hidden_size)),
+             "all_gather_logits": (lambda x: gather_seq(x, -1, tp),
+                                   (b, 1, t.vocab_size // tp.world))}
+    out = {}
+    for name, (fn, shape) in cases.items():
+        x = torch.randn(shape, device="cuda").bfloat16()
+        fn(x)  # warm-up
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn(x)
+        torch.cuda.synchronize()
+        out[name] = (time.perf_counter() - t0) * 1e3 / iters
+    return out
+
+
+def tp_decode(cfg, runner, pre, n: int):
+    """(ms per token, tokens fed at steps 0..n-1 [B, n], every step's
+    logits [B, n, V] fp32) of n greedy steps of the runner's decode
+    (``decode_steps``, eager under a gloo model group), eos never met."""
+    import torch
+
+    steps = runner.decode_steps(pre.logits, pre.valid, pre.position_ids, pre.kv_k, pre.kv_v,
+                                pre.valid.shape[1] + n, -1)
+    logits = []
+
+    def run():
+        for _ in range(n):
+            steps.run(1)
+            logits.append(steps.logits.float().clone())
+
+    ms, _ = timed_ms(run)
+    return ms / n, steps.state.toks[:, :n].cpu(), torch.stack(logits, 1)
+
+
+def forced_decode_err(model, cfg, pre, toks, logits) -> float:
+    """The unsharded ``model`` fed ``toks`` [B, n] after its own prefill
+    ``pre`` (``decode_step`` with all n at once, causal among themselves,
+    as ``small_decode_err``) against the mesh's step logits [B, n, V]:
+    max error over max |ref|."""
+    import torch
+
+    from glimpseprune_torch.models.qwen2_5_vl.runner import GlimpsePruneRunner
+
+    run = GlimpsePruneRunner(cfg, model)
+    b, r = pre.valid.shape
+    n = toks.shape[1]
+    dev = pre.valid.device
+    with torch.inference_mode():
+        kv_valid = torch.cat([pre.valid, torch.ones((b, n), dtype=torch.bool, device=dev)], 1)
+        pos = pre.position_ids[:, :, -1:] + 1 + torch.arange(n, device=dev)
+        ref = model.decode_step(toks.to(dev), pos, run.decode_cache(pre.kv_k, r + n),
+                                run.decode_cache(pre.kv_v, r + n), kv_valid, r)[0]
+    return rel_err(logits, ref)
+
+
+@contextlib.contextmanager
+def split_row_products(model, world: int):
+    """One process's model computing each product that the mesh makes
+    row-parallel (``parallel.mesh._TP_LAYERS``' "row" layers) as a mesh of
+    ``world`` ranks does: ``world`` partial products over contiguous slices
+    of the contraction, each rounded to the model's dtype, summed in fp32
+    (``all_reduce_sum``) and rounded again, then the bias. The same
+    function as the unsplit product in another order of summation: the
+    witness of what that order alone moves."""
+    import torch.nn.functional as F
+
+    from glimpseprune_torch.models.layers import Linear
+    from glimpseprune_torch.parallel.mesh import _TP_LAYERS
+    from glimpseprune_torch.quantization import _jax_path
+
+    rows = [m for name, m in model.named_modules() if isinstance(m, Linear)
+            and _TP_LAYERS.get(_jax_path(name).removesuffix("/kernel"), ("", ""))[1] == "row"]
+
+    def forward(self, x, a8=False):
+        w = self.weight.to(x.dtype)
+        y = sum(F.linear(xs, ws).float()
+                for xs, ws in zip(x.chunk(world, -1), w.chunk(world, 1))).to(x.dtype)
+        return y if self.bias is None else y + self.bias.to(x.dtype)
+
+    for m in rows:
+        m.forward = forward.__get__(m)
+    try:
+        yield len(rows)
+    finally:
+        for m in rows:
+            del m.forward
+
+
+def tp_phase(cfg, model, prep, rank, mesh, tier, train=None):
+    """Phase (m) over one tier on this rank: rank 0's unsharded run first
+    (the other ranks wait), then ``shard_params`` over the 1 x world mesh and
+    TP prefill and eager decode, pruned and unpruned, each held against
+    rank 0's unsharded run: first logits and mask logits within phase 11's
+    bound (in bf16 the first logits within CROSS_LOGIT_RTOL) and the keep
+    sets equal; in (q8) a row-parallel W8A8 product bit-equal and the
+    decoded tokens equal, in bf16 every decode step's logits within
+    TP_DECODE_LOGIT_RTOL of the unsharded model's fed the mesh's tokens
+    (rank 0 holds an unsharded copy for it, left out of its peak); the same
+    on every rank. With ``train`` (a loss-and-gradients call): its TP
+    gradients against the unsharded ones, the global relative L2 within
+    0.1 and every tensor within TP_GRAD_TENSOR_RTOL, where the witness
+    (one process, the row-parallel products split as the mesh splits them:
+    ``split_row_products``) must stay too and the control (the TP backward
+    without the input gradients' all-reduce) must not; -> record. The
+    model stays sharded. Launches of rank 0's unsharded runs are not
+    counted in the record's."""
+    import torch
+    import torch.distributed as dist
+
+    from glimpseprune_torch.models.qwen2_5_vl.runner import GlimpsePruneRunner
+    from glimpseprune_torch.parallel import sequence as seq_mod
+    from glimpseprune_torch.parallel import shard_params
+
+    down = model.text.layers[0].mlp.down_proj
+    x = torch.randn((int(prep.valid.size), down.in_features), device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(5)).bfloat16()
+    with torch.inference_mode():
+        y_whole = down(x, True)
+    refs, train_ref, witness, whole, whole_bytes = {}, None, None, None, 0
+    n = TP_DECODE_TOKENS
+    if rank == 0:  # the other ranks wait: this card's time is rank 0's alone
+        runner = GlimpsePruneRunner(cfg, model)
+        for do_sel in (True, False):
+            ms, pre = timed_ms(lambda: runner.prefill(prep, do_sel))
+            runner._decode_loop(pre.logits, pre.valid, pre.position_ids, pre.kv_k, pre.kv_v,
+                                n, -1)  # captures the step
+            captured_ms, (seqs, _) = timed_ms(lambda: runner._decode_loop(
+                pre.logits, pre.valid, pre.position_ids, pre.kv_k, pre.kv_v, n, -1))
+            eager = eager_steps(cfg, runner, pre, pre.valid.shape[1] + n, n)
+            eager_ms = timed_ms(lambda: eager.run(n))[0] / n
+            refs[do_sel] = {"prefill_ms": ms, "captured_ms_per_token": captured_ms / n,
+                            "eager_ms_per_token": eager_ms, "seqs": torch.as_tensor(seqs),
+                            "pre": pre if tier == "bf16" else None,
+                            "logits": pre.logits.float().cpu(),
+                            "mask": None if pre.mask_logits is None
+                            else pre.mask_logits.float().cpu(),
+                            "keep": None if pre.keep_img is None else pre.keep_img.cpu()}
+        del runner, pre, eager
+        if train is not None:
+            ms, (loss, grads) = timed_ms(train)
+            train_ref = (ms, loss, {k: g.cpu() for k, g in grads.items()})
+            with split_row_products(model, mesh.shape["model"]) as n_split:
+                if not n_split:
+                    raise AssertionError("the witness split no product")
+                _, (_, grads_w) = timed_ms(train)
+            witness = {k: g.cpu() for k, g in grads_w.items()}
+            del grads, grads_w
+            for p in model.parameters():
+                p.grad = None
+        if tier == "bf16":  # the unsharded model for the decode check
+            whole = copy.deepcopy(model)
+            whole_bytes = sum(t.numel() * t.element_size()
+                              for t in [*whole.parameters(), *whole.buffers()])
+    dist.barrier()
+    before_all = launch_counts()
+    not_tp = Counter()  # rank 0's unsharded checks after this point
+    shard_params(model, mesh)
+    torch.cuda.empty_cache()
+    tp = mesh.model
+    runner = GlimpsePruneRunner(cfg, model)
+    if runner.decode_mode != "eager":
+        raise AssertionError(f"the decode under a gloo model group is {runner.decode_mode}")
+    rows = slice(tp.rank * x.shape[1] // tp.world, (tp.rank + 1) * x.shape[1] // tp.world)
+    with torch.inference_mode():
+        y_tp = down(x[:, rows].contiguous(), True)
+    rec = {"rank": rank, "tier": tier, "mesh": mesh.shape, "decode": runner.decode_mode,
+           "local_heads": {"text_q": model.text.layers[0].self_attn.q_proj.out_features
+                           // cfg.text.head_dim, "text_kv": model.text.kv_heads,
+                           "vit": model.visual.blocks[0].attn.qkv.out_features
+                           // (3 * cfg.vision.head_dim)},
+           "row_product_bit_equal": bool(torch.equal(y_tp, y_whole)),
+           "row_product_rel_diff": rel_err(y_tp, y_whole),
+           "gloo_ms": tp_gloo_ms(cfg, prep, mesh), "runs": []}
+    if tier == "q8" and not rec["row_product_bit_equal"]:
+        raise AssertionError(f"the row-parallel W8A8 product differs from the unsharded one "
+                             f"(rel {rec['row_product_rel_diff']})")
+    for do_sel in (True, False):
+        torch.cuda.reset_peak_memory_stats()
+        before = launch_counts()
+        prefill_ms, pre = timed_ms(lambda: runner.prefill(prep, do_sel))
+        launches = launches_since(before, TP_KERNELS[tier]
+                                  + (["flash_attention[dqk_ne_dv]"] if do_sel else []))
+        decode_ms, seqs, step_logits = tp_decode(cfg, runner, pre, n)
+        run = {"mode": "pruned" if do_sel else "unpruned", "prefill_ms": prefill_ms,
+               "eager_decode_ms_per_token": decode_ms,
+               "peak_mem_gib": (torch.cuda.max_memory_allocated() - whole_bytes) / 2**30,
+               "prefill_launches": launches}
+        if not same_on_ranks(pre.logits, seqs):
+            raise AssertionError(f"TP {tier} ranks disagree ({run['mode']})")
+        if rank == 0:
+            ref = refs[do_sel]
+            run.update({
+                "single_prefill_ms": ref["prefill_ms"],
+                "single_captured_ms_per_token": ref["captured_ms_per_token"],
+                "single_eager_ms_per_token": ref["eager_ms_per_token"],
+                "first_logits_rel_diff": rel_err(pre.logits.float().cpu(), ref["logits"]),
+                "tokens_equal_share": float((seqs == ref["seqs"]).float().mean())})
+            if do_sel:
+                img_valid = torch.as_tensor(prep.img_valid)
+                run["mask_logits_rel_diff"] = rel_err(pre.mask_logits.float().cpu()[:, img_valid],
+                                                      ref["mask"][:, img_valid])
+                run["keep_equal"] = bool(torch.equal(pre.keep_img.cpu(), ref["keep"]))
+                run["kept"] = pre.keep_img.sum(1).tolist()
+            bad = {k: run[k] for k in ("first_logits_rel_diff", "mask_logits_rel_diff")
+                   if not run.get(k, 0.0) <= 0.1}
+            if tier == "bf16" and not run["first_logits_rel_diff"] <= CROSS_LOGIT_RTOL:
+                bad["first_logits_rel_diff"] = run["first_logits_rel_diff"]
+            if do_sel and not run["keep_equal"]:
+                bad["keep_equal"] = False
+            if tier == "q8" and run["tokens_equal_share"] != 1.0:
+                bad["tokens_equal_share"] = run["tokens_equal_share"]
+            if tier == "bf16" and not bad:  # one context on both sides
+                b = launch_counts()
+                run["decode_logits_rel_diff"] = forced_decode_err(whole, cfg, ref["pre"], seqs,
+                                                                  step_logits)
+                not_tp.update(launches_since(b))
+                if not run["decode_logits_rel_diff"] <= TP_DECODE_LOGIT_RTOL:
+                    bad["decode_logits_rel_diff"] = run["decode_logits_rel_diff"]
+            if bad:
+                print("tp path " + json.dumps(rec | {"runs": rec["runs"] + [run]}, default=str),
+                      flush=True)
+                raise AssertionError(f"TP {tier} ({run['mode']}) disagrees with one process: "
+                                     f"{bad}")
+        rec["runs"].append(run)
+    del pre, refs, whole, step_logits
+    torch.cuda.empty_cache()
+    bad = None
+    if train is not None:
+        torch.cuda.reset_peak_memory_stats()
+        before = launch_counts()
+        ms, (loss, grads) = timed_ms(train)
+        launches = launches_since(before, TP_TRAIN_KERNELS)
+        if not same_on_ranks(*grads.values()):
+            raise AssertionError("the ranks' TP gradients differ")
+        rec["train"] = {"loss_and_grad_ms": ms, "loss": loss, "launches": launches,
+                        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+        # the control: the TP backward without the model axis' all-reduce of
+        # the input gradients (each rank keeps its heads' share)
+        whole_bwd = seq_mod._CopyToModel.backward
+        seq_mod._CopyToModel.backward = staticmethod(lambda ctx, grad: (grad, None))
+        try:
+            _, (_, grads_ctl) = timed_ms(train)
+        finally:
+            seq_mod._CopyToModel.backward = whole_bwd
+        if rank == 0:
+            single_ms, loss1, grads1 = train_ref
+            rec["train"].update(single_loss_and_grad_ms=single_ms, single_loss=loss1,
+                                loss_rel_diff=abs(loss - loss1) / abs(loss1),
+                                **grad_distances(grads, grads1, "tp"),
+                                **grad_distances(witness, grads1, "witness"),
+                                **grad_distances(grads_ctl, grads1, "control"))
+            t = rec["train"]
+            worst = {tag: max(t[f"{tag}_worst_grads"].values())
+                     for tag in ("tp", "witness", "control")}
+            if not (t["tp_global_rel_l2"] <= 0.1 and t["loss_rel_diff"] <= 0.1
+                    and worst["tp"] <= TP_GRAD_TENSOR_RTOL
+                    and worst["witness"] <= TP_GRAD_TENSOR_RTOL
+                    and t["control_global_rel_l2"] > 0.1
+                    and worst["control"] > TP_GRAD_TENSOR_RTOL):
+                bad = f"TP training disagrees with one process: {t}"
+    launched = launches_since(before_all)
+    rec["launches"] = {k: v - not_tp[k] for k, v in launched.items() if v > not_tp[k]}
+    print("tp path " + json.dumps(rec, default=str), flush=True)
+    if bad:
+        raise AssertionError(bad)
+    return rec
+
+
+def grad_distances(got, ref, tag):
+    """Distances of a gradient set from its reference: each tensor's max
+    error over its max |ref| (the five largest), and the relative L2
+    distance of them all, and of the glimpse embeddings' path alone."""
+    import torch
+
+    errs = {k: rel_err(got[k].cpu(), g) for k, g in ref.items()}
+    top = dict(sorted(errs.items(), key=lambda kv: -kv[1])[:5])
+
+    def l2(keys):
+        num = sum(float((got[k].cpu().float() - ref[k].float()).square().sum()) for k in keys)
+        den = sum(float(ref[k].float().square().sum()) for k in keys)
+        return (num / max(den, 1e-30)) ** 0.5
+
+    le = [k for k in ref if not k.startswith("attn_fuser")]
+    return {f"{tag}_worst_grads": top, f"{tag}_global_rel_l2": l2(list(ref)),
+            f"{tag}_glimpse_embedding_rel_l2": l2(le)}
+
+
+def check_small_mesh(tp_mesh, dp_mesh):
+    """The tiny config on the card against the same weights on the CPU, as
+    ``check_small_reference``: one train step over the world x 1 data mesh
+    (each rank its row of the batch, the gradients summed) against the CPU
+    step on the whole batch (loss, every trainable gradient within 10%),
+    and the continuous batcher over the 1 x world TP mesh, one row's pruned
+    prefill admitted twice, 8 tokens: the prefill's first logits and mask
+    logits within 10% of the CPU's, both requests' tokens equal, and each
+    token within 10% of max |logit| of the top of the CPU's logits fed the
+    card's tokens."""
+    import torch
+
+    from glimpseprune_torch.config import tiny_test_config
+    from glimpseprune_torch.convert import init_random
+    from glimpseprune_torch.models.qwen2_5_vl.inputs import prepare_inputs
+    from glimpseprune_torch.models.qwen2_5_vl.runner import GlimpsePruneRunner
+    from glimpseprune_torch.parallel import shard_params
+    from glimpseprune_torch.serving import ContinuousBatcher
+    from glimpseprune_torch.training.train_step import (
+        AdamW,
+        compute_loss,
+        init_trainable,
+        make_train_step,
+        new_module_filter,
+    )
+    from glimpseprune_torch.training.trainer import batch_from_prep
+
+    cfg = tiny_test_config()
+    rng = np.random.default_rng(3)
+    images = [rng.integers(0, 255, (64, 96, 3), dtype=np.uint8),
+              rng.integers(0, 255, (56, 56, 3), dtype=np.uint8)]
+    answers = [[int(x) for x in rng.integers(5, 400, 4)] for _ in range(2)]
+    prompts = make_prompts(cfg, rng, 2, 5, 400, (3, 6))
+    prep = prepare_inputs(cfg, prompts, images,
+                          normed_bboxes=[[[0.0, 0.0, 0.5, 1.0]], [[0.5, 0.5, 1.0, 1.0]]],
+                          answer_ids=answers, seq_multiple=8, patch_multiple=16)
+    cpu_model = init_random(cfg, seed=1, device="cpu", dtype=torch.float32)
+    gpu_model = copy.deepcopy(cpu_model).to("cuda")
+    for name, p in gpu_model.named_parameters():
+        if not new_module_filter(name):
+            p.data = p.data.bfloat16()
+    serve_cpu = copy.deepcopy(cpu_model)
+    serve_gpu = copy.deepcopy(gpu_model).bfloat16()
+    trainable = init_trainable(cpu_model)
+    total, _ = compute_loss(cfg, cpu_model, batch_from_prep(prep, "cpu"))
+    total.backward()
+    adamw = AdamW(init_trainable(gpu_model), 1e-3)
+    metrics = make_train_step(cfg, gpu_model, adamw, mesh=dp_mesh)(batch_from_prep(prep, "cuda"))
+    errs = {k: rel_err(adamw.params[k].grad.float().cpu(), p.grad) for k, p in trainable.items()}
+    worst = max(errs, key=errs.get)
+    out = {"dp_loss": float(metrics["loss"]), "cpu_loss": total.item(),
+           "dp_worst_grad": worst, "dp_worst_grad_rel_diff": errs[worst]}
+    out["dp_loss_rel_diff"] = abs(out["dp_loss"] - out["cpu_loss"]) / abs(out["cpu_loss"])
+
+    row = prepare_inputs(cfg, prompts[:1], images[:1], seq_multiple=8, patch_multiple=16)
+    n = 8
+    ref_run = GlimpsePruneRunner(cfg, serve_cpu)
+    runner = GlimpsePruneRunner(cfg, shard_params(serve_gpu, tp_mesh))
+    got_pre, ref_pre = runner.prefill(row), ref_run.prefill(row)
+    img_valid = torch.as_tensor(row.img_valid)
+    out["tp_first_logits_rel_diff"] = rel_err(got_pre.logits.float().cpu(), ref_pre.logits)
+    out["tp_mask_logits_rel_diff"] = rel_err(got_pre.mask_logits.float().cpu()[:, img_valid],
+                                             ref_pre.mask_logits[:, img_valid])
+    prefill = lambda: runner.prefill(row)[:5]
+    b = ContinuousBatcher(runner, capacity=2, prefix_len=int(got_pre.valid.shape[1]),
+                          max_new_tokens=n, inter_steps=4, eos=-1, max_requests=2)
+    seqs, _, _, _ = b.serve([prefill] * 2)
+    seqs = torch.as_tensor(np.asarray(seqs))
+    out["tp_requests_equal"] = bool(torch.equal(seqs[0], seqs[1]))
+    r = int(ref_pre.valid.shape[1])
+    with torch.inference_mode():  # the CPU fed the card's tokens
+        toks = seqs[:1, : n - 1]
+        kv_valid = torch.cat([ref_pre.valid, torch.ones((1, n - 1), dtype=torch.bool)], 1)
+        pos = ref_pre.position_ids[:, :, -1:] + 1 + torch.arange(n - 1)
+        t = r + n - 1
+        ref = ref_run.model.decode_step(toks, pos, ref_run.decode_cache(ref_pre.kv_k, t),
+                                        ref_run.decode_cache(ref_pre.kv_v, t), kv_valid,
+                                        r)[0][0]
+    ref = torch.cat([ref_pre.logits[0, -1:].float(), ref.float()])  # [n, V]: token i's
+    picked = ref.gather(-1, seqs[0, :, None]).squeeze(-1)
+    out["tp_token_gap_rel"] = ((ref.max(-1).values - picked).max() / ref.abs().max()).item()
+    print("tiny config on the mesh, card bf16 vs CPU fp32: " + json.dumps(out), flush=True)
+    bad = {k: v for k, v in out.items() if k.endswith(("rel_diff", "gap_rel")) and not v <= 0.1}
+    if bad or not out["tp_requests_equal"]:
+        raise AssertionError(f"the mesh on the card disagrees with the CPU reference: {out}")
+    return out
 
 
 # ---- phase 14: LLaVA-1.5-7B
@@ -5181,7 +5709,7 @@ def run_tools_phase(cfg, outputs, smi):
     train = rec["train_step"] = tool(
         "(d) profile_train_step (q8)", profile_train_step.main,
         ["--quant", "int8", "--img-side", TOOLS_SIDES.split(",")[0], "--fallback-sides",
-         TOOLS_SIDES, "--steps", "3", "--native-preproc"])
+         TOOLS_SIDES, "--steps", "2", "--native-preproc"])
     if not train["losses_finite"]:
         raise AssertionError(f"profile_train_step: non-finite losses {train['losses']}")
     grpo = rec["grpo_step"] = tool("(e) profile_grpo_step (q8)", profile_grpo_step.main,
@@ -5212,7 +5740,16 @@ def main() -> int:
     from glimpseprune_torch.models.qwen2_5_vl.runner import GlimpsePruneRunner
 
     t_start = time.perf_counter()
+    laps, last = {}, [t_start]
+
+    def lap(name):  # the seconds since the previous lap, per phase
+        now = time.perf_counter()
+        laps[name], last[0] = now - last[0], now
+        print(f"phase time: {name} {laps[name]:.1f} s (script {now - t_start:.1f} s)",
+              flush=True)
+
     build_s = build_kernels()
+    lap("2 build")
     cfg = ModelConfig.load(str(ROOT / "configs" / "model_qwen2_5_7b_gp"))
     rng = np.random.default_rng(0)
     images = [rng.integers(0, 256, (896, 672, 3), dtype=np.uint8),
@@ -5236,6 +5773,7 @@ def main() -> int:
     window_edges = check_window_edges(gen)
     kernels += check_flash_attention(cfg, prep_a, prep_b, gen)
     flash_edges = check_flash_edges(gen)
+    lap("3-4 K1, K8, K2")
 
     t0 = time.perf_counter()
     model = init_random(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
@@ -5245,18 +5783,22 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s, {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     with sync_checked():
         runs, serve_launches = run_main_path(cfg, model, [("a", prep_a), ("b", prep_b)])
+    lap("6 main path")
     decode_checks = {"bf16": run_decode_checks(cfg, GlimpsePruneRunner(cfg, model), prep_a,
                                                rows_a, "bf16")}
+    lap("6 decode checks")
     # phase 12: continuous serving, before training changes the model
     t_cont = time.perf_counter()
     continuous = {"bf16": run_continuous_serving(cfg, GlimpsePruneRunner(cfg, model), prep_a,
                                                  rows_a, rows_u, "bf16", smi)}
     continuous_s = time.perf_counter() - t_cont
+    lap("12 continuous serving")
     # phase 13: delayed selection, the oracle masks, harvest_rows and a
     # GlimpsePrune+ (GRPO) run, which leaves the model as it found it
     glimpse_plus, glimpse_plus_launches = run_glimpse_plus(cfg, model, prep_a, prompts_a,
                                                            images)
     small = check_small_reference()
+    lap("13 GlimpsePrune+, 6 tiny")
 
     # phase 10: the compressed serving path, before training changes the model
     t_comp = time.perf_counter()
@@ -5271,6 +5813,7 @@ def main() -> int:
     small_importance = check_small_importance(cfg, model, prep_a)
     small_compressed = check_small_compressed()
     compressed_s = time.perf_counter() - t_comp
+    lap("10 compressed")
 
     work = ROOT / "build" / "chip_smoke_train"
     trainer = make_trainer(cfg, model, work)
@@ -5287,6 +5830,7 @@ def main() -> int:
     shutil.rmtree(work, ignore_errors=True)
     del trainer, model, first
     torch.cuda.empty_cache()
+    lap("5, 7 training")
 
     # phase 8: the quantized tiers' kernels at the main path's shapes
     quant_kernels, k4_report, k5_report, k6_report = check_int4_kernels(
@@ -5294,6 +5838,7 @@ def main() -> int:
         vit_m=prep_a.patches.shape[0])
     k7_rows, k7_report = check_flash_int8(cfg, prep_a, prep_b, gen)
     quant_kernels += k7_rows
+    lap("8 K4-K7")
     # phase 9: the quantized serving path
     t_quant = time.perf_counter()
     quant_runs, quant_launches, small_quant = [], {}, {}
@@ -5307,26 +5852,33 @@ def main() -> int:
         quant_runs += tier_runs
         small_quant[tier] = check_small_quant(tier)
     quant_s = time.perf_counter() - t_quant
+    lap("9 quantized tiers")
 
     # phase 11: K9 against its plain versions and the monolithic kernels,
     # then the SP path over SP_WORLD ranks on this card (the parent holds no
     # model: each rank builds its own 7B)
     torch.cuda.empty_cache()
     k9_rows, k9_report = check_flash_qpos(cfg, prep_a, gen)
+    k1_tp_heads = check_window_attention_tp_heads(cfg, prep_a, gen)
     torch.cuda.empty_cache()
+    lap("11 K9, (m) K1 heads")
     sp_ranks, sp_launches, sp_s = run_sp_path([("a", prep_a), ("b", prep_b)])
+    lap("11 SP ranks, (m)")
     for k in k9_rows:
         k["launches"] = sp_launches[k["name"]]
         k["launches_per_rank"] = [r["launches"].get(k["name"], 0) for r in sp_ranks]
     # phase 14: LLaVA-1.5-7B (the parent's earlier models are gone)
     torch.cuda.empty_cache()
     llava_rows, llava, llava_launches = run_llava_phase(gen, smi)
+    lap("14 LLaVA")
     # phase 15: the evaluation path through the command lines (no model held)
     torch.cuda.empty_cache()
     evaluation, eval_launches = run_eval_phase(cfg, prep_a, smi)
+    lap("15 evaluation")
     # phase 16: the native prep, the profilers and the interactive tools (no model held)
     torch.cuda.empty_cache()
     tools, tools_launches = run_tools_phase(cfg, evaluation.pop("outputs"), smi)
+    lap("16 tools")
 
     for k in kernels:
         path = train_launches if k["name"].startswith(("flash_attention_lse",
@@ -5367,8 +5919,24 @@ def main() -> int:
                               for part, counts in eval_launches.items()}
     for k in kernels:  # phase 16: the profilers, the demo server and the attention maps
         k["launches_tools"] = tools_launches.get(k["name"], 0)
+    for k in kernels:  # phase (m): each rank's launches on the mesh
+        k["launches_tp"] = [r["tp_launches"].get(k["name"], 0) for r in sp_ranks]
     for k in kernels:
         print(speed(k))
+    for r in sp_ranks:
+        tp = r["tp"]
+        print(f"mesh (TP over {SP_WORLD} ranks, gloo) on {smi}, rank {r['rank']}: " + "; ".join(
+            f"{tier} " + ", ".join(
+                f"{run['mode']} prefill {run['prefill_ms']:.1f} ms (one process "
+                f"{run.get('single_prefill_ms', float('nan')):.1f}), eager decode "
+                f"{run['eager_decode_ms_per_token']:.2f} ms/token (one process eager "
+                f"{run.get('single_eager_ms_per_token', float('nan')):.2f}, captured "
+                f"{run.get('single_captured_ms_per_token', float('nan')):.2f}), peak "
+                f"{run['peak_mem_gib']:.2f} GiB" for run in tp[tier]["runs"])
+            + ", gloo " + json.dumps({k: round(v, 3) for k, v in tp[tier]["gloo_ms"].items()})
+            for tier in ("bf16", "q8"))
+            + f"; TP loss+grad {tp['bf16']['train']['loss_and_grad_ms']:.1f} ms; phase "
+            f"{tp['phase_s']:.1f} s")
     g = glimpse_plus["grpo"]
     print(f"GlimpsePrune+ on {smi}: " + ", ".join(
         f"step {st['step']} {st['ms']:.1f} ms, peak {st['peak_mem_gib']:.2f} GiB, K2-lse causal "
@@ -5427,10 +5995,11 @@ def main() -> int:
                       "tiny_compressed_err": small_compressed,
                       "compressed_path_s": compressed_s,
                       "k9_shards": k9_report, "sp_path_s": sp_s, "sp_launches": sp_launches,
-                      "sp_ranks": sp_ranks, "continuous_serving": continuous,
+                      "sp_ranks": sp_ranks, "k1_tp_heads": k1_tp_heads,
+                      "continuous_serving": continuous,
                       "continuous_bf16_s": continuous_s, "glimpse_plus": glimpse_plus,
                       "llava": llava,
-                      "evaluation": evaluation, "tools": tools,
+                      "evaluation": evaluation, "tools": tools, "phase_s": laps,
                       "total_s": time.perf_counter() - t_start}, default=str))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

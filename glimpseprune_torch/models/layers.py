@@ -15,6 +15,13 @@ becomes the weight-only int8 product and W4A8 the int4 product's A16
 route. ``lora_disabled(model)`` skips every adapter for its duration (the
 reference policy's forward); the base weights are never touched, so the
 policy and the reference are one module with one copy of the weights.
+
+Tensor parallelism (parallel/mesh.py): ``shard_params`` keeps a Linear's or
+QuantLinear's slice of the weights and sets its ``tp`` (the model axis'
+group and this rank's place on it) and ``tp_mode``: "column" (the output
+columns are this rank's; the input is replicated) or "row" (the
+contraction rows are; the partial sums are all-reduced, then the bias is
+added once).
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from glimpseprune_torch.parallel.sequence import copy_to_model, reduce_from_model
 from glimpseprune_torch.quantization import (
     matmul_int4_auto,
     matmul_w8a8,
@@ -46,6 +54,12 @@ class _Adapted:
     """The LoRA slots of a Linear or QuantLinear: ``lora_a`` / ``lora_b``
     parameters (None until ``attach_lora``), kept fp32 whatever dtype the
     module is cast to, and ``lora_off``, set by ``lora_disabled``."""
+
+    tp = None        # the model axis (parallel.SeqShard) of a sharded layer
+    tp_mode = None   # "column" or "row" where sharded
+
+    def _tp_input(self, x: torch.Tensor) -> torch.Tensor:
+        return copy_to_model(x, self.tp) if self.tp_mode == "column" else x
 
     def _init_lora(self) -> None:
         self.register_parameter("lora_a", None)
@@ -83,7 +97,11 @@ class Linear(_Adapted, nn.Linear):
     def forward(self, x: torch.Tensor, a8: bool = False) -> torch.Tensor:
         """a8 (the W8A8 flag) has no effect on unquantized weights, as in
         the JAX ``_dense``."""
+        x = self._tp_input(x)
         bias = None if self.bias is None else self.bias.to(x.dtype)
+        if self.tp_mode == "row":
+            y = reduce_from_model(F.linear(x, self.weight.to(x.dtype)), self.tp)
+            return y if bias is None else y + bias
         if not self.lora_active():
             return F.linear(x, self.weight.to(x.dtype), bias)
         y = F.linear(x, self.weight.to(x.dtype)) + self._lora(x)
@@ -164,14 +182,19 @@ class QuantLinear(_Adapted, nn.Module):
 
     def forward(self, x: torch.Tensor, a8: bool = False) -> torch.Tensor:
         dtype = x.dtype
+        x = self._tp_input(x)
         adapted = self.lora_active()
         a8 = a8 and not adapted
         if self.mode == "int4":
             y = matmul_int4_auto(x, self.kernel_q4, self.kernel_scale4, dtype, a8)
+        elif self.tp_mode == "row" and a8:  # the sums are reduced inside
+            y = matmul_w8a8(x, self.kernel_q, self.kernel_scale, dtype, self.tp)
         elif a8:
             y = matmul_w8a8(x, self.kernel_q, self.kernel_scale, dtype)
         else:
             y = x @ (self.kernel_q.to(dtype) * self.kernel_scale.to(dtype))
+            if self.tp_mode == "row":
+                y = reduce_from_model(y, self.tp)
         if adapted:
             y = y + self._lora(x)
         if self.bias is not None:
@@ -237,7 +260,12 @@ def adapted_modules(module: nn.Module) -> Iterator[Tuple[str, "_Adapted"]]:
 def attach_lora(modules: Iterable["_Adapted"], rank: int) -> None:
     """Give each Linear or QuantLinear of ``modules`` zero fp32 adapters of
     ``rank``, frozen, on the module's device (the JAX init's slots: zeros,
-    adapters off)."""
+    adapters off). A layer sharded by ``shard_params`` is refused: its
+    row-parallel forward has no adapter term."""
+    modules = list(modules)
+    if any(lin.tp is not None for lin in modules):
+        raise ValueError("attach_lora: LoRA adapters on a tensor-parallel layer are not "
+                         "supported yet (ROADMAP.md queue 1, 'LoRA under TP')")
     for lin in modules:
         dev = next(iter([*lin.parameters(), *lin.buffers()])).device
         lin.lora_a = nn.Parameter(torch.zeros(lin.in_features, rank, device=dev),

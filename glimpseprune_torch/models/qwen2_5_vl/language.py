@@ -28,6 +28,14 @@ embeddings are added on the whole sequence and split like x, so their
 gradient is whole on every rank; the harvest takes the glimpse query from
 the rank that holds it by a collective over [B, Hq, D] and gathers the
 harvested rows.
+
+Under tensor parallelism (parallel/mesh.py ``shard_params``) each layer's
+projections hold this rank's heads and intermediate columns (the layers
+run their collectives), so attention and the cache see the local heads
+(``kv_heads``); the harvested rows are all-gathered along the heads. The
+embedding and the head are vocab-parallel (``vocab_tp``): a masked lookup
+of the local vocab rows summed over the ranks, and the local logits
+all-gathered along the vocab.
 """
 
 from __future__ import annotations
@@ -46,8 +54,10 @@ from glimpseprune_torch.ops.kv_cache import cache_append, cache_layer
 from glimpseprune_torch.ops.rope import apply_rotary
 from glimpseprune_torch.parallel.sequence import (
     SeqShard,
+    copy_to_model,
     gather_kv,
     gather_seq,
+    reduce_from_model,
     sp_split,
     split_seq,
 )
@@ -86,9 +96,10 @@ class DecoderLayer(nn.Module):
         b, s, _ = x.shape
         h = self.input_layernorm(x)
         a = self.self_attn
-        q = a.q_proj(h, a8).reshape(b, s, c.num_attention_heads, c.head_dim)
-        k = a.k_proj(h, a8).reshape(b, s, c.num_key_value_heads, c.head_dim)
-        v = a.v_proj(h, a8).reshape(b, s, c.num_key_value_heads, c.head_dim)
+        # the local heads under tensor parallelism
+        q = a.q_proj(h, a8).reshape(b, s, -1, c.head_dim)
+        k = a.k_proj(h, a8).reshape(b, s, -1, c.head_dim)
+        v = a.v_proj(h, a8).reshape(b, s, -1, c.head_dim)
         return apply_rotary(q, cos, sin), apply_rotary(k, cos, sin), v
 
     def finish(self, x, attn, a8: bool = False):
@@ -159,6 +170,9 @@ def _glimpse_query(q: torch.Tensor, q_index: torch.Tensor,
 class TextDecoder(nn.Module):
     """Embedding + decoder layers + final norm + LM head."""
 
+    attn_tp: Optional[SeqShard] = None   # the model axis where the heads are sharded
+    vocab_tp: Optional[SeqShard] = None  # the model axis where the vocab is sharded
+
     def __init__(self, cfg: TextConfig):
         super().__init__()
         self.cfg = cfg
@@ -168,16 +182,33 @@ class TextDecoder(nn.Module):
         if not cfg.tie_word_embeddings:
             self.lm_head = Linear(cfg.hidden_size, cfg.vocab_size, bias=False)
 
+    @property
+    def kv_heads(self) -> int:
+        """The kv heads this rank's layers hold (its decode cache's)."""
+        tp = self.attn_tp
+        return self.cfg.num_key_value_heads // (1 if tp is None else tp.world)
+
     def embed(self, input_ids: torch.Tensor) -> torch.Tensor:
-        return self.embed_tokens(input_ids)
+        tp = self.vocab_tp
+        if tp is None:
+            return self.embed_tokens(input_ids)
+        w = self.embed_tokens.weight
+        local = input_ids - tp.rank * w.shape[0]
+        inside = (local >= 0) & (local < w.shape[0])
+        rows = F.embedding(local.clamp(0, w.shape[0] - 1), w)
+        rows = rows.masked_fill(~inside[..., None], 0)
+        return reduce_from_model(rows, tp)
 
     def final_norm(self, x: torch.Tensor) -> torch.Tensor:
         return self.norm(x)
 
     def logits(self, x: torch.Tensor) -> torch.Tensor:
+        tp = self.vocab_tp
         if self.cfg.tie_word_embeddings:  # flax nn.Embed.attend
-            return F.linear(x, self.embed_tokens.weight)
-        return self.lm_head(x, self.cfg.act_quant == "int8")
+            y = F.linear(x if tp is None else copy_to_model(x, tp), self.embed_tokens.weight)
+        else:
+            y = self.lm_head(x, self.cfg.act_quant == "int8")
+        return y if tp is None else gather_seq(y, -1, tp)
 
     def _chunk_nll_sum(self, xc: torch.Tensor, yc: torch.Tensor) -> torch.Tensor:
         """Sum of -log p(yc) over the labelled positions of one chunk."""
@@ -329,7 +360,9 @@ class TextDecoder(nn.Module):
                 keys = torch.arange(s, device=x.device)
                 allowed = (keys[None, None, :] <= qpos[None, :, None]) & valid[:, None, :]
                 raw = raw.masked_fill(~allowed[:, :, None, :], -float("inf"))
-                harvests[lid] = torch.softmax(raw, dim=-1).permute(0, 1, 3, 2)
+                probs = torch.softmax(raw, dim=-1).permute(0, 1, 3, 2)
+                harvests[lid] = (probs if self.attn_tp is None
+                                 else gather_seq(probs, 3, self.attn_tp))
             elif lid in harvest_layers:
                 sel_q = _glimpse_query(q, q_index, sp)
                 k_local = k if sp is None else k[:, rows]
@@ -338,6 +371,8 @@ class TextDecoder(nn.Module):
                 raw = raw / cfg.head_dim ** 0.5
                 if sp is not None:
                     raw = gather_seq(raw, 1, sp)
+                if self.attn_tp is not None:
+                    raw = gather_seq(raw, 2, self.attn_tp)
                 harvests[lid] = harvest_postprocess(raw, valid_all, use_attention_logits)
         if sp is not None:
             x = gather_seq(x, 1, sp)

@@ -52,6 +52,14 @@ same result. The setting is read at each call, not when the runner is
 built (the JAX runner binds it at trace time and warns when it changes,
 :448-452, :872-881). The compressors do not run under SP yet: their entry
 points raise.
+
+Tensor parallelism (parallel/mesh.py): on a model sharded by
+``shard_params`` every rank of the model axis calls ``generate`` with the
+same inputs; the layers run their collectives, the decode cache holds the
+local kv heads, and every rank returns the same result. A gloo collective
+cannot be captured in a CUDA graph, so on a model sharded over a gloo group
+the decode runs eagerly (``decode_mode``), chosen here and never as a
+fallback from a failed capture.
 """
 
 from __future__ import annotations
@@ -221,6 +229,15 @@ class GlimpsePruneRunner:
         self.model = model.eval()
         self.device = model.text.embed_tokens.weight.device
         self.decode_graphs = DecodeGraphs(self.model)
+
+    @property
+    def decode_mode(self) -> str:
+        """"captured" (replays of one CUDA graph) or "eager": on the CPU, and
+        on a model sharded over a process group that a graph cannot capture
+        (gloo)."""
+        mesh = getattr(self.model, "mesh", None)
+        return ("captured" if self.device.type == "cuda" and (mesh is None or mesh.capturable)
+                else "eager")
 
     def _device_inputs(self, prep: PreparedInputs, use_ref_masks: bool = False) -> dict:
         check_binding(self.cfg, self.model)
@@ -423,8 +440,7 @@ class GlimpsePruneRunner:
         embeds = torch.nn.functional.pad(embeds, (0, 0, 0, sp - s))
         pos_p = torch.nn.functional.pad(pos, (0, sp - s))
         t = max(s if prealloc_t is None else int(prealloc_t), sp)
-        shape = (cfg.text.num_hidden_layers, b, t, cfg.text.num_key_value_heads,
-                 cfg.text.head_dim)
+        shape = (cfg.text.num_hidden_layers, b, t, self.model.text.kv_heads, cfg.text.head_dim)
         k_cache, v_cache = (alloc_cache(shape, embeds.dtype, self.device) for _ in range(2))
         kv_valid = torch.cat([valid, valid.new_zeros((b, t - s))], 1)
         rel = (s - 1) - (n_chunks - 1) * c
@@ -725,7 +741,7 @@ class GlimpsePruneRunner:
             st.kv_valid[:, r:] = False
             st.begin(first, r_pos[:, :, -1], r, eos, temperature)
 
-        if self.device.type != "cuda":
+        if self.decode_mode == "eager":
             st = make_state()
             begin(st)
             return EagerSteps(model, st)

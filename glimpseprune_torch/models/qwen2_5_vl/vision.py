@@ -29,6 +29,12 @@ collective, full-attention blocks attend with local queries over the
 gathered keys, and the taps (merge-unit means, which never straddle a
 window) and the stack's output are gathered before the merger, which runs
 replicated. ``emit_importance`` is not sharded: it raises under SP.
+
+Under tensor parallelism (parallel/mesh.py ``shard_params``) each block's
+qkv holds this rank's heads, per (3, heads / tp, D) of its [3, heads, D]
+output, the attention runs on them, and proj and the MLP's down
+all-reduce their partial sums (models/layers.py); the merger is whole.
+``emit_importance`` needs every head's scores: it raises under TP.
 """
 
 from __future__ import annotations
@@ -76,7 +82,8 @@ class VisionBlock(nn.Module):
         c = self.cfg
         p = x.shape[0]
         a8 = c.act_quant in ("int8", "prefill")
-        qkv = self.attn.qkv(self.norm1(x), a8).reshape(p, 3, c.num_heads, c.head_dim)
+        # the local heads under tensor parallelism
+        qkv = self.attn.qkv(self.norm1(x), a8).reshape(p, 3, -1, c.head_dim)
         if wp > 0 and not emit_importance:
             attn = fused_window_attention(qkv, cos, sin, valid, wp)
         else:
@@ -89,7 +96,7 @@ class VisionBlock(nn.Module):
                                          int8_qk=a8 and c.attn_qk_int8 and not emit_importance,
                                          int8_pv=a8 and c.attn_pv_int8 and not emit_importance,
                                          sp=sp)
-        x = x + self.attn.proj(attn.reshape(p, c.hidden_size), a8)
+        x = x + self.attn.proj(attn.reshape(p, -1), a8)
         x = x + self.mlp(self.norm2(x), a8)
         if emit_importance:
             return x, (received_attention(q, k, segment_ids), k.float().mean(1))
@@ -119,6 +126,8 @@ class VisionTransformer(nn.Module):
     pos_ids [P, 2], full_seg [P] (-1 = pad), valid [P]. Returns
     (merged [P // mu, out_hidden], taps [P // mu, hidden] per tap layer)."""
 
+    attn_tp: Optional[SeqShard] = None  # the model axis where the heads are sharded
+
     def __init__(self, cfg: VisionConfig, tap_layers: Sequence[int] = ()):
         super().__init__()
         self.cfg = cfg
@@ -147,6 +156,9 @@ class VisionTransformer(nn.Module):
         c = self.cfg
         mu = c.spatial_merge_unit
         dtype = self.patch_embed.weight.dtype
+        if emit_importance and self.attn_tp is not None:
+            raise ValueError("emit_importance is not tensor-parallel: run it on an unsharded "
+                             "model")
         sp = sp_split(patches.shape[0], self.window_patches)
         if sp is not None:
             if emit_importance:

@@ -23,7 +23,7 @@ baked into the graph.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple, Union
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
@@ -34,14 +34,18 @@ def is_quantized(cache: Cache) -> bool:
     return isinstance(cache, dict)
 
 
-def quantize_kv(kv: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def quantize_kv(kv: torch.Tensor,
+                amax: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """[..., D] -> (int8 [..., D], f32 scale [...]): symmetric per row,
     amax / 127 (the amax taken in kv's own dtype, where it is exact), round
     half to even. The port's one per-row int8 quantizer: the KV cache's,
     W8A8's and W4A8's activations' (JAX quantization.py:71-74,
     int4_matmul.py:336-339) and K7's q and k rows' (``_quant_rows_i8``
-    :232) are the same arithmetic."""
-    scale = kv.abs().amax(-1).float().clamp(min=1e-8) / 127.0
+    :232) are the same arithmetic. ``amax`` [...] replaces the rows' own
+    (a row-parallel W8A8 product's whole-row amax)."""
+    if amax is None:
+        amax = kv.abs().amax(-1)
+    scale = amax.float().clamp(min=1e-8) / 127.0
     q = torch.clamp(torch.round(kv.float() / scale[..., None]), -127, 127).to(torch.int8)
     return q, scale
 

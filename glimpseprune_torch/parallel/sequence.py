@@ -22,6 +22,11 @@ collective that the forward's use of the result asks for:
   rank's queries attend over every key). Forward: all-gather. Backward:
   the sum over ranks of the gradient, then this rank's slice.
 
+The tensor-parallel pair that parallel/mesh.py's sharded layers use lives
+here too, so that the models import no module that imports them:
+``copy_to_model`` (identity forward, all-reduce of the gradient backward)
+and ``reduce_from_model`` (all-reduce forward, identity backward).
+
 Only ``dist.all_gather`` (the list form) and ``dist.all_reduce`` are used:
 gloo implements both for CPU and CUDA tensors (it has no reduce-scatter,
 so ``gather_kv``'s backward is an all-reduce and a slice). Gathers move
@@ -107,6 +112,14 @@ def _all_gather(x: torch.Tensor, dim: int, sp: SeqShard) -> torch.Tensor:
     return torch.cat([p.view(x.dtype) for p in parts], dim)
 
 
+def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of x over the group, taken in fp32 or wider, in x's dtype."""
+    total = x.to(torch.promote_types(x.dtype, torch.float32),
+                 memory_format=torch.contiguous_format, copy=True)
+    dist.all_reduce(total, group=group)
+    return total.to(x.dtype)
+
+
 def _local(x: torch.Tensor, dim: int, sp: SeqShard) -> torch.Tensor:
     return x.narrow(dim, sp.rank * (x.shape[dim] // sp.world), x.shape[dim] // sp.world)
 
@@ -141,10 +154,8 @@ class _GatherKV(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
-        total = grad.to(torch.promote_types(grad.dtype, torch.float32),
-                        memory_format=torch.contiguous_format, copy=True)
-        dist.all_reduce(total, group=ctx.sp.group)
-        return _local(total, ctx.dim, ctx.sp).to(grad.dtype).contiguous(), None, None
+        total = all_reduce_sum(grad, ctx.sp.group)
+        return _local(total, ctx.dim, ctx.sp).contiguous(), None, None
 
 
 def split_seq(x: torch.Tensor, dim: int, sp: SeqShard) -> torch.Tensor:
@@ -163,3 +174,39 @@ def gather_kv(x: torch.Tensor, dim: int, sp: SeqShard) -> torch.Tensor:
     """The whole of a sharded tensor, for sharded compute (K/V for local
     queries); backward: the sum of the ranks' gradients, sliced."""
     return _GatherKV.apply(x, dim, sp)
+
+
+# the tensor-parallel pair (parallel/mesh.py): ``sp`` is the mesh's model axis
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, sp):
+        ctx.sp = sp
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_reduce_sum(grad, ctx.sp.group), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, sp):
+        return all_reduce_sum(x, sp.group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def copy_to_model(x: torch.Tensor, sp: SeqShard) -> torch.Tensor:
+    """A replicated input entering column-parallel compute: identity
+    forward, the sum of the ranks' gradients backward."""
+    return _CopyToModel.apply(x, sp) if x.requires_grad else x
+
+
+def reduce_from_model(x: torch.Tensor, sp: SeqShard) -> torch.Tensor:
+    """Row-parallel partial sums -> their sum on every rank; backward: the
+    (replicated) gradient as it is."""
+    return _ReduceFromModel.apply(x, sp)

@@ -27,6 +27,7 @@ import re
 from typing import Dict, Sequence
 
 import torch
+import torch.distributed as dist
 
 from glimpseprune_torch.ops.cuda.int4_matmul import (
     int4_decode,
@@ -54,7 +55,7 @@ def _match(path: str, patterns: Sequence[str]) -> bool:
 
 
 def matmul_w8a8(x: torch.Tensor, kernel_q: torch.Tensor, kernel_scale: torch.Tensor,
-                dtype: torch.dtype) -> torch.Tensor:
+                dtype: torch.dtype, tp=None) -> torch.Tensor:
     """Dynamic W8A8: x [..., K] quantized per row to int8, an int8 x int8
     -> int32 product with kernel_q int8 [K, N], then the rank-1 rescale
     (row amax / 127) x kernel_scale f32 [1, N] -> [..., N] in dtype.
@@ -64,9 +65,20 @@ def matmul_w8a8(x: torch.Tensor, kernel_q: torch.Tensor, kernel_scale: torch.Ten
     and K, N multiples of 8: the rows are padded to 17 and K and N to
     multiples of 8 with zeros, which add nothing to the sums, keeping the
     weight column-major (QuantLinear's order, _int_mm's fast path). On the
-    CPU it is an exact int32 product."""
+    CPU it is an exact int32 product.
+
+    ``tp`` (a row-parallel layer's model axis, parallel/mesh.py): x and
+    kernel_q hold this rank's contraction rows. Each row's scale comes from
+    the whole row (an all-reduce MAX of the local amax) and the int32 sums
+    are all-reduced before the rescale, so the result is bit-equal to the
+    unsharded product on every rank."""
     lead, k = x.shape[:-1], x.shape[-1]
-    xq, xs = quantize_kv(x.reshape(-1, k))
+    x2 = x.reshape(-1, k)
+    amax = None
+    if tp is not None:
+        amax = x2.abs().amax(-1).float()
+        dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=tp.group)
+    xq, xs = quantize_kv(x2, amax)
     xs = xs[:, None]
     if x.device.type == "cuda":
         m, n = xq.shape[0], kernel_q.shape[1]
@@ -78,6 +90,9 @@ def matmul_w8a8(x: torch.Tensor, kernel_q: torch.Tensor, kernel_scale: torch.Ten
         acc = torch._int_mm(xp, wt.t())[:m, :n]
     else:
         acc = xq.to(torch.int32) @ kernel_q.to(torch.int32)
+    if tp is not None:
+        acc = acc.contiguous()
+        dist.all_reduce(acc, group=tp.group)
     y = acc.float() * xs * kernel_scale.float()
     return y.to(dtype).reshape(lead + (kernel_q.shape[1],))
 

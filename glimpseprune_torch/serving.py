@@ -93,7 +93,8 @@ class ContinuousBatcher:
         self.total_chunks = n_req + waves * self.need + 1
         self.T = self.R + self.total_chunks * self.inter
         t = cfg.text
-        shape = (t.num_hidden_layers, self.capacity, self.T, t.num_key_value_heads, t.head_dim)
+        shape = (t.num_hidden_layers, self.capacity, self.T, runner.model.text.kv_heads,
+                 t.head_dim)
         with torch.inference_mode():
             caches = [alloc_cache(shape, runner.model.dtype, runner.device, t.kv_cache_quant)
                       for _ in range(2)]
@@ -110,13 +111,14 @@ class ContinuousBatcher:
 
     def _decode_steps(self):
         """The batcher's decode step: captured on the first call on a CUDA
-        model (a capture that fails raises), run eagerly on a CPU model.
+        model (a capture that fails raises), run eagerly on a CPU model and
+        on one sharded over a gloo group (``runner.decode_mode``).
         A captured step keeps the LoRA adapters' state (on, off, absent) it
         was captured with: a later call under another state raises."""
         model = self.runner.model
         if self._steps is None:
             self._begin()
-            if self.runner.device.type != "cuda":
+            if self.runner.decode_mode == "eager":
                 self._steps = EagerSteps(model, self.state)
             else:
                 self._lora = lora_state(model.text)

@@ -8,6 +8,16 @@ are trained, in fp32, and the base model stays frozen (no gradients, its
 own dtype). ``AdamW`` holds the optimizer to optax's formulas
 (``optax.chain(clip_by_global_norm, adamw)``, as the JAX trainer builds it),
 so the CPU parity tests hold at fp32 tolerance.
+
+On a (data, model) mesh (parallel/mesh.py) the step takes this data rank's
+rows of the batch (``shard_batch``) and the model may be sharded over the
+model axis (``shard_params``), whose layers carry the gradient to the
+trainable modules through their collectives. The data ranks' gradients are
+then summed, each rank's losses weighted so that the sum is the whole
+batch's gradient: the mask losses are means over rows (weight: this rank's
+rows over all of them), the answer NLL a mean over the labelled tokens
+(weight: this rank's labelled tokens over all of them), as in JAX, where
+GSPMD computes the whole batch's means.
 """
 
 from __future__ import annotations
@@ -15,8 +25,11 @@ from __future__ import annotations
 from typing import Callable, Dict, Optional, Tuple, Union
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
+from glimpseprune_torch.parallel.mesh import shard_batch
+from glimpseprune_torch.parallel.sequence import all_reduce_sum
 from glimpseprune_torch.training.losses import mask_confusion_stats, mask_loss
 
 NEW_MODULE_KEYS = ("attn_fuser", "learnable_embeddings", "le_proj", "le_norm")
@@ -112,14 +125,18 @@ class AdamW:
 def compute_loss(cfg, model, batch: Dict[str, torch.Tensor],
                  generator: Optional[torch.Generator] = None, loc_weight: float = 1.0,
                  le_weight: float = 1.0, dice_weight: float = 1.0,
-                 bce_weight: float = 0.1) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+                 bce_weight: float = 0.1, row_share: float = 1.0,
+                 token_share: float = 1.0) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The JAX ``loss_fn`` (train_step.py:59-122) -> (total, metrics).
 
     batch: the glimpse-encode inputs plus ref_token_masks [B, N] (the bbox
     targets) and labels [B, S], on the model's device. The ViT is frozen and
     runs without autograd. The per-layer mask losses are summed (the
     reference adds them, no layer average); total = loc_weight * loc +
-    le_weight * le_loss."""
+    le_weight * le_loss. ``row_share`` / ``token_share``: the batch's share
+    of a larger batch's rows / labelled tokens (a data rank's), which scale
+    the mask terms and metrics / the answer NLL, so that the shares' sums
+    are the larger batch's."""
     with torch.no_grad():
         merged, taps = model.vision_encode(batch["patches"], batch["vis_pos_ids"],
                                            batch["full_seg"], batch["vis_valid"])
@@ -138,6 +155,7 @@ def compute_loss(cfg, model, batch: Dict[str, torch.Tensor],
         loc = loc + mask_loss(mask_logits[i], target, img_valid, dice_weight, bce_weight)
     if le_loss is None:
         le_loss = torch.zeros((), dtype=torch.float32, device=loc.device)
+    loc, le_loss = loc * row_share, le_loss * token_share
     total = loc_weight * loc + le_weight * le_loss
     with torch.no_grad():
         keep = torch.sigmoid(mask_logits[-1]) > cfg.gp.reduce_threshold
@@ -146,25 +164,54 @@ def compute_loss(cfg, model, batch: Dict[str, torch.Tensor],
             "loss": total.detach(),
             "loc_loss": loc.detach(),
             "le_loss": le_loss.detach(),
-            "mask_iou": st["iou"].mean(),
-            "mask_precision": (st["tp"] / (st["tp"] + st["fp"]).clamp(min=1)).mean(),
-            "mask_recall": (st["tp"] / (st["tp"] + st["fn"]).clamp(min=1)).mean(),
+            "mask_iou": st["iou"].mean() * row_share,
+            "mask_precision": (st["tp"] / (st["tp"] + st["fp"]).clamp(min=1)).mean() * row_share,
+            "mask_recall": (st["tp"] / (st["tp"] + st["fn"]).clamp(min=1)).mean() * row_share,
         }
     return total, metrics
 
 
+def data_shares(batch: Dict[str, torch.Tensor], group) -> Tuple[float, float]:
+    """(this rank's rows, its labelled tokens) over the data group's."""
+    labels = batch.get("labels")
+    mine = [batch["input_ids"].shape[0],
+            0 if labels is None else int((labels[:, 1:] != -100).sum())]
+    counts = torch.tensor(mine, dtype=torch.float64, device=batch["input_ids"].device)
+    dist.all_reduce(counts, group=group)
+    rows, tokens = counts.tolist()
+    return mine[0] / rows, (mine[1] / tokens if tokens else 0.0)
+
+
 def make_train_step(cfg, model, optimizer: AdamW, loc_weight: float = 1.0,
                     le_weight: float = 1.0, dice_weight: float = 1.0,
-                    bce_weight: float = 0.1) -> Callable:
+                    bce_weight: float = 0.1, mesh=None) -> Callable:
     """-> train_step(batch, generator) -> metrics: loss, backward through
-    the trainable parameters, one optimizer update."""
+    the trainable parameters, one optimizer update. With a ``mesh`` whose
+    data axis is above 1, ``batch`` is the whole batch: each data rank
+    takes its rows, and the metrics and the update are the whole batch's
+    on every rank."""
+    data_parallel = mesh is not None and mesh.shape["data"] > 1
 
     def train_step(batch: Dict[str, torch.Tensor],
                    generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
         optimizer.zero_grad()
+        shares = {}
+        if data_parallel:
+            batch = shard_batch(batch, mesh)
+            shares = dict(zip(("row_share", "token_share"),
+                              data_shares(batch, mesh.data.group)))
         total, metrics = compute_loss(cfg, model, batch, generator, loc_weight, le_weight,
-                                      dice_weight, bce_weight)
+                                      dice_weight, bce_weight, **shares)
         total.backward()
+        if data_parallel:
+            group = mesh.data.group
+            with torch.no_grad():  # every rank reduces every parameter, in one order
+                for p in optimizer.params.values():
+                    p.grad = all_reduce_sum(torch.zeros_like(p) if p.grad is None else p.grad,
+                                            group)
+                keys = sorted(metrics)
+                summed = all_reduce_sum(torch.stack([metrics[k].float() for k in keys]), group)
+                metrics = dict(zip(keys, summed.unbind()))
         optimizer.step()
         return metrics
 

@@ -21,6 +21,7 @@ from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from glimpseprune_torch.config import ModelConfig
 from glimpseprune_torch.registry import Registry
@@ -200,11 +201,18 @@ class GPTrainer:
     ``params`` argument has no counterpart). Its GlimpsePrune parameters
     become fp32 and trainable, the rest stays frozen in its own dtype, and
     the decoder layers always rematerialize in the backward
-    (``cfg.text.remat``), as the JAX trainer forces."""
+    (``cfg.text.remat``), as the JAX trainer forces.
+
+    ``mesh`` (parallel/mesh.py; every rank of it runs the trainer on the
+    same data): each step splits the batch over the data axis
+    (``make_train_step(..., mesh=)``); the model may be sharded over the
+    model axis (``shard_params``). Only the first rank writes checkpoints,
+    the others wait for it."""
 
     def __init__(self, cfg: ModelConfig, model, dataset: GPDataset, tokenize: Callable,
                  load_image: Optional[Callable] = None, tcfg: Optional[TrainerConfig] = None,
-                 collate: Optional[Callable] = None, resume_from: Optional[str] = None):
+                 collate: Optional[Callable] = None, resume_from: Optional[str] = None,
+                 mesh=None):
         if not cfg.text.remat:
             cfg = dataclasses.replace(cfg, text=dataclasses.replace(cfg.text, remat=True))
         model.set_config(cfg)
@@ -213,6 +221,7 @@ class GPTrainer:
         self.load_image = load_image or _load_rgb
         self.collate = collate or default_collate
         self.device = model.text.embed_tokens.weight.device
+        self.mesh = mesh
 
         steps_per_epoch = max(len(dataset) // self.tcfg.batch_size, 1)
         total = steps_per_epoch * self.tcfg.num_epochs
@@ -225,7 +234,7 @@ class GPTrainer:
                                        loc_weight=self.tcfg.loc_weight,
                                        le_weight=self.tcfg.le_weight,
                                        dice_weight=self.tcfg.dice_weight,
-                                       bce_weight=self.tcfg.bce_weight)
+                                       bce_weight=self.tcfg.bce_weight, mesh=mesh)
         self.history: List[Dict[str, float]] = []
         self._steps_per_epoch = steps_per_epoch
         self._start_step = 0
@@ -241,11 +250,15 @@ class GPTrainer:
         from glimpseprune_torch.persistence import save_new_modules
 
         directory = directory or self.tcfg.output_dir
-        save_new_modules(self.model, self.cfg, directory)
-        with open(os.path.join(directory, "train_log.json"), "w") as f:
-            json.dump(self.history, f)
-        torch.save({"optimizer": self.optimizer.state_dict(), "step": self.step},
-                   os.path.join(directory, "trainer_state.pt"))
+        sharded = self.mesh is not None and dist.is_initialized()
+        if not sharded or dist.get_rank() == 0:
+            save_new_modules(self.model, self.cfg, directory)
+            with open(os.path.join(directory, "train_log.json"), "w") as f:
+                json.dump(self.history, f)
+            torch.save({"optimizer": self.optimizer.state_dict(), "step": self.step},
+                       os.path.join(directory, "trainer_state.pt"))
+        if sharded:
+            dist.barrier()
         return directory
 
     def load(self, directory: str) -> "GPTrainer":

@@ -86,16 +86,13 @@ def with_oom_fallback(
 
 
 def all_hosts_agree_ok(ok: bool) -> bool:
-    """True iff every rank succeeded. Every rank must call this each step
-    (success or failure), or the next collective deadlocks; without an
-    initialised process group it returns ``ok``."""
-    import torch.distributed as dist
+    """True iff every rank succeeded, through ``utils.multihost.gather_objects``
+    (JAX failures.py:71-73). Every rank must call this each step (success
+    or failure), or the next collective deadlocks; without an initialised
+    process group it returns ``ok``."""
+    from glimpseprune_torch.utils.multihost import gather_objects
 
-    if not (dist.is_available() and dist.is_initialized()):
-        return bool(ok)
-    oks = [None] * dist.get_world_size()
-    dist.all_gather_object(oks, bool(ok))
-    return all(oks)
+    return all(gather_objects(bool(ok), max_bytes=64))
 
 
 def oom_resilient_step(skip_value: Any = None):

@@ -10,6 +10,8 @@ import subprocess
 import sys
 from pathlib import Path
 
+import pytest
+
 ROOT = Path(__file__).resolve().parents[1]
 
 SCRIPT = """
@@ -52,7 +54,8 @@ def test_port_imports_no_jax():
                  "preprocessing.native", "utils.failures", "utils.fastinit",
                  "tools.profile_prefill", "tools.profile_decode", "tools.profile_train_step",
                  "tools.profile_grpo_step", "tools.demo_server", "tools.save_attn_maps",
-                 "tools.compare_results", "tools.compare_server"):
+                 "tools.compare_results", "tools.compare_server", "parallel.mesh",
+                 "utils.multihost"):
         assert f"glimpseprune_torch.{name}" in out["modules"]
     assert out["jax"] == []
 
@@ -68,6 +71,22 @@ def test_chip_smoke_imports_no_jax_package():
         elif isinstance(node, ast.ImportFrom):
             names.append(node.module or "")
     assert "glimpseprune_torch.config" in names
+    banned = ("glimpseprune_tpu", "jax", "jaxlib", "flax", "optax")
+    assert [n for n in names if n.split(".")[0] in banned] == []
+
+
+@pytest.mark.parametrize("worker", ["torch_mesh_worker.py", "torch_sp_worker.py"])
+def test_rank_workers_import_no_jax(worker):
+    """The workers of the launched CPU ranks import torch and the port only,
+    at any depth (they stand in for the card's processes)."""
+    tree = ast.parse((ROOT / "tests" / worker).read_text())
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names.append(node.module or "")
+    assert "glimpseprune_torch.parallel" in names
     banned = ("glimpseprune_tpu", "jax", "jaxlib", "flax", "optax")
     assert [n for n in names if n.split(".")[0] in banned] == []
 
