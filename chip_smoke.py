@@ -485,6 +485,32 @@ TRACE_MARK, TRACE_MARK_CYCLES = "spin_kernel", 20000
 WINDOWED_LAST_FULLATT = (7, 15, 23)
 
 
+def depth_cut(cfg, layers: int):
+    """cfg with its decoder cut to ``layers`` layers at full width: the
+    glimpse embeddings of the layers kept, the harvest and reduce layers
+    unchanged (they must lie below the cut). The script's budget of
+    seconds cuts the depth of earlier phases, never their widths or their
+    checks."""
+    import dataclasses
+
+    if not cfg.gp.reduce_layer < layers - 1:
+        raise ValueError(f"a cut to {layers} layers leaves no layer after the reduce layer")
+    gp = dataclasses.replace(cfg.gp, le_layers=tuple(l for l in cfg.gp.le_layers if l < layers))
+    return dataclasses.replace(cfg, gp=gp, text=dataclasses.replace(
+        cfg.text, num_hidden_layers=layers))
+
+
+def cut_config_dir() -> str:
+    """The directory of the 7B's config cut to TOOLS_TEXT_LAYERS layers,
+    which phase 16's tools load (written once, under build/)."""
+    from glimpseprune_torch.config import ModelConfig
+
+    out = ROOT / "build" / "chip_smoke_cut_7b"
+    if not (out / "config.json").exists():
+        depth_cut(ModelConfig.load(str(ROOT / QWEN_DIR)), TOOLS_TEXT_LAYERS).save(str(out))
+    return str(out)
+
+
 def find_card():
     import torch
 
@@ -3377,6 +3403,153 @@ def check_int4_kernels(cfg, gen, decode_m: int, prefill_m: int, vit_m: int):
     return rows, k4_report, k5_report, k6_report
 
 
+# phase (m)'s int4 shapes: each decoder linear as the mesh cuts it, by
+# columns (the whole layer's route and, for K4, its tile and K split) or by
+# repacked contraction rows
+TP_INT4_SHAPES = {"q": ("q_o", "column"), "o": ("q_o", "row"), "k_v": ("k_v", "column"),
+                  "gate_up": ("gate_up", "column"), "down": ("down", "row"),
+                  "head": ("head", "column")}
+
+
+def check_int4_tp_shards(cfg, gen, decode_m: int, prefill_m: int, world: int = SP_WORLD):
+    """K4 and K6 at phase (m)'s shapes, every rank's shard of each decoder
+    linear in this one process (TP_INT4_SHAPES; rows repacked by
+    ``parallel.mesh._int4_rows``):
+
+    - K4 at M = decode_m: a column shard, planned for the whole layer's N,
+      bit-equal to the unsharded K4's columns; a row shard's fp32 sums (its
+      f32 mode) within INT4_RTOL of its plain version, the unsharded K4's
+      fp32 sums rounded to bf16 bit-equal to its bf16 output, and the
+      ranks' fp32 sums added and rounded once against it (outputs that
+      differ counted);
+    - K6 at M = prefill_m: a column shard (routed on the whole layer's
+      shape) bit-equal to the unsharded K6's columns; a row shard given the
+      whole contraction's row scales and s8: its prep outputs and int32
+      sums bit-equal to its plain version's, and the ranks' sums rescaled
+      bit-equal to the unsharded K6.
+
+    -> (kernel rows of rank 0's shards, timed, report)."""
+    import torch
+
+    from glimpseprune_torch.ops.cuda.int4_matmul import (
+        a8_rescale,
+        int4_a8_kernels,
+        int4_a8_prep_reference,
+        int4_decode,
+        int8_gemm_tn_reference,
+        launch_key,
+        matmul_int4,
+        matmul_int4_a8_sums,
+        matmul_int4_prefill,
+        matmul_int4_reference,
+    )
+    from glimpseprune_torch.parallel.mesh import _int4_rows, _narrow
+    from glimpseprune_torch.parallel.sequence import SeqShard
+
+    shapes = decoder_shapes(cfg)
+    tps = [SeqShard(None, r, world) for r in range(world)]
+    rows, report = [], {}
+    for name, (key, mode) in TP_INT4_SHAPES.items():
+        k, n = shapes[key]
+        packed, scales = int4_weight(k, n, gen)
+        if mode == "column":
+            parts = [(_narrow(packed, 1, tp), _narrow(scales, 1, tp)) for tp in tps]
+        else:
+            parts = [_int4_rows(packed, scales, tp) for tp in tps]
+        p0, s0 = parts[0]
+        kl, nl = 2 * p0.shape[0], p0.shape[1]
+        rec = {"shard": f"{kl}x{nl}", "mode": mode}
+        # K4
+        x = torch.randn((decode_m, k), generator=gen, device="cuda").bfloat16()
+        whole = matmul_int4(x, packed, scales)
+        if mode == "column":
+            got = [int4_decode(x, p, s, n) for p, s in parts]
+            if not torch.equal(torch.cat(got, -1), whole):
+                raise AssertionError(f"K4[{name}]: the column shards differ from the "
+                                     "unsharded K4's columns")
+            x0 = x
+            ms = cuda_ms(lambda: int4_decode(x0, p0, s0, n))
+            rec["k4_columns_bit_equal"] = True
+        else:
+            xr = [x[:, tp.slice(k)].contiguous() for tp in tps]
+            got = [int4_decode(xi, p, s, None, True) for xi, (p, s) in zip(xr, parts)]
+            if not torch.equal(int4_decode(x, packed, scales, None, True).bfloat16(), whole):
+                raise AssertionError(f"K4[{name}]: the fp32 sums rounded differ from K4's bf16")
+            summed = got[0]
+            for g in got[1:]:
+                summed = summed + g
+            x0 = xr[0]
+            ms = cuda_ms(lambda: int4_decode(x0, p0, s0, None, True))
+            rec["k4_rows_rounded_once_differ"] = int((summed.bfloat16() != whole).sum())
+        ref = matmul_int4_reference(x0, p0, s0, torch.float32)
+        plain_ms = cuda_ms(lambda: matmul_int4_reference(x0, p0, s0, torch.float32))
+        out_bytes = (4 if mode == "row" else 2) * decode_m * nl
+        row = int4_row("matmul_int4", launch_key(kl, nl), K4_REPLACES, x0, p0, s0,
+                       got[0].float(), ref, ms, plain_ms, out_bytes,
+                       flops=2.0 * decode_m * kl * nl, extra=(x0,))
+        row.update(tp_mode=mode, note=f"phase (m): rank 0's {mode} shard of {key}")
+        rows.append(row)
+        if name == "head":
+            report[name] = rec
+            continue
+        # K6
+        x = torch.randn((prefill_m, k), generator=gen, device="cuda").bfloat16()
+        whole = check_k6_bits(x, packed, scales)
+        if mode == "column":
+            got = [matmul_int4_prefill(x, p, s, a8=True, whole=(k, n)) for p, s in parts]
+            if not torch.equal(torch.cat(got, -1), whole):
+                raise AssertionError(f"K6[{name}]: the column shards differ from the "
+                                     "unsharded K6's columns")
+            if not torch.equal(got[0], k6_plain(x, p0, s0)):
+                raise AssertionError(f"K6[{name}]: a column shard differs from its plain version")
+            x0 = x
+            ms = cuda_ms(lambda: matmul_int4_prefill(x0, p0, s0, a8=True, whole=(k, n)))
+            plain_ms = cuda_ms(lambda: k6_plain(x0, p0, s0))
+            got0, ref, out_bytes = got[0], k6_plain(x0, p0, s0), 2 * prefill_m * nl
+            rec["k6_columns_bit_equal"] = True
+        else:
+            xs = x.abs().amax(-1).float().clamp(min=1e-8) / 127.0
+            s8 = scales.float().amax(0).clamp(min=1e-12) * (7.0 / 127.0)
+            xr = [x[:, tp.slice(k)].contiguous() for tp in tps]
+            total = None
+            for xi, (p, s) in zip(xr, parts):
+                acc, prep = int4_a8_kernels(xi, p, s, xs, s8)
+                torch.cuda.synchronize()
+                want = int4_a8_prep_reference(xi, p, s, xs, s8)
+                bad = [nm for nm, a, b in zip(("xq", "xs", "w8t", "s8"), prep, want)
+                       if not torch.equal(a, b)]
+                if bad:
+                    raise AssertionError(f"K6[{name}] row shard: prep differs in {bad}")
+                if not torch.equal(acc, int8_gemm_tn_reference(*want, torch.int32)):
+                    raise AssertionError(f"K6[{name}] row shard: int32 sums differ from the "
+                                         "plain version's")
+                total = acc if total is None else total + acc
+            if not torch.equal(a8_rescale(total, xs, s8, torch.bfloat16), whole):
+                raise AssertionError(f"K6[{name}]: the row shards' sums rescaled differ from "
+                                     "the unsharded K6")
+            x0 = xr[0]
+            ms = cuda_ms(lambda: matmul_int4_a8_sums(x0, p0, s0, xs, s8))
+            plain_ms = cuda_ms(lambda: int8_gemm_tn_reference(
+                *int4_a8_prep_reference(x0, p0, s0, xs, s8), torch.int32))
+            got0 = a8_rescale(matmul_int4_a8_sums(x0, p0, s0, xs, s8), xs, s8, torch.float32)
+            ref = a8_rescale(int8_gemm_tn_reference(*int4_a8_prep_reference(
+                x0, p0, s0, xs, s8), torch.int32), xs, s8, torch.float32)
+            out_bytes = 4 * prefill_m * nl
+            rec["k6_rows_bit_equal"] = True
+        row = int4_row("matmul_int4_prefill", launch_key(kl, nl, True), K56_REPLACES, x0, p0,
+                       s0, got0, ref, ms, plain_ms, out_bytes,
+                       int8_ops=2.0 * prefill_m * kl * nl, extra=(x0,))
+        row.update(tp_mode=mode, bit_equal=True,
+                   note=f"phase (m): rank 0's {mode} shard of {key}"
+                   + (" (given row scales and s8, int32 sums)" if mode == "row" else ""))
+        rows.append(row)
+        report[name] = rec
+        print(f"TP int4 shards [{name}] {json.dumps(rec)}", flush=True)
+        del packed, scales, parts, x, whole, got
+    torch.cuda.empty_cache()
+    return rows, report
+
+
 def k7_errors(got, ref):
     """(max error / max |ref|, RMS error / RMS of ref)."""
     d = got.float() - ref.float()
@@ -3897,9 +4070,16 @@ def launch_counts():
 
 def launches_since(before, required=()):
     """Launches since the ``before`` snapshot; raises if a kernel of
-    ``required`` did not launch in between."""
+    ``required`` did not launch in between (an entry that ends in "*]"
+    asks for any launch of the rows it starts, as in read_launches)."""
     delta = {k: v - before.get(k, 0) for k, v in launch_counts().items()}
-    missing = [k for k in required if not delta.get(k)]
+
+    def count(name):
+        if name.endswith("*]"):
+            return sum(v for k, v in delta.items() if k.startswith(name[:-2]))
+        return delta.get(name, 0)
+
+    missing = [k for k in required if not count(k)]
     if missing:
         raise AssertionError(f"the path never launched {missing}")
     return {k: v for k, v in delta.items() if v}
@@ -4112,7 +4292,8 @@ def sp_rank(rank: int, world: int, cases):
     from glimpseprune_torch.parallel import make_mesh
 
     torch.cuda.set_device(0)
-    cfg = ModelConfig.load(str(ROOT / "configs" / "model_qwen2_5_7b_gp"))
+    full = ModelConfig.load(str(ROOT / "configs" / "model_qwen2_5_7b_gp"))
+    cfg = depth_cut(full, SP_TEXT_LAYERS)  # the bf16 7B's depth
     model = init_random(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
     if not same_weights(model, world):
         raise AssertionError(f"rank {rank} built other weights than rank 0")
@@ -4120,6 +4301,9 @@ def sp_rank(rank: int, world: int, cases):
     out = {"rank": rank, "gloo_gather_ms": gloo_gather_ms(cfg, cases[0][1], world),
            "serve": sp_serve(cfg, GlimpsePruneRunner(cfg, model), cases, rank,
                                            world)}
+    t0 = time.perf_counter()
+    out["sp_compressed"] = sp_compressed(cfg, model, cases[0][1], rank)
+    sp_compressed_s = time.perf_counter() - t0
     out["train"], probe = sp_train(cfg, model, rank,
                                    ROOT / "build" / f"chip_smoke_sp_train{rank}")
     sp_launches = Counter(launch_counts())  # the SP rows: the SP runs alone
@@ -4127,13 +4311,15 @@ def sp_rank(rank: int, world: int, cases):
     tp_mesh, dp_mesh = make_mesh(world, model_axis=world), make_mesh(world, model_axis=1)
     tp_launches = Counter()
     t0 = time.perf_counter()
-    out["tp"] = {"bf16": tp_phase(cfg, model, cases[0][1], rank, tp_mesh, "bf16", probe)}
+    probes = (grpo_probe(cfg, model, cases[0][1]), compressed_probe(cfg, model, cases[0][1]))
+    out["tp"] = {"bf16": tp_phase(cfg, model, cases[0][1], rank, tp_mesh, "bf16", probe,
+                                  probes)}
     tp_launches.update(out["tp"]["bf16"]["launches"])
-    tp_s = time.perf_counter() - t0
-    del model, probe
+    tp_s = {"bf16": time.perf_counter() - t0}
+    del model, probe, probes
     torch.cuda.empty_cache()
-    qcfg = sp_q8_config(cfg)
-    model = init_random(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
+    qcfg = sp_q8_config(full)
+    model = init_random(full, seed=0, device="cuda", dtype=torch.bfloat16)
     quantize_model(model, "int8", cfg=qcfg)
     before = launch_counts()
     out["q8"] = sp_serve(qcfg, GlimpsePruneRunner(qcfg, model), cases[:1], rank, world,
@@ -4144,17 +4330,41 @@ def sp_rank(rank: int, world: int, cases):
     tp_launches.update(out["tp"]["q8"]["launches"])
     del model
     torch.cuda.empty_cache()
-    tp_s += time.perf_counter() - t0
+    tp_s["q8"] = time.perf_counter() - t0
+    # (q4): int4 columns and repacked rows, K4 and K6 on the ranks' shards
+    t0 = time.perf_counter()
+    cut = depth_cut(full, QUANT_TEXT_LAYERS)  # phase 9's depth
+    qcfg = quant_config(cut, "q4")
+    model = init_random(cut, seed=0, device="cuda", dtype=torch.bfloat16)
+    quantize_model(model, "int4", cfg=qcfg)
+    out["tp"]["q4"] = tp_phase(qcfg, model, cases[0][1], rank, tp_mesh, "q4")
+    tp_launches.update(out["tp"]["q4"]["launches"])
+    del model
+    torch.cuda.empty_cache()
+    tp_s["q4"] = time.perf_counter() - t0
+    # LLaVA-1.5-7B: its decoder sharded, CLIP and the projector whole
+    t0 = time.perf_counter()
+    lcfg, cc, _, _, lprep, _ = llava_inputs()
+    model, _ = build_llava(lcfg, cc)
+    out["tp"]["llava"] = tp_phase(lcfg, model, lprep, rank, tp_mesh, "llava")
+    tp_launches.update(out["tp"]["llava"]["launches"])
+    del model
+    torch.cuda.empty_cache()
+    tp_s["llava"] = time.perf_counter() - t0
     out["tiny"] = check_small_reference(dist.group.WORLD)
     t0 = time.perf_counter()
     before = launch_counts()
     out["tp"]["tiny"] = check_small_mesh(tp_mesh, dp_mesh)
     tp_launches.update(launches_since(before))
-    tp_s += time.perf_counter() - t0
-    out["tp"]["phase_s"] = tp_s
+    tp_s["tiny"] = time.perf_counter() - t0
+    out["tp"]["phase_s"] = sum(tp_s.values())
+    out["tp"]["tier_s"] = tp_s
+    out["sp_compressed_s"] = sp_compressed_s
     out["tp_launches"] = dict(tp_launches)
     out["launches"] = dict(sp_launches)
-    print(f"phase (m) on rank {rank}: {tp_s:.1f} s", flush=True)
+    print(f"phase (m) on rank {rank}: {out['tp']['phase_s']:.1f} s " + json.dumps(
+        {k: round(v, 1) for k, v in tp_s.items()}) + f"; SP compressors {sp_compressed_s:.1f} s",
+        flush=True)
     return out
 
 
@@ -4226,7 +4436,21 @@ def run_sp_path(cases):
 TP_KERNELS = {"bf16": ["window_attention_fused", "flash_attention[segmented]",
                        "flash_attention[causal]"],
               "q8": ["window_attention_fused", "flash_attention[segmented]",
-                     "flash_attention_int8[causal]"]}
+                     "flash_attention_int8[causal]"],
+              "q4": ["window_attention_fused", "flash_attention_int8[segmented+pv8]",
+                     "flash_attention[causal]", "matmul_int4[*]", "matmul_int4_prefill[a8,*]"],
+              "llava": ["flash_attention[causal]"]}
+# the tiers whose mesh must give one process's row-parallel products bit
+# for bit ((q8)'s W8A8, (q4)'s K6) and its tokens: (q8)'s all equal; (q4)'s
+# decode products round once from fp32 partial sums (K4), so a token that
+# differs must show phase 6's near tie against one process fed the mesh's
+# tokens (token_ties). bf16 and LLaVA sum bf16 partial products: their
+# decode is held to TP_DECODE_LOGIT_RTOL
+TP_EXACT_TIERS = ("q8", "q4")
+# phase (m)'s GRPO step: completion tokens of its fixed batch, and the
+# compressors' greedy tokens a method on the mesh
+TP_GRPO_TOKENS = 16
+TP_COMPRESSED_TOKENS = 4
 TP_TRAIN_KERNELS = ["flash_attention_lse[causal]", "flash_attention_backward[causal]"]
 # tokens of each timed decode on the mesh: an eager TP step over gloo on
 # one card takes ~0.2 s
@@ -4239,6 +4463,35 @@ TP_DECODE_LOGIT_RTOL = 0.1
 # the control's, whose glimpse-embedding path lacks the input gradients'
 # all-reduce (PERF.md section 6, PR 19)
 TP_GRAD_TENSOR_RTOL = 0.4
+
+
+def keep_ties(keep, ref_keep, mask, ref_mask, img_valid, threshold: float):
+    """Where the mesh's keep set differs from one process's (bf16 partial
+    sums: the keep policy's mask logits ``mask`` [B, N], the last of the
+    prefill's, lie within delta of ``ref_mask``, delta their largest
+    distance in the row), each token in one set and not the
+    other must lie, by one process's own mask logit, within 2 delta of a
+    boundary of the keep policy: the row's k-th largest logit (k the kept
+    count: the cap's top-k) or the threshold's logit. A swap across a
+    boundary needs that; a token further away shows a fault, not a tie.
+    -> {"ties": bool, per row: differing tokens, delta, largest gap}."""
+    import math
+
+    out, ties = {}, True
+    thr = math.log(threshold / (1.0 - threshold))
+    for b in range(keep.shape[0]):
+        valid = img_valid[b]
+        diff = (keep[b] != ref_keep[b]) & valid
+        if not diff.any():
+            continue
+        delta = (mask[b] - ref_mask[b]).abs()[valid].max().item()
+        k = int(ref_keep[b].sum())
+        kth = ref_mask[b][valid].topk(k).values[-1].item()
+        gaps = [min(abs(v - kth), abs(v - thr)) for v in ref_mask[b][diff].tolist()]
+        out[b] = {"differ": len(gaps), "delta": delta, "largest_gap": max(gaps)}
+        ties = ties and max(gaps) <= 2 * delta
+    out["ties"] = ties
+    return out
 
 
 def same_on_ranks(*tensors) -> bool:
@@ -4305,9 +4558,39 @@ def tp_decode(cfg, runner, pre, n: int):
 
 def forced_decode_err(model, cfg, pre, toks, logits) -> float:
     """The unsharded ``model`` fed ``toks`` [B, n] after its own prefill
+    ``pre`` (``forced_decode_logits``) against the mesh's step logits [B,
+    n, V]: max error over max |ref|."""
+    return rel_err(logits, forced_decode_logits(model, cfg, pre, toks))
+
+
+def token_ties(model, cfg, pre, toks, logits, want, tier):
+    """Where the mesh's greedy tokens ``toks`` [B, n] (token 0 from the
+    prefill, token j from step j - 1's ``logits`` [B, n, V]) differ from
+    one process's ``want`` [B, n], phase 6's tie rule at each row's first
+    token that differs (``first_difference``): the unsharded ``model``'s
+    logits fed the mesh's tokens up to that step (the same history as both
+    runs had) against the mesh's, within the bound of each other and both
+    top twos closer than it, or raise. The bound is CROSS_LOGIT_RTOL, phase
+    12's for two arithmetics of one decode: the unsharded model takes the
+    n tokens at once (K4 at M = B n, not B; on an H100 the two read 1.5e-2
+    apart at a flipped token, past DECODE_LOGIT_RTOL, its top two 1.4e-2
+    apart). -> records."""
+    ref = forced_decode_logits(model, cfg, pre, toks).float().cpu()
+    got, toks, want = logits.float().cpu(), toks.cpu(), want.cpu()
+    out = []
+    for b in range(got.shape[0]):
+        if toks[b, 0] != want[b, 0]:
+            raise AssertionError(f"TP {tier} row {b}: the prefill's token differs")
+        out.append(first_difference(f"TP {tier} row {b}", toks[b, 1:].numpy(),
+                                    want[b, 1:].numpy(), got[b, :-1], ref[b, :-1],
+                                    CROSS_LOGIT_RTOL))
+    return out
+
+
+def forced_decode_logits(model, cfg, pre, toks):
+    """The unsharded ``model`` fed ``toks`` [B, n] after its own prefill
     ``pre`` (``decode_step`` with all n at once, causal among themselves,
-    as ``small_decode_err``) against the mesh's step logits [B, n, V]:
-    max error over max |ref|."""
+    as ``small_decode_err``) -> each step's logits [B, n, V]."""
     import torch
 
     from glimpseprune_torch.models.qwen2_5_vl.runner import GlimpsePruneRunner
@@ -4319,9 +4602,8 @@ def forced_decode_err(model, cfg, pre, toks, logits) -> float:
     with torch.inference_mode():
         kv_valid = torch.cat([pre.valid, torch.ones((b, n), dtype=torch.bool, device=dev)], 1)
         pos = pre.position_ids[:, :, -1:] + 1 + torch.arange(n, device=dev)
-        ref = model.decode_step(toks.to(dev), pos, run.decode_cache(pre.kv_k, r + n),
-                                run.decode_cache(pre.kv_v, r + n), kv_valid, r)[0]
-    return rel_err(logits, ref)
+        return model.decode_step(toks.to(dev), pos, run.decode_cache(pre.kv_k, r + n),
+                                 run.decode_cache(pre.kv_v, r + n), kv_valid, r)[0]
 
 
 @contextlib.contextmanager
@@ -4357,24 +4639,28 @@ def split_row_products(model, world: int):
             del m.forward
 
 
-def tp_phase(cfg, model, prep, rank, mesh, tier, train=None):
+def tp_phase(cfg, model, prep, rank, mesh, tier, train=None, probes=()):
     """Phase (m) over one tier on this rank: rank 0's unsharded run first
     (the other ranks wait), then ``shard_params`` over the 1 x world mesh and
     TP prefill and eager decode, pruned and unpruned, each held against
     rank 0's unsharded run: first logits and mask logits within phase 11's
     bound (in bf16 the first logits within CROSS_LOGIT_RTOL) and the keep
-    sets equal; in (q8) a row-parallel W8A8 product bit-equal and the
-    decoded tokens equal, in bf16 every decode step's logits within
-    TP_DECODE_LOGIT_RTOL of the unsharded model's fed the mesh's tokens
-    (rank 0 holds an unsharded copy for it, left out of its peak); the same
-    on every rank. With ``train`` (a loss-and-gradients call): its TP
-    gradients against the unsharded ones, the global relative L2 within
+    sets equal (in LLaVA, or flips at near ties: ``keep_ties``); in (q8)
+    and (q4) a row-parallel product bit-equal and the decoded tokens equal
+    (in (q4), or phase 6's near tie: ``token_ties``), in bf16 every
+    decode step's logits within TP_DECODE_LOGIT_RTOL of the unsharded
+    model's fed the mesh's tokens (rank 0 holds an unsharded copy for
+    these, left out of its peak); the same on every rank. With ``train``
+    (a loss-and-gradients call): its TP gradients against the unsharded ones, the global relative L2 within
     0.1 and every tensor within TP_GRAD_TENSOR_RTOL, where the witness
     (one process, the row-parallel products split as the mesh splits them:
     ``split_row_products``) must stay too and the control (the TP backward
-    without the input gradients' all-reduce) must not; -> record. The
-    model stays sharded. Launches of rank 0's unsharded runs are not
-    counted in the record's."""
+    without the input gradients' all-reduce) must not. Each of ``probes``
+    (name, run, compare) runs on rank 0 before ``shard_params`` and on
+    every rank after it, and ``compare(mesh's, one process's)`` -> its
+    record, or raises. Tiers: bf16, q8, q4 (TP_EXACT_TIERS), llava (as
+    bf16, the decoder alone sharded); -> record. The model stays sharded. Launches of rank
+    0's unsharded runs are not counted in the record's."""
     import torch
     import torch.distributed as dist
 
@@ -4388,6 +4674,8 @@ def tp_phase(cfg, model, prep, rank, mesh, tier, train=None):
     with torch.inference_mode():
         y_whole = down(x, True)
     refs, train_ref, witness, whole, whole_bytes = {}, None, None, None, 0
+    probe_refs = {}
+    bf16_like = tier in ("bf16", "llava")
     n = TP_DECODE_TOKENS
     if rank == 0:  # the other ranks wait: this card's time is rank 0's alone
         runner = GlimpsePruneRunner(cfg, model)
@@ -4401,7 +4689,7 @@ def tp_phase(cfg, model, prep, rank, mesh, tier, train=None):
             eager_ms = timed_ms(lambda: eager.run(n))[0] / n
             refs[do_sel] = {"prefill_ms": ms, "captured_ms_per_token": captured_ms / n,
                             "eager_ms_per_token": eager_ms, "seqs": torch.as_tensor(seqs),
-                            "pre": pre if tier == "bf16" else None,
+                            "pre": pre,
                             "logits": pre.logits.float().cpu(),
                             "mask": None if pre.mask_logits is None
                             else pre.mask_logits.float().cpu(),
@@ -4418,10 +4706,12 @@ def tp_phase(cfg, model, prep, rank, mesh, tier, train=None):
             del grads, grads_w
             for p in model.parameters():
                 p.grad = None
-        if tier == "bf16":  # the unsharded model for the decode check
-            whole = copy.deepcopy(model)
-            whole_bytes = sum(t.numel() * t.element_size()
-                              for t in [*whole.parameters(), *whole.buffers()])
+        for name, run_probe, _ in probes:
+            probe_refs[name] = run_probe()
+        # the unsharded model for the decode check
+        whole = copy.deepcopy(model)
+        whole_bytes = sum(t.numel() * t.element_size()
+                          for t in [*whole.parameters(), *whole.buffers()])
     dist.barrier()
     before_all = launch_counts()
     not_tp = Counter()  # rank 0's unsharded checks after this point
@@ -4434,16 +4724,17 @@ def tp_phase(cfg, model, prep, rank, mesh, tier, train=None):
     rows = slice(tp.rank * x.shape[1] // tp.world, (tp.rank + 1) * x.shape[1] // tp.world)
     with torch.inference_mode():
         y_tp = down(x[:, rows].contiguous(), True)
+    heads = {"text_q": model.text.layers[0].self_attn.q_proj.out_features
+             // cfg.text.head_dim, "text_kv": model.text.kv_heads}
+    if hasattr(model.visual, "blocks"):  # Qwen's ViT (LLaVA's CLIP stays whole)
+        heads["vit"] = model.visual.blocks[0].attn.qkv.out_features // (3 * cfg.vision.head_dim)
     rec = {"rank": rank, "tier": tier, "mesh": mesh.shape, "decode": runner.decode_mode,
-           "local_heads": {"text_q": model.text.layers[0].self_attn.q_proj.out_features
-                           // cfg.text.head_dim, "text_kv": model.text.kv_heads,
-                           "vit": model.visual.blocks[0].attn.qkv.out_features
-                           // (3 * cfg.vision.head_dim)},
+           "local_heads": heads,
            "row_product_bit_equal": bool(torch.equal(y_tp, y_whole)),
            "row_product_rel_diff": rel_err(y_tp, y_whole),
            "gloo_ms": tp_gloo_ms(cfg, prep, mesh), "runs": []}
-    if tier == "q8" and not rec["row_product_bit_equal"]:
-        raise AssertionError(f"the row-parallel W8A8 product differs from the unsharded one "
+    if tier in TP_EXACT_TIERS and not rec["row_product_bit_equal"]:
+        raise AssertionError(f"the row-parallel {tier} product differs from the unsharded one "
                              f"(rel {rec['row_product_rel_diff']})")
     for do_sel in (True, False):
         torch.cuda.reset_peak_memory_stats()
@@ -4472,15 +4763,26 @@ def tp_phase(cfg, model, prep, rank, mesh, tier, train=None):
                                                       ref["mask"][:, img_valid])
                 run["keep_equal"] = bool(torch.equal(pre.keep_img.cpu(), ref["keep"]))
                 run["kept"] = pre.keep_img.sum(1).tolist()
+                if not run["keep_equal"] and tier == "llava":
+                    run["keep_ties"] = keep_ties(pre.keep_img.cpu(), ref["keep"],
+                                                 pre.mask_logits[-1].float().cpu(),
+                                                 ref["mask"][-1],
+                                                 torch.as_tensor(prep.img_valid),
+                                                 cfg.gp.reduce_threshold)
             bad = {k: run[k] for k in ("first_logits_rel_diff", "mask_logits_rel_diff")
                    if not run.get(k, 0.0) <= 0.1}
-            if tier == "bf16" and not run["first_logits_rel_diff"] <= CROSS_LOGIT_RTOL:
+            if bf16_like and not run["first_logits_rel_diff"] <= CROSS_LOGIT_RTOL:
                 bad["first_logits_rel_diff"] = run["first_logits_rel_diff"]
-            if do_sel and not run["keep_equal"]:
+            if do_sel and not run["keep_equal"] and not run.get("keep_ties", {}).get("ties"):
                 bad["keep_equal"] = False
             if tier == "q8" and run["tokens_equal_share"] != 1.0:
                 bad["tokens_equal_share"] = run["tokens_equal_share"]
-            if tier == "bf16" and not bad:  # one context on both sides
+            if tier == "q4" and run["tokens_equal_share"] != 1.0 and not bad:
+                b = launch_counts()
+                run["token_ties"] = token_ties(whole, cfg, ref["pre"], seqs, step_logits,
+                                               ref["seqs"], tier)
+                not_tp.update(launches_since(b))
+            if bf16_like and not bad:  # one context on both sides
                 b = launch_counts()
                 run["decode_logits_rel_diff"] = forced_decode_err(whole, cfg, ref["pre"], seqs,
                                                                   step_logits)
@@ -4495,6 +4797,10 @@ def tp_phase(cfg, model, prep, rank, mesh, tier, train=None):
         rec["runs"].append(run)
     del pre, refs, whole, step_logits
     torch.cuda.empty_cache()
+    for name, run_probe, compare in probes:
+        got = run_probe()
+        rec[name] = compare(got, probe_refs.pop(name)) if rank == 0 else {
+            k: v for k, v in got.items() if k in ("ms", "launches")}
     bad = None
     if train is not None:
         torch.cuda.reset_peak_memory_stats()
@@ -4535,6 +4841,296 @@ def tp_phase(cfg, model, prep, rank, mesh, tier, train=None):
     if bad:
         raise AssertionError(bad)
     return rec
+
+
+def broadcast_batch(batch):
+    """Rank 0's tensors of a GRPOBatch on every rank (gloo broadcasts CUDA
+    tensors through the host)."""
+    import torch.distributed as dist
+
+    for t in batch:
+        dist.broadcast(t, 0)
+    return batch
+
+
+def grpo_probe(cfg, model, prep):
+    """Phase (m)'s GRPO probe for tp_phase: a fixed GRPOBatch (the unsharded
+    model's pruned glimpse of ``prep``, rank 0's on every rank, random
+    completions of TP_GRPO_TOKENS and TP_GRPO_TOKENS - 5 tokens, non-zero
+    advantages) and one ``make_grpo_loss_step`` over rank-GRPO_RANK
+    adapters (``make_lora_params`` seed 0, B drawn small and non-zero) put
+    into the model as it stands, reference logprobs first; the adapters are
+    taken out after. Compared: the reference logprobs (max error over max
+    |ref|), the total loss and every adapter's whole gradient (relative
+    L2) within 0.1 of one process's; each tensor's max error and the KL
+    term (small beside the surrogate, so its relative distance is large)
+    are recorded."""
+    import dataclasses
+
+    import torch
+
+    from glimpseprune_torch.models.qwen2_5_vl.runner import GlimpsePruneRunner
+    from glimpseprune_torch.training import grpo
+    from glimpseprune_torch.training.lora import (
+        _whole,
+        insert_lora,
+        lora_parameters,
+        lora_tree,
+        make_lora_params,
+        remove_lora,
+    )
+    from glimpseprune_torch.training.train_step import AdamW
+
+    out = GlimpsePruneRunner(cfg, model).glimpse(prep)
+    rng = np.random.default_rng(GRPO_G)
+    hi = min(150000, cfg.text.vocab_size)  # ordinary text ids, clear of the special tokens
+    b, tc = out.valid.shape[0], TP_GRPO_TOKENS
+    dev = out.valid.device
+    steps = torch.arange(tc, device=dev)
+    last = out.position_ids[:, :, -1].clone()  # the prefill's tensors are inference tensors
+    batch = broadcast_batch(grpo.GRPOBatch(
+        prompt_embeds=out.embeds.clone(), prompt_valid=out.valid.clone(),
+        prompt_pos=out.position_ids.clone(),
+        completion_ids=torch.as_tensor(rng.integers(min(1000, hi // 2), hi, (b, tc)), device=dev),
+        completion_valid=steps[None] < torch.tensor([tc, tc - 5], device=dev)[:, None],
+        completion_pos=last[:, :, None] + 1 + steps,
+        advantages=torch.tensor([0.8, -1.1], device=dev),
+        ref_logps=torch.zeros((b, tc), device=dev)))
+    del out
+    pcfg = dataclasses.replace(cfg, text=dataclasses.replace(cfg.text, lora_rank=GRPO_RANK,
+                                                             remat=True))
+
+    def run():
+        lora = make_lora_params(model, rank=GRPO_RANK, seed=0)
+        draw = np.random.default_rng(1)
+        for ab in lora.values():
+            ab["b"] = torch.as_tensor(draw.normal(0.0, 1e-3, tuple(ab["b"].shape)),
+                                      dtype=torch.float32)
+        insert_lora(model, lora, cfg=pcfg)
+        params = lora_parameters(model)
+        ref = grpo.compute_ref_logps(model, batch)
+        step = grpo.make_grpo_loss_step(model, AdamW(params, GRPO_LR), 1.0, 0.04)
+        torch.cuda.reset_peak_memory_stats()
+        before = launch_counts()
+        ms, metrics = timed_ms(lambda: step(batch._replace(ref_logps=ref)))
+        launches = launches_since(before, ["flash_attention_lse[causal]",
+                                           "flash_attention_backward[causal]"])
+        grads = {n: _whole(model.get_submodule(n.rsplit(".", 1)[0]), n[-1], p.grad).float().cpu()
+                 for n, p in params.items()}
+        tree = lora_tree(model)
+        moved = max(float((tree[p][k] - lora[p][k]).abs().max()) for p in lora for k in "ab")
+        remove_lora(model)
+        model.set_config(cfg)
+        return {"ms": ms, "launches": launches, "metrics": {k: float(v) for k, v in
+                                                            metrics.items()},
+                "ref": ref.float().cpu(), "grads": grads, "max_update": moved,
+                "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+    def compare(got, ref):
+        valid = batch.completion_valid.cpu()
+        rec = {"ms": got["ms"], "single_ms": ref["ms"], "launches": got["launches"],
+               "peak_mem_gib": got["peak_mem_gib"], "metrics": got["metrics"],
+               "single_metrics": ref["metrics"], "max_update": got["max_update"],
+               "ref_logps_rel_diff": rel_err(got["ref"], ref["ref"], valid),
+               "loss_rel_diff": abs(got["metrics"]["grpo_total"] - ref["metrics"]["grpo_total"])
+               / max(abs(ref["metrics"]["grpo_total"]), 1e-30),
+               **grad_distances(got["grads"], ref["grads"], "grpo")}
+        print("tp grpo " + json.dumps(rec, default=str), flush=True)
+        if not (rec["ref_logps_rel_diff"] <= 0.1 and rec["loss_rel_diff"] <= 0.1
+                and rec["grpo_global_rel_l2"] <= 0.1 and got["max_update"] > 0):
+            raise AssertionError(f"the GRPO step on the mesh disagrees with one process: {rec}")
+        return rec
+
+    return "grpo", run, compare
+
+
+def vision_outputs(runner, prep):
+    """(merged, taps, (received, keys_mean, received_local)): the ViT with
+    the importance scores, as ``prefill_compressed`` runs it."""
+    import torch
+
+    with torch.inference_mode():
+        return runner._vision(runner._device_inputs(prep), prep, emit_importance=True)
+
+
+@contextlib.contextmanager
+def fixed_vision(runner, vis):
+    """``runner``'s compressors on the given ViT outputs ``vision_outputs``:
+    what the selection and the LLM do with the same inputs, apart from how
+    the ViT rounds them."""
+    runner._vision = lambda inputs, prep, emit_importance=False: (
+        vis if emit_importance else vis[:2])
+    try:
+        yield runner
+    finally:
+        del runner._vision
+
+
+def vision_distances(got, ref):
+    """Max error over max |ref| of the merged embeddings and each
+    importance score."""
+    return {"merged": rel_err(got[0], ref[0]),
+            **{k: rel_err(g, r) for k, g, r in zip(("received", "keys_mean", "received_local"),
+                                                   got[2], ref[2])}}
+
+
+def compressed_runs(runner, prep, n_new: int):
+    """{method: prefill ms, first logits, kept counts, keep set, tokens}
+    of each compressor's ``prefill_compressed`` and n_new greedy tokens."""
+    import torch
+
+    out = {}
+    for m in COMPRESSORS:
+        kw = compressor_kwargs(m)
+        ms, pre = timed_ms(lambda: runner.prefill_compressed(prep, m, **kw))
+        seqs, _ = runner._decode_loop(pre.logits, pre.valid, pre.position_ids, pre.kv_k,
+                                      pre.kv_v, n_new, -1)
+        out[m] = {"prefill_ms": ms, "logits": pre.logits.float().cpu(),
+                  "kept": pre.kept.tolist(), "seqs": torch.as_tensor(np.asarray(seqs)),
+                  "keep": None if pre.keep_img is None else pre.keep_img.cpu()}
+    return out
+
+
+def compressed_distances(got, ref, bound: float, tag: str):
+    """Per method: the distances of ``compressed_runs`` records; raises
+    where the kept counts differ, the first logits are past ``bound`` or,
+    for the four selections before the LLM, the keep sets differ."""
+    import torch
+
+    rec, bad = {}, {}
+    for m in COMPRESSORS:
+        g, r = got[m], ref[m]
+        rec[m] = {"prefill_ms": g["prefill_ms"], "single_prefill_ms": r["prefill_ms"],
+                  "first_logits_rel_diff": rel_err(g["logits"], r["logits"]),
+                  "kept": g["kept"],
+                  "tokens_equal_share": float((g["seqs"] == r["seqs"]).float().mean()),
+                  "keep_equal": None if r["keep"] is None
+                  else bool(torch.equal(g["keep"], r["keep"]))}
+        if not (rec[m]["first_logits_rel_diff"] <= bound and g["kept"] == r["kept"]
+                and rec[m]["keep_equal"] is not False):
+            bad[m] = rec[m]
+    if bad:
+        raise AssertionError(f"{tag}: the compressors disagree with one process: {bad}")
+    return rec
+
+
+def end_to_end(got, ref):
+    """What the compressors' end-to-end runs share with one process's,
+    recorded: the ViT's rounding moves the selections at near-ties."""
+    import torch
+
+    return {m: {"keep_equal": None if ref[m]["keep"] is None
+                else bool(torch.equal(got[m]["keep"], ref[m]["keep"])),
+                "tokens_equal_share": float((got[m]["seqs"] == ref[m]["seqs"]).float().mean()),
+                "first_logits_rel_diff": rel_err(got[m]["logits"], ref[m]["logits"])}
+            for m in COMPRESSORS}
+
+
+def compressed_probe(cfg, model, prep):
+    """Phase (m)'s compressors probe for tp_phase. Rank 0 before sharding:
+    the ViT's outputs and each compressor's run (``compressed_runs``,
+    TP_COMPRESSED_TOKENS tokens). On the mesh, every rank: the ViT's
+    outputs, held within TP_DECODE_LOGIT_RTOL of one process's; the
+    compressors on one process's ViT outputs (rank 0's, broadcast), held
+    to one process (``compressed_distances``: keep sets and kept counts
+    equal, first logits within CROSS_LOGIT_RTOL). End to end, on the
+    mesh's own ViT outputs, the compressors differ from one process by the
+    ViT's distance alone (phase 11 records that under SP)."""
+    import torch
+    import torch.distributed as dist
+
+    from glimpseprune_torch.models.qwen2_5_vl.runner import GlimpsePruneRunner
+
+    one = {}
+
+    def run():
+        runner = GlimpsePruneRunner(cfg, model)
+        if getattr(model, "mesh", None) is None:  # rank 0, one process
+            one["vis"] = vision_outputs(runner, prep)
+            return {"runs": compressed_runs(runner, prep, TP_COMPRESSED_TOKENS), "ms": 0.0}
+        before = launch_counts()
+        vis = vision_outputs(runner, prep)
+        ref_vis = one.pop("vis", None)
+        flat = [vis[0], *vis[2]]
+        shared = ([t.contiguous() for t in [ref_vis[0], *ref_vis[2]]] if ref_vis is not None
+                  else [torch.empty_like(t) for t in flat])
+        with torch.inference_mode():
+            for t in shared:
+                dist.broadcast(t, 0)
+        shared_vis = (shared[0], vis[1], tuple(shared[1:]))
+        with fixed_vision(runner, shared_vis):
+            fixed = compressed_runs(runner, prep, TP_COMPRESSED_TOKENS)
+        return {"vis": vis, "ref_vis": shared_vis, "fixed": fixed,
+                "launches": launches_since(before),
+                "ms": sum(r["prefill_ms"] for r in fixed.values())}
+
+    def compare(got, ref):
+        rec = {"launches": got["launches"], "ms": got["ms"],
+               "vision": vision_distances(got["vis"], got["ref_vis"])}
+        bad = {k: v for k, v in rec["vision"].items() if not v <= TP_DECODE_LOGIT_RTOL}
+        if bad:
+            raise AssertionError(f"the ViT on the mesh disagrees with one process: {bad}")
+        rec["fixed_vision"] = compressed_distances(got["fixed"], ref["runs"], CROSS_LOGIT_RTOL,
+                                                   "TP")
+        print("tp compressors " + json.dumps(rec, default=str), flush=True)
+        return rec
+
+    return "compressed", run, compare
+
+
+def sp_compressed(cfg, model, prep, rank):
+    """The five compressors under SP on every rank beside the same ranks'
+    unsharded runs. The ViT's outputs under SP (its blocks on this rank's
+    windows, the importance scores summed over the ranks' queries) held
+    within phase 11's bound (0.1 of max |ref|) of the unsharded ones; the
+    compressors on the unsharded ViT outputs under SP (their LLM prefill
+    sharded where the compressed length divides, by JAX's per-call-site
+    rule: K9 must launch in one method at least) held to the unsharded
+    runs (``compressed_distances``: keep sets and kept counts equal, first
+    logits within 0.1); then end to end under SP, recorded; -> record."""
+    import torch.distributed as dist
+
+    from glimpseprune_torch.models.qwen2_5_vl.runner import GlimpsePruneRunner
+    from glimpseprune_torch.parallel import sequence_parallel, sp_split
+
+    runner = GlimpsePruneRunner(cfg, model)
+    ref_vis = vision_outputs(runner, prep)
+    ref = compressed_runs(runner, prep, COMPRESSED_NEW_TOKENS)
+    dist.barrier()
+    with sequence_parallel(dist.group.WORLD):
+        if sp_split(prep.patches.shape[0], model.visual.window_patches) is None:
+            raise AssertionError("the ViT of the compressors' batch does not shard under SP")
+        before = launch_counts()
+        vis = vision_outputs(runner, prep)
+        with fixed_vision(runner, ref_vis):
+            fixed = compressed_runs(runner, prep, COMPRESSED_NEW_TOKENS)
+        k9 = launches_since(before).get("flash_attention[causal+qpos]", 0)
+        runs = compressed_runs(runner, prep, COMPRESSED_NEW_TOKENS)
+    rec = {"rank": rank, "vision": vision_distances(vis, ref_vis), "k9_launches": k9,
+           "same_on_ranks": same_on_ranks(*[r["logits"] for r in runs.values()])}
+    bad = {k: v for k, v in rec["vision"].items() if not v <= 0.1}
+    if bad or not k9 or not rec["same_on_ranks"]:
+        raise AssertionError(f"SP's ViT or compressors disagree with one process: {rec}")
+    rec["fixed_vision"] = compressed_distances(fixed, ref, 0.1, "SP")
+    rec["end_to_end"] = end_to_end(runs, ref)
+    print("sp compressed " + json.dumps(rec, default=str), flush=True)
+    return rec
+
+
+def llava_inputs():
+    """LLaVA-1.5-7B's config (capped at LLAVA_REMAIN_RATIO, its decoder cut
+    to LLAVA_TEXT_LAYERS layers), CLIP config and phase 14's batch: (cfg,
+    cc, images, prompts, prep, the random stream that drew them, for the
+    phase's later draws)."""
+    from glimpseprune_torch.models.llava.gp_model import load_llava_config
+
+    cfg, cc = load_llava_config(str(ROOT / LLAVA_DIR), with_text_tower=True)
+    cfg = depth_cut(cfg.replace_gp(max_remain_ratio=LLAVA_REMAIN_RATIO), LLAVA_TEXT_LAYERS)
+    rng = np.random.default_rng(LLAVA_SEED)
+    images = [rng.integers(0, 256, (cc.image_size, cc.image_size, 3), dtype=np.uint8)
+              for _ in LLAVA_PROMPT_TEXT]
+    prompts = llava_prompts(cfg, rng)
+    return cfg, cc, images, prompts, llava_prep(cfg, cc, images, prompts), rng
 
 
 def grad_distances(got, ref, tag):
@@ -5018,17 +5614,10 @@ def run_llava_phase(gen, smi):
     {"serve", "train", "q8": launches})."""
     import torch
 
-    from glimpseprune_torch.models.llava.gp_model import load_llava_config
     from glimpseprune_torch.models.qwen2_5_vl.runner import GlimpsePruneRunner
 
     t0 = time.perf_counter()
-    cfg, cc = load_llava_config(str(ROOT / LLAVA_DIR), with_text_tower=True)
-    cfg = cfg.replace_gp(max_remain_ratio=LLAVA_REMAIN_RATIO)
-    rng = np.random.default_rng(LLAVA_SEED)
-    images = [rng.integers(0, 256, (cc.image_size, cc.image_size, 3), dtype=np.uint8)
-              for _ in LLAVA_PROMPT_TEXT]
-    prompts = llava_prompts(cfg, rng)
-    prep = llava_prep(cfg, cc, images, prompts)
+    cfg, cc, images, prompts, prep, rng = llava_inputs()
     # K2 at LLaVA's two new shapes: the decoder's MHA causal prefill (32 q
     # over 32 kv heads) and the fuser's Dqk != Dv over 576 tokens, one segment
     rows = flash_cases(llm_fuser_cases(cfg, prep, "llava_"), gen)
@@ -5075,6 +5664,15 @@ def run_llava_phase(gen, smi):
 
 # phase 15: the evaluation path through the port's command lines
 QWEN_DIR = "configs/model_qwen2_5_7b_gp"
+# decoder layers of the 7B in phase 9's tiers and phase 16's tools (of 28;
+# the reduce layer is 18): the depth cut that holds the script to its
+# budget of seconds
+QUANT_TEXT_LAYERS = 20
+TOOLS_TEXT_LAYERS = 20
+SP_TEXT_LAYERS = 20  # phase 11's bf16 7B, also (m)'s; its (q8) 7B keeps 28
+# LLaVA-1.5-7B's decoder layers in phases 14 and (m) (of 32; its reduce
+# layer is 21)
+LLAVA_TEXT_LAYERS = 24
 EVAL_DIR = "build/chip_smoke_eval"
 EVAL_SIZES = ((896, 672), (672, 504), (896, 672), (672, 504))  # (h, w) of the 4 images
 EVAL_NEW_TOKENS = 16
@@ -5506,7 +6104,7 @@ def check_demo_server(image):
     from glimpseprune_torch.tools import demo_server
     from glimpseprune_torch.utils.viz import apply_mask_on_image, decode_png
 
-    args = demo_server.parse_args(["--model-config", str(ROOT / QWEN_DIR), "--seed", "0",
+    args = demo_server.parse_args(["--model-config", cut_config_dir(), "--seed", "0",
                                    "--native-preproc", "--port", "0"])
     state = demo_server.DemoState(args)
     srv = demo_server.make_server(state, "127.0.0.1", 0)
@@ -5581,13 +6179,13 @@ def check_attn_maps(image_path: str, work: Path):
     from glimpseprune_torch.config import ModelConfig
     from glimpseprune_torch.tools import save_attn_maps
 
-    cfg = ModelConfig.load(str(ROOT / QWEN_DIR))
+    cfg = ModelConfig.load(cut_config_dir())
     out_dir = work / "attn_maps"
     t0 = time.perf_counter()
     out = save_attn_maps.main(["--image", image_path, "--question", "what is in the picture",
                                "--per-head", "--native-preproc", "--q-start",
                                str(-TOOLS_HARVEST_QUERIES), "--out-dir", str(out_dir),
-                               "--model-config", str(ROOT / QWEN_DIR), "--seed", "0"])
+                               "--model-config", cut_config_dir(), "--seed", "0"])
     secs = time.perf_counter() - t0
     layers = len(cfg.gp.selected_layers)
     n_fused = sum(f.startswith("fused_map_") for f in out["files"])
@@ -5676,7 +6274,7 @@ def run_tools_phase(cfg, outputs, smi):
     rec = {"native_prep": check_native_prep(cfg, img16k, img_small)}
     del img16k
     rec["fastinit"] = check_fastinit(cfg)
-    model = ["--model-config", str(ROOT / QWEN_DIR), "--seed", "0"]
+    model = ["--model-config", cut_config_dir(), "--seed", "0"]
     reset_launches()
 
     def tool(name, fn, argv):
@@ -5838,13 +6436,17 @@ def main() -> int:
         vit_m=prep_a.patches.shape[0])
     k7_rows, k7_report = check_flash_int8(cfg, prep_a, prep_b, gen)
     quant_kernels += k7_rows
-    lap("8 K4-K7")
+    # K4 and K6 on phase (m)'s shards: column shards and repacked row shards
+    tp_int4_rows, tp_int4_report = check_int4_tp_shards(
+        cfg, gen, decode_m=prep_a.input_ids.shape[0], prefill_m=int(prep_a.valid.size))
+    lap("8 K4-K7, (m) K4/K6 shards")
     # phase 9: the quantized serving path
     t_quant = time.perf_counter()
     quant_runs, quant_launches, small_quant = [], {}, {}
     for tier in QUANT_TIERS:
         tier_runs, quant_launches[tier], decode_checks[tier], cont, lora = run_quant_tier(
-            cfg, tier, [("a", prep_a), ("b", prep_b)], rows_a, rows_u, smi)
+            depth_cut(cfg, QUANT_TEXT_LAYERS), tier, [("a", prep_a), ("b", prep_b)], rows_a,
+            rows_u, smi)
         if cont is not None:
             continuous[tier] = cont
         if lora is not None:
@@ -5895,6 +6497,11 @@ def main() -> int:
         if not k["launches"]:
             k["note"] = next(v for p, v in off_path.items() if k["name"].startswith(p))
     kernels += quant_kernels
+    for k in tp_int4_rows:  # launches on phase (m)'s (q4) mesh, summed over the ranks
+        k["launches"] = sum(r["tp_launches"].get(k["name"], 0) for r in sp_ranks)
+        if not k["launches"]:
+            raise AssertionError(f"the (q4) mesh never launched {k['name']}")
+    kernels += tp_int4_rows
     kernels += k9_rows
     llava_names = {k["name"] for k in llava_rows}
     for k in kernels:  # phase 12's timed serves' launches, bf16 and (q4)
@@ -5934,9 +6541,12 @@ def main() -> int:
                 f"{run.get('single_captured_ms_per_token', float('nan')):.2f}), peak "
                 f"{run['peak_mem_gib']:.2f} GiB" for run in tp[tier]["runs"])
             + ", gloo " + json.dumps({k: round(v, 3) for k, v in tp[tier]["gloo_ms"].items()})
-            for tier in ("bf16", "q8"))
-            + f"; TP loss+grad {tp['bf16']['train']['loss_and_grad_ms']:.1f} ms; phase "
-            f"{tp['phase_s']:.1f} s")
+            for tier in ("bf16", "q8", "q4", "llava"))
+            + f"; TP loss+grad {tp['bf16']['train']['loss_and_grad_ms']:.1f} ms; TP GRPO step "
+            f"{tp['bf16']['grpo']['ms']:.1f} ms; TP compressors' prefills "
+            f"{tp['bf16']['compressed'].get('ms', float('nan')):.1f} ms; phase "
+            f"{tp['phase_s']:.1f} s " + json.dumps({k: round(v, 1)
+                                                     for k, v in tp['tier_s'].items()}))
     g = glimpse_plus["grpo"]
     print(f"GlimpsePrune+ on {smi}: " + ", ".join(
         f"step {st['step']} {st['ms']:.1f} ms, peak {st['peak_mem_gib']:.2f} GiB, K2-lse causal "
@@ -5995,6 +6605,7 @@ def main() -> int:
                       "tiny_compressed_err": small_compressed,
                       "compressed_path_s": compressed_s,
                       "k9_shards": k9_report, "sp_path_s": sp_s, "sp_launches": sp_launches,
+                      "tp_int4_shards": tp_int4_report,
                       "sp_ranks": sp_ranks, "k1_tp_heads": k1_tp_heads,
                       "continuous_serving": continuous,
                       "continuous_bf16_s": continuous_s, "glimpse_plus": glimpse_plus,

@@ -80,8 +80,13 @@
 // 64 x 64 where the wide tile gives under two blocks per SM (the k/v
 // projection's N = 512). The int32 sums are exact and the epilogue is the
 // plain version's two fp32 multiplies, so K6 equals its plain version bit
-// for bit. wgmma, TMA and dequantizing in registers inside the GEMM (no
-// W8^T round trip) are later work.
+// for bit. On a row-parallel shard (parallel/mesh.py) both scales belong to
+// the whole contraction: the caller all-reduces the rows' amax and the
+// columns' largest group scale, the prep takes the row scales and s8 as
+// given, and the GEMM writes its int32 sums with no epilogue, to be
+// all-reduced and rescaled by the caller, as one process's would be.
+// wgmma, TMA and dequantizing in registers inside the GEMM (no W8^T round
+// trip) are later work.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -139,7 +144,8 @@ struct Args {
   const __nv_bfloat16* x;  // [M, K]
   const int8_t* w;         // [K/2, N] packed int4
   const float* s;          // [K/64, N] group scales, lo groups first
-  __nv_bfloat16* out;      // [M, N]
+  __nv_bfloat16* out;      // [M, N], or null when `sums` is given
+  float* sums;             // [M, N] fp32 sums, not rounded, or null
   int m, k, n, per;        // per: packed groups of one K split
 };
 
@@ -359,8 +365,11 @@ __global__ void __launch_bounds__(32 * WM * WN) decode_kernel(Args a) {
         v.x += part[q].x;
         v.y += part[q].y;
       }
-    *reinterpret_cast<__nv_bfloat162*>(a.out + (long)(off / BN) * a.n + n0 + off % BN) =
-        __floats2bfloat162_rn(v.x, v.y);
+    const long o = (long)(off / BN) * a.n + n0 + off % BN;
+    if (a.sums != nullptr)
+      *reinterpret_cast<float2*>(a.sums + o) = v;
+    else
+      *reinterpret_cast<__nv_bfloat162*>(a.out + o) = __floats2bfloat162_rn(v.x, v.y);
   }
   cluster.sync();  // no block leaves while another reads its shared memory
 }
@@ -416,6 +425,7 @@ struct PrepArgs {
   int8_t* w8t;             // [N, K]
   float* s8;               // [N]
   int m, k, n, g, row_blocks, col_slices, tiles_per_block;
+  int given;               // 1: xs and s8 are the caller's (read, not computed)
 };
 
 // x rows -> int8 as ops/kv_cache.quantize_kv computes them on the card: the
@@ -428,18 +438,23 @@ __device__ __forceinline__ void prep_rows(const PrepArgs& a) {
   const int row = blockIdx.x * kPrepRows + warp;
   if (row >= a.m) return;
   const __nv_bfloat16* xr = a.x + (long)row * a.k;
-  float amax = 0.f;
+  float scale;
+  if (a.given) {
+    scale = a.xs[row];
+  } else {
+    float amax = 0.f;
 #pragma unroll 4
-  for (int c = lane * 8; c < a.k; c += 256) {
-    const uint4 v = *reinterpret_cast<const uint4*>(xr + c);
-    const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&v);
+    for (int c = lane * 8; c < a.k; c += 256) {
+      const uint4 v = *reinterpret_cast<const uint4*>(xr + c);
+      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&v);
 #pragma unroll
-    for (int i = 0; i < 8; ++i) amax = fmaxf(amax, fabsf(__bfloat162float(e[i])));
+      for (int i = 0; i < 8; ++i) amax = fmaxf(amax, fabsf(__bfloat162float(e[i])));
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+    scale = __fmul_rn(fmaxf(amax, 1e-8f), 1.0f / 127.0f);
+    if (lane == 0) a.xs[row] = scale;
   }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
-  const float scale = __fmul_rn(fmaxf(amax, 1e-8f), 1.0f / 127.0f);
-  if (lane == 0) a.xs[row] = scale;
   int8_t* qr = a.xq + (long)row * a.k;
 #pragma unroll 4
   for (int c = lane * 8; c < a.k; c += 256) {
@@ -475,21 +490,24 @@ __device__ __forceinline__ void prep_cols(const PrepArgs& a) {
   const int n0 = slice * kPrepCols;
   const int groups = a.k / a.g, kh = a.k / 2;
 
-  {  // s8 of the slice's columns: four partial maxima per column
+  if (a.given) {  // s8 of the whole contraction, the caller's
+    if (tid < kPrepCols) s8s[tid] = a.s8[n0 + tid];
+  } else {  // s8 of the slice's columns: four partial maxima per column
     const int c = tid % kPrepCols;
     float mx = __int_as_float(0xff800000);  // -inf
     for (int gi = tid / kPrepCols; gi < groups; gi += kPrepThreads / kPrepCols)
       mx = fmaxf(mx, a.s[(long)gi * a.n + n0 + c]);
     part[tid] = mx;
-  }
-  __syncthreads();
-  if (tid < kPrepCols) {
-    float mx = part[tid];
+    __syncthreads();
+    if (tid < kPrepCols) {
+      mx = part[tid];
 #pragma unroll
-    for (int p = 1; p < kPrepThreads / kPrepCols; ++p) mx = fmaxf(mx, part[p * kPrepCols + tid]);
-    const float s8 = __fmul_rn(fmaxf(mx, 1e-12f), (float)(7.0 / 127.0));
-    s8s[tid] = s8;
-    if (split == 0) a.s8[n0 + tid] = s8;
+      for (int p = 1; p < kPrepThreads / kPrepCols; ++p)
+        mx = fmaxf(mx, part[p * kPrepCols + tid]);
+      const float s8 = __fmul_rn(fmaxf(mx, 1e-12f), (float)(7.0 / 127.0));
+      s8s[tid] = s8;
+      if (split == 0) a.s8[n0 + tid] = s8;
+    }
   }
 
   const int tiles = kh / kPrepTile;
@@ -540,7 +558,8 @@ struct GemmArgs {
   const float* xs;     // [M]
   const int8_t* w8t;   // [N, K]
   const float* s8;     // [N]
-  __nv_bfloat16* out;  // [M, N]
+  __nv_bfloat16* out;  // [M, N], or null when `sums` is given
+  int* sums;           // [M, N] int32 sums with no epilogue, or null
   int m, k, n;
 };
 
@@ -637,7 +656,8 @@ __global__ void __launch_bounds__(32 * WM * WN, WM * WN == 8 ? 2 : 4) gemm_kerne
   gp_tc::cp_async_wait<0>();
 
   // out = (float)acc * xs[row] * s8[col], two fp32 multiplies in the plain
-  // version's order (JAX :247-248), rounded to bf16
+  // version's order (JAX :247-248), rounded to bf16; or, for a row-parallel
+  // shard whose sums are all-reduced before the rescale, the int32 sums
   const int grp = lane >> 2, tig = lane & 3;
 #pragma unroll
   for (int i = 0; i < MT; ++i)
@@ -645,6 +665,15 @@ __global__ void __launch_bounds__(32 * WM * WN, WM * WN == 8 ? 2 : 4) gemm_kerne
     for (int h = 0; h < 2; ++h) {
       const int row = m0 + wm + 16 * i + grp + 8 * h;
       if (row >= a.m) continue;
+      if (a.sums != nullptr) {
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          const int col = n0 + wn + 8 * j + 2 * tig;
+          *reinterpret_cast<int2*>(a.sums + (long)row * a.n + col) =
+              make_int2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+        }
+        continue;
+      }
       const float xs = a.xs[row];
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
@@ -882,20 +911,23 @@ int launch_gemm(const GemmArgs& a, int smem, int grid_m, int grid_n, cudaStream_
 // K4 on `stream`, one launch. p holds the ints of the host plan
 // (ops/cuda/int4_matmul.py `plan_int4_decode`): m, k, n, the tile's index in
 // GP_K4_TILES, its shared-memory bytes, the K split (the cluster's size),
-// packed groups per split and the grid. A plan that disagrees with this
+// packed groups per split and the grid; then f32: 0 writes out in bf16, 1
+// writes the fp32 sums unrounded (a row-parallel shard's partial sums,
+// which meet in an fp32 all-reduce and are rounded once, as one process's). A plan that disagrees with this
 // file's own formulas, or a pointer off 16 bytes, is refused.
 extern "C" int int4_decode_bf16(const void* x, const void* w, const void* s, void* out,
                                 const int* p, void* stream) {
   const int m = p[0], k = p[1], n = p[2], tile = p[3], smem = p[4], ksplit = p[5];
-  const int per = p[6], grid = p[7];
+  const int per = p[6], grid = p[7], f32 = p[8];
   const int groups = k / 2 / k4::kGroupRows;
   if (m <= 0 || k <= 0 || k % (2 * k4::kGroupRows) != 0 || n <= 0 || ksplit < 1 ||
       ksplit > k4::kMaxCluster || per <= 0 || (long)ksplit * per < groups ||
-      (long)(ksplit - 1) * per >= groups ||
+      (long)(ksplit - 1) * per >= groups || (f32 != 0 && f32 != 1) ||
       (((uintptr_t)x | (uintptr_t)w | (uintptr_t)s | (uintptr_t)out) & 15) != 0)
     return (int)cudaErrorInvalidValue;
   const k4::Args a{(const __nv_bfloat16*)x, (const int8_t*)w, (const float*)s,
-                   (__nv_bfloat16*)out, m, k, n, per};
+                   f32 ? nullptr : (__nv_bfloat16*)out, f32 ? (float*)out : nullptr, m, k, n,
+                   per};
   switch (tile) {
 #define GP_K4_CASE(I, SL, WM, WN, TW) \
   case I:                             \
@@ -909,26 +941,33 @@ extern "C" int int4_decode_bf16(const void* x, const void* w, const void* s, voi
 // K6: the prep pass, then the GEMM, on `stream`. p holds the ints of the
 // host plan (ops/cuda/int4_matmul.py `plan_int4_a8`): m, k, n, g, the tile's
 // index in GP_A8_TILES, its shared-memory bytes, the grid's M and N tiles,
-// the prep's row blocks, K splits and tiles per split. A plan that
-// disagrees with this file's own formulas is refused.
+// the prep's row blocks, K splits and tiles per split; then `given`. With
+// given = 0 the prep computes x's row scales into xs and s8 from the
+// weights' own groups, and out is bf16 [M, N]. With given = 1 (a row-parallel
+// shard, whose row scales and s8 come from the whole contraction) the prep
+// reads xs and s8, and out is the GEMM's int32 sums [M, N], not rescaled. A
+// plan that disagrees with this file's own formulas is refused.
 extern "C" int int4_a8_bf16(const void* x, const void* w, const void* s, void* xq, void* xs,
                             void* w8t, void* s8, void* out, const int* p, void* stream) {
   const int m = p[0], k = p[1], n = p[2], g = p[3], tile = p[4], smem = p[5];
   const int grid_m = p[6], grid_n = p[7], row_blocks = p[8], ksplit = p[9], per = p[10];
+  const int given = p[11];
   const int tiles = k / 2 / k6::kPrepTile;
   if (m <= 0 || g <= 0 || g % k6::kPrepTile != 0 || k % (2 * g) != 0 ||
       n % k6::kPrepCols != 0 || row_blocks != (m + k6::kPrepRows - 1) / k6::kPrepRows ||
-      ksplit <= 0 || per <= 0 || (long)ksplit * per < tiles || (long)(ksplit - 1) * per >= tiles)
+      ksplit <= 0 || per <= 0 || (long)ksplit * per < tiles || (long)(ksplit - 1) * per >= tiles ||
+      (given != 0 && given != 1))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   k6::PrepArgs pa{(const __nv_bfloat16*)x, (const int8_t*)w, (const float*)s, (int8_t*)xq,
                   (float*)xs, (int8_t*)w8t, (float*)s8, m, k, n, g, row_blocks,
-                  n / k6::kPrepCols, per};
+                  n / k6::kPrepCols, per, given};
   k6::prep_kernel<<<row_blocks + pa.col_slices * ksplit, k6::kPrepThreads, 0, st>>>(pa);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const k6::GemmArgs ga{(const int8_t*)xq, (const float*)xs, (const int8_t*)w8t,
-                        (const float*)s8, (__nv_bfloat16*)out, m, k, n};
+                        (const float*)s8, given ? nullptr : (__nv_bfloat16*)out,
+                        given ? (int*)out : nullptr, m, k, n};
   switch (tile) {
 #define GP_A8_CASE(I, BM, BN, WM, WN, BK, STAGES) \
   case I:                                         \

@@ -21,7 +21,13 @@ QuantLinear's slice of the weights and sets its ``tp`` (the model axis'
 group and this rank's place on it) and ``tp_mode``: "column" (the output
 columns are this rank's; the input is replicated) or "row" (the
 contraction rows are; the partial sums are all-reduced, then the bias is
-added once).
+added once). An adapter on a sharded layer is cut with it: a column
+layer holds the whole ``lora_a`` and its columns of ``lora_b``, a row
+layer its rows of ``lora_a`` and the whole ``lora_b``, whose term joins
+the partial sums before their all-reduce. The whole piece is replicated,
+so its gradient is summed over the model axis (``copy_to_model``), as
+GSPMD does for a replicated leaf; every rank's AdamW step then moves it
+alike.
 """
 
 from __future__ import annotations
@@ -57,9 +63,22 @@ class _Adapted:
 
     tp = None        # the model axis (parallel.SeqShard) of a sharded layer
     tp_mode = None   # "column" or "row" where sharded
+    tp_heads = None  # the head count of a column cut per (3, heads / tp, D)
 
     def _tp_input(self, x: torch.Tensor) -> torch.Tensor:
         return copy_to_model(x, self.tp) if self.tp_mode == "column" else x
+
+    def _finish(self, y: torch.Tensor, x: torch.Tensor, bias: Optional[torch.Tensor],
+                reduced: bool = False) -> torch.Tensor:
+        """y, the base product (on a row-parallel layer this rank's partial
+        sums, unless ``reduced``, whose adapter term has then joined them
+        already) -> the layer's output: + the adapter's term, the all-reduce
+        of a row layer's partial sums, + the bias."""
+        if self.lora_active() and not reduced:
+            y = y + self._lora(x)
+        if self.tp_mode == "row" and not reduced:
+            y = reduce_from_model(y, self.tp)
+        return y if bias is None else y + bias
 
     def _init_lora(self) -> None:
         self.register_parameter("lora_a", None)
@@ -70,7 +89,12 @@ class _Adapted:
         return self.lora_a is not None and not self.lora_off
 
     def _lora(self, x: torch.Tensor) -> torch.Tensor:
-        return (x @ self.lora_a.to(x.dtype)) @ self.lora_b.to(x.dtype)
+        a, b = self.lora_a, self.lora_b
+        if self.tp_mode == "column":
+            a = copy_to_model(a, self.tp)
+        elif self.tp_mode == "row":
+            b = copy_to_model(b, self.tp)
+        return (x @ a.to(x.dtype)) @ b.to(x.dtype)
 
     def _keep_lora_fp32(self) -> None:
         for name in ("lora_a", "lora_b"):
@@ -99,13 +123,9 @@ class Linear(_Adapted, nn.Linear):
         the JAX ``_dense``."""
         x = self._tp_input(x)
         bias = None if self.bias is None else self.bias.to(x.dtype)
-        if self.tp_mode == "row":
-            y = reduce_from_model(F.linear(x, self.weight.to(x.dtype)), self.tp)
-            return y if bias is None else y + bias
-        if not self.lora_active():
+        if self.tp_mode != "row" and not self.lora_active():
             return F.linear(x, self.weight.to(x.dtype), bias)
-        y = F.linear(x, self.weight.to(x.dtype)) + self._lora(x)
-        return y if bias is None else y + bias
+        return self._finish(F.linear(x, self.weight.to(x.dtype)), x, bias)
 
 
 class QuantLinear(_Adapted, nn.Module):
@@ -185,21 +205,21 @@ class QuantLinear(_Adapted, nn.Module):
         x = self._tp_input(x)
         adapted = self.lora_active()
         a8 = a8 and not adapted
-        if self.mode == "int4":
-            y = matmul_int4_auto(x, self.kernel_q4, self.kernel_scale4, dtype, a8)
-        elif self.tp_mode == "row" and a8:  # the sums are reduced inside
+        row = self.tp_mode == "row"
+        bias = None if self.bias is None else self.bias.to(dtype)
+        if self.mode == "int4":  # a row shard's sums are reduced inside
+            add = self._lora(x) if adapted and row else None
+            y = matmul_int4_auto(x, self.kernel_q4, self.kernel_scale4, dtype, a8, self.tp,
+                                 self.tp_mode, add)
+            return self._finish(y, x, bias, reduced=row)
+        if row and a8:  # the sums are reduced inside
             y = matmul_w8a8(x, self.kernel_q, self.kernel_scale, dtype, self.tp)
-        elif a8:
+            return self._finish(y, x, bias, reduced=True)
+        if a8:
             y = matmul_w8a8(x, self.kernel_q, self.kernel_scale, dtype)
         else:
             y = x @ (self.kernel_q.to(dtype) * self.kernel_scale.to(dtype))
-            if self.tp_mode == "row":
-                y = reduce_from_model(y, self.tp)
-        if adapted:
-            y = y + self._lora(x)
-        if self.bias is not None:
-            y = y + self.bias.to(dtype)
-        return y
+        return self._finish(y, x, bias)
 
 
 class RMSNorm(nn.Module):
@@ -260,12 +280,8 @@ def adapted_modules(module: nn.Module) -> Iterator[Tuple[str, "_Adapted"]]:
 def attach_lora(modules: Iterable["_Adapted"], rank: int) -> None:
     """Give each Linear or QuantLinear of ``modules`` zero fp32 adapters of
     ``rank``, frozen, on the module's device (the JAX init's slots: zeros,
-    adapters off). A layer sharded by ``shard_params`` is refused: its
-    row-parallel forward has no adapter term."""
-    modules = list(modules)
-    if any(lin.tp is not None for lin in modules):
-        raise ValueError("attach_lora: LoRA adapters on a tensor-parallel layer are not "
-                         "supported yet (ROADMAP.md queue 1, 'LoRA under TP')")
+    adapters off). On a layer sharded by ``shard_params`` they take its
+    local shape: ``lora_a`` [local in, r], ``lora_b`` [r, local out]."""
     for lin in modules:
         dev = next(iter([*lin.parameters(), *lin.buffers()])).device
         lin.lora_a = nn.Parameter(torch.zeros(lin.in_features, rank, device=dev),

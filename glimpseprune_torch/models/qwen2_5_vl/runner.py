@@ -50,8 +50,13 @@ shard the sequence where it divides, and the keep policy, compaction and
 decode run replicated on the gathered state, so every rank returns the
 same result. The setting is read at each call, not when the runner is
 built (the JAX runner binds it at trace time and warns when it changes,
-:448-452, :872-881). The compressors do not run under SP yet: their entry
-points raise.
+:448-452, :872-881). The compressors run under SP too: visionzip,
+divprune, cdpruner and vscan select on the replicated merged embeddings
+(the ViT's importance scores sharded as vision.py says) and prefill the
+compressed sequence through the SP layer stack, each call site sharded
+where its length divides; pdrop's stages harvest the last text query's
+row from the rank that holds it (language.run_layers) and the shortened
+sequence is split again, or runs unsharded, at its next call.
 
 Tensor parallelism (parallel/mesh.py): on a model sharded by
 ``shard_params`` every rank of the model axis calls ``generate`` with the
@@ -108,7 +113,6 @@ from glimpseprune_torch.ops.kv_cache import (
     is_quantized,
     quantize_kv,
 )
-from glimpseprune_torch.parallel.sequence import get_sequence_parallel
 from glimpseprune_torch.utils.profiling import debug_calls, time_logger
 
 DECODE_CHUNK = 32  # default decode steps between host-side eos / stop-sequence checks
@@ -522,9 +526,6 @@ class GlimpsePruneRunner:
         compressors run without them."""
         if method not in COMPRESSION_METHODS:
             raise ValueError(f"unknown compressor {method!r}; one of {COMPRESSION_METHODS}")
-        if get_sequence_parallel() is not None:
-            raise ValueError("the compressors are not sequence-parallel: call "
-                             "generate_compressed / prefill_compressed outside sequence_parallel")
         cfg = self.cfg
         inputs = self._device_inputs(prep)
         relevance = None

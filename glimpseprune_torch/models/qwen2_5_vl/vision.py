@@ -28,13 +28,18 @@ are split, windowed blocks attend within the local windows with no
 collective, full-attention blocks attend with local queries over the
 gathered keys, and the taps (merge-unit means, which never straddle a
 window) and the stack's output are gathered before the merger, which runs
-replicated. ``emit_importance`` is not sharded: it raises under SP.
+replicated. ``emit_importance`` runs sharded too: an importance block's
+queries are this rank's rows over the gathered keys, so the attention
+each key receives is a sum over this rank's queries, all-reduced over the
+SP group, and the keys' head means, per row, are pooled per merge unit and
+gathered with the rows.
 
 Under tensor parallelism (parallel/mesh.py ``shard_params``) each block's
 qkv holds this rank's heads, per (3, heads / tp, D) of its [3, heads, D]
 output, the attention runs on them, and proj and the MLP's down
 all-reduce their partial sums (models/layers.py); the merger is whole.
-``emit_importance`` needs every head's scores: it raises under TP.
+``emit_importance``'s head means are sums over this rank's heads,
+all-reduced over the model axis and divided by the whole head count.
 """
 
 from __future__ import annotations
@@ -54,7 +59,7 @@ from glimpseprune_torch.ops.attention import (
     segment_attention,
 )
 from glimpseprune_torch.ops.rope import apply_rotary, vision_rope_cos_sin
-from glimpseprune_torch.parallel.sequence import SeqShard, gather_seq, sp_split
+from glimpseprune_torch.parallel.sequence import SeqShard, all_reduce_sum, gather_seq, sp_split
 
 
 class VisionAttention(nn.Module):
@@ -74,11 +79,15 @@ class VisionBlock(nn.Module):
         self.mlp = GatedMLP(cfg.hidden_size, cfg.intermediate_size, cfg.hidden_act, bias=True)
 
     def forward(self, x, cos, sin, segment_ids, valid, wp: int, dense_attn: bool = False,
-                emit_importance: bool = False, sp: Optional[SeqShard] = None):
+                emit_importance: bool = False, sp: Optional[SeqShard] = None,
+                tp: Optional[SeqShard] = None):
         """wp > 0 selects the window path; otherwise full attention over
         segment_ids (dense_attn: one unpadded image, no mask). With
         emit_importance returns (x, (received [P], keys_mean [P, D])).
-        Under ``sp`` the inputs are this rank's shard of whole windows."""
+        Under ``sp`` the inputs are this rank's shard of whole windows
+        (received stays whole, keys_mean is this rank's rows); under ``tp``
+        (the model axis, where the heads are sharded) qkv holds this rank's
+        heads."""
         c = self.cfg
         p = x.shape[0]
         a8 = c.act_quant in ("int8", "prefill")
@@ -99,26 +108,58 @@ class VisionBlock(nn.Module):
         x = x + self.attn.proj(attn.reshape(p, -1), a8)
         x = x + self.mlp(self.norm2(x), a8)
         if emit_importance:
-            return x, (received_attention(q, k, segment_ids), k.float().mean(1))
+            return x, importance_scores(q, k, segment_ids, c.num_heads, sp, tp)
         return x
 
 
-def received_attention(q: torch.Tensor, k: torch.Tensor,
-                       segment_ids: torch.Tensor) -> torch.Tensor:
+def importance_scores(q: torch.Tensor, k: torch.Tensor, segment_ids: torch.Tensor,
+                      heads: int, sp: Optional[SeqShard] = None,
+                      tp: Optional[SeqShard] = None):
+    """(received [P] over every key, keys' head mean [rows, D]) of an
+    importance block from this rank's q and k rows and heads: under ``sp``
+    the keys and their segments are gathered and each rank sums over its
+    queries, then the sums are all-reduced over the SP group; under ``tp``
+    each rank sums over its heads, all-reduced over the model axis, divided
+    by the whole ``heads``."""
+    if sp is None and tp is None:
+        return received_attention(q, k, segment_ids), k.float().mean(1)
+    k_all, seg_all = k, segment_ids
+    if sp is not None:
+        k_all, seg_all = gather_seq(k, 0, sp), gather_seq(segment_ids, 0, sp)
+    received = received_attention(q, k_all, segment_ids, seg_all,
+                                  0 if sp is None else sp.rank * q.shape[0], heads)
+    keys = k.float().mean(1)
+    if sp is not None:
+        received = all_reduce_sum(received, sp.group)
+    if tp is not None:
+        received = all_reduce_sum(received, tp.group)
+        keys = all_reduce_sum(k.float().sum(1), tp.group) / heads
+    return received, keys
+
+
+def received_attention(q: torch.Tensor, k: torch.Tensor, segment_ids: torch.Tensor,
+                       kv_segment_ids: Optional[torch.Tensor] = None, q_offset: int = 0,
+                       heads: Optional[int] = None) -> torch.Tensor:
     """Attention each key receives (JAX vision.py:117-127): the softmax of
     q k^T / sqrt(D) over the keys of the query's segment (a pad query
     attends to itself), meaned over heads and summed over queries -> [P]
-    fp32. q/k [P, H, D] with rope applied; one head at a time."""
-    p, h, d = q.shape
-    eye = torch.eye(p, dtype=torch.bool, device=q.device)
-    allowed = ((segment_ids[:, None] == segment_ids[None, :])
-               & (segment_ids >= 0)[:, None]) | eye
+    fp32. q [Pq, H, D] / k [P, H, D] with rope applied; one head at a time.
+    A shard's part: its queries are rows [q_offset, q_offset + Pq) of the
+    keys' sequence (``kv_segment_ids``, default ``segment_ids``), and the
+    sum over its H heads is divided by ``heads`` (default H), the whole
+    head count where the heads are sharded."""
+    pq, h, d = q.shape
+    p = k.shape[0]
+    kv_seg = segment_ids if kv_segment_ids is None else kv_segment_ids
+    keys = torch.arange(p, device=q.device)
+    eye = keys[None, :] == (q_offset + torch.arange(pq, device=q.device))[:, None]
+    allowed = ((segment_ids[:, None] == kv_seg[None, :]) & (segment_ids >= 0)[:, None]) | eye
     received = torch.zeros((p,), dtype=torch.float32, device=q.device)
     for head in range(h):
         logits = (q[:, head].float() @ k[:, head].float().T) * (1.0 / d ** 0.5)
         probs = torch.softmax(logits.masked_fill(~allowed, NEG_INF), dim=-1)
         received += probs.sum(0)
-    return received / h
+    return received / (h if heads is None else heads)
 
 
 class VisionTransformer(nn.Module):
@@ -156,13 +197,8 @@ class VisionTransformer(nn.Module):
         c = self.cfg
         mu = c.spatial_merge_unit
         dtype = self.patch_embed.weight.dtype
-        if emit_importance and self.attn_tp is not None:
-            raise ValueError("emit_importance is not tensor-parallel: run it on an unsharded "
-                             "model")
         sp = sp_split(patches.shape[0], self.window_patches)
         if sp is not None:
-            if emit_importance:
-                raise ValueError("emit_importance is not sequence-parallel: run it without SP")
             rows = sp.slice(patches.shape[0])
             patches, pos_ids, full_seg, valid = (patches[rows], pos_ids[rows], full_seg[rows],
                                                  valid[rows])
@@ -176,14 +212,16 @@ class VisionTransformer(nn.Module):
         for i, block in enumerate(self.blocks):
             want_imp = emit_importance and i in (first_fullatt, c.depth - 1)
             out = block(x, cos, sin, full_seg, valid, 0 if i in fullatt else self.window_patches,
-                        dense_attn=dense_attn, emit_importance=want_imp, sp=sp)
+                        dense_attn=dense_attn, emit_importance=want_imp, sp=sp,
+                        tp=self.attn_tp)
             if want_imp:
                 x, (received, keys_mean) = out
                 pooled = received.reshape(-1, mu).mean(1)
                 if i == first_fullatt:
                     received_local = pooled
                 if i == c.depth - 1:
-                    importance = (pooled, keys_mean.reshape(-1, mu, keys_mean.shape[-1]).mean(1),
+                    keys = keys_mean.reshape(-1, mu, keys_mean.shape[-1]).mean(1)
+                    importance = (pooled, keys if sp is None else gather_seq(keys, 0, sp),
                                   pooled if received_local is None else received_local)
             else:
                 x = out

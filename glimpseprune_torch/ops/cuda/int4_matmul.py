@@ -39,6 +39,14 @@ formulas. ``int4_a8_prep_reference`` and ``int8_gemm_tn_reference`` are
 the plain versions of the two stages; composed, they equal
 ``int4_prefill_a8_reference`` bit for bit, and so does the card.
 
+A tensor-parallel shard (parallel/mesh.py, quantization.matmul_int4_auto)
+takes the whole layer's route: a column shard of K4 plans for the whole
+layer's N (``n_whole``), so its columns sum their groups as the unsharded
+layer's do; a row shard of K4 writes its fp32 sums unrounded (``f32``);
+a row shard of K6 is given the row scales and s8 of the whole
+contraction and leaves its int32 sums to the caller's all-reduce and
+``a8_rescale`` (``matmul_int4_a8_sums``).
+
 Weights: packed int8 [K/2, N] (row r in the low nibble, row r + K/2 in the
 high nibble) and f32 group scales [K/g, N]. Dispatch is by device: a CPU
 tensor takes the plain PyTorch version beside each kernel, a CUDA tensor
@@ -221,33 +229,43 @@ def k4_tile(m: int, k: int, n: int) -> int:
 
 
 @functools.lru_cache(maxsize=1024)
-def plan_int4_decode(m: int, k: int, n: int) -> DecodePlan:
+def plan_int4_decode(m: int, k: int, n: int, n_whole: Optional[int] = None,
+                     f32: bool = False) -> DecodePlan:
     """K4's plan for x [m, k] @ W [k, n], or ValueError for a shape the
     kernel refuses: the tile from ``k4_tile``, K split in whole packed
-    groups over the blocks of one cluster, and the grid."""
+    groups over the blocks of one cluster, and the grid. ``n_whole``, a
+    column-parallel shard's whole layer's N, picks the tile and the split
+    (so its columns sum their groups as the whole layer's do); the grid
+    covers the shard's n. ``f32``: the kernel writes its fp32 sums
+    unrounded (a row-parallel shard's partial sums)."""
     if not (0 < m <= _M_MAX and k > 0 and k % (2 * K4_GROUP_ROWS) == 0 and n > 0):
         raise ValueError(f"matmul_int4: K4 takes no shape M={m} K={k} N={n}")
-    tile = k4_tile(m, k, n)
+    nw = n if n_whole is None else n_whole
+    tile = k4_tile(m, k, nw)
     bn, mpad = k4_block(tile)
-    if n % bn:
+    if n % bn or nw % bn:
         raise ValueError(f"matmul_int4: K4's {bn}-column tile does not divide N={n}")
     groups = k // 2 // K4_GROUP_ROWS
-    ksplit, per = k4_split_groups(groups, min(K4_MAX_CLUSTER, -(-K4_SPLIT_BLOCKS // (n // bn))))
+    ksplit, per = k4_split_groups(groups, min(K4_MAX_CLUSTER, -(-K4_SPLIT_BLOCKS // (nw // bn))))
     _, wm, wn, _ = K4_TILES[tile]
     smem, grid = k4_smem_bytes(tile), n // bn * ksplit
-    args = array.array("i", (m, k, n, tile, smem, ksplit, per, grid))
+    args = array.array("i", (m, k, n, tile, smem, ksplit, per, grid, int(f32)))
     return DecodePlan(tile, bn, mpad, wm * wn, K4_STAGES, ksplit, per, smem, grid, args,
                       args.buffer_info()[0], launch_key(k, n))
 
 
-def int4_decode(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+def int4_decode(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
+                n_whole: Optional[int] = None, f32: bool = False) -> torch.Tensor:
     """K4's launch on the card, counted, for callers that have checked
     ``kernel_applicable`` and hold bf16 x (16-byte aligned), int8 packed
     weights and f32 scales, contiguous, on one card: one plan lookup, the
-    output, one ctypes call on the current stream, no host sync."""
+    output, one ctypes call on the current stream, no host sync.
+    ``n_whole`` and ``f32`` (an fp32 output, not rounded): as
+    ``plan_int4_decode``'s."""
     k, n = x.shape[-1], packed.shape[1]
-    plan = plan_int4_decode(x.numel() // k, k, n)
-    out = torch.empty(x.shape[:-1] + (n,), dtype=torch.bfloat16, device=x.device)
+    plan = plan_int4_decode(x.numel() // k, k, n, n_whole, f32)
+    out = torch.empty(x.shape[:-1] + (n,), dtype=torch.float32 if f32 else torch.bfloat16,
+                      device=x.device)
     fn = kernel_function("int4_matmul", "int4_decode_bf16", _K4_ARGTYPES)
     rc = fn(x.data_ptr(), packed.data_ptr(), scales.data_ptr(), out.data_ptr(),
             plan.args_ptr, current_stream(x.device))
@@ -257,23 +275,35 @@ def int4_decode(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor) -> 
 
 
 def matmul_int4(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
-                out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+                out_dtype: torch.dtype = torch.bfloat16,
+                whole: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """K4: x [..., K] @ int4 [K/2, N] (+ scales [K/g, N]) -> [..., N] for
     M <= 128 rows (M = the product of x's leading dims). The caller checks
     ``kernel_applicable``; this function raises where it does not hold. On
-    the card: one launch (``int4_decode``), bf16 x and out only."""
+    the card: one launch (``int4_decode``), bf16 x and out only.
+
+    ``whole`` = (K, N) of the unsharded layer where the weights are a
+    tensor-parallel shard (parallel/mesh.py): the gate is the whole
+    layer's, and a column shard takes its tile and K split. ``out_dtype``
+    torch.float32 on the card: the kernel's fp32 sums, unrounded (a
+    row-parallel shard's partial sums)."""
     k, n, g = _check(x, packed, scales, "matmul_int4")
     m = x.numel() // k
-    if not kernel_applicable(m, k, n, g):
+    kw, nw = (k, n) if whole is None else whole
+    if not kernel_applicable(m, kw, nw, g):
         raise ValueError(f"matmul_int4: shape M={m} K={k} N={n} g={g} is not the kernel's")
     if _device(x, "matmul_int4") == "cpu":
         return matmul_int4_reference(x, packed, scales, out_dtype)
     if x.dtype != torch.bfloat16:
         raise ValueError("matmul_int4: x must be bf16 on the card")
-    x, packed, scales = _cuda_operands("matmul_int4", out_dtype, x, packed, scales.float())
+    f32 = out_dtype == torch.float32
+    x, packed, scales = _cuda_operands("matmul_int4", torch.bfloat16, x, packed,
+                                       scales.float())
+    if not f32 and out_dtype != torch.bfloat16:
+        raise ValueError("matmul_int4: the kernel writes bf16 or fp32")
     if x.data_ptr() % 16:  # the kernel copies x in 16-byte chunks
         x = x.clone()
-    return int4_decode(x, packed, scales)
+    return int4_decode(x, packed, scales, None if nw == n else nw, f32)
 
 
 # ------------------------------------------------------------- K5, K6
@@ -509,37 +539,68 @@ def plan_int4_a8(m: int, k: int, n: int) -> A8Plan:
                   -(-m // A8_PREP_ROWS), -(-tiles // per), per)
 
 
-def int4_a8_prep_reference(x2: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor
+def int4_a8_prep_reference(x2: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
+                           xs: Optional[torch.Tensor] = None, s8: Optional[torch.Tensor] = None
                            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain version of K6's prep: x [M, K] -> xq int8 [M, K] and xs f32 [M]
     (``quantize_kv``, JAX :336-339); the packed weights -> W8^T int8 [N, K],
     q8 = round(q4 * r) transposed, and s8 f32 [N] (``requant_ratios``, JAX
-    :341-342, :232-237)."""
+    :341-342, :232-237). Given ``xs`` [M] and ``s8`` [N] (a row-parallel
+    shard's, taken over the whole contraction), x is quantized by xs and r
+    = s / s8, and both come back as given."""
     k, n, g = _check(x2, packed, scales, "matmul_int4_prefill")
-    xq, xs = quantize_kv(x2)
-    s8, r = requant_ratios(scales)
+    if (xs is None) != (s8 is None):
+        raise ValueError("matmul_int4_prefill: give both xs and s8, or neither")
+    if xs is None:
+        xq, xs = quantize_kv(x2)
+        s8, r = requant_ratios(scales)
+        s8 = s8[0]
+    else:
+        xs, s8 = xs.float(), s8.float()
+        xq = torch.clamp(torch.round(x2.float() / xs[:, None]), -127, 127).to(torch.int8)
+        r = scales.float() / s8[None, :]
     q8 = torch.round(unpack_int4(packed).float() * r.repeat_interleave(g, dim=0))
-    return xq, xs, q8.to(torch.int8).t().contiguous(), s8[0]
+    return xq, xs, q8.to(torch.int8).t().contiguous(), s8
 
 
 def int8_gemm_tn_reference(xq: torch.Tensor, xs: torch.Tensor, w8t: torch.Tensor,
                            s8: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
     """Plain version of K6's GEMM: xq [M, K] . W8^T [N, K]^T as an exact
     integer sum (float64 holds every int32 sum), then acc * xs[row] *
-    s8[col] in fp32."""
+    s8[col] in fp32; with ``out_dtype`` torch.int32 the sums alone, not
+    rescaled (a row-parallel shard's, ``a8_rescale`` after their
+    all-reduce)."""
     acc = xq.double() @ w8t.double().t()
+    if out_dtype == torch.int32:
+        return acc.to(torch.int32)
+    return a8_rescale(acc, xs, s8, out_dtype)
+
+
+def a8_rescale(acc: torch.Tensor, xs: torch.Tensor, s8: torch.Tensor,
+               out_dtype: torch.dtype) -> torch.Tensor:
+    """K6's epilogue: acc [M, N] (int32 sums) * xs[row] * s8[col], two fp32
+    multiplies in that order, rounded to ``out_dtype``."""
     return (acc.float() * xs.float()[:, None] * s8.float()[None, :]).to(out_dtype)
 
 
-def int4_a8_kernels(x2: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor):
+def int4_a8_kernels(x2: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
+                    xs: Optional[torch.Tensor] = None, s8: Optional[torch.Tensor] = None):
     """K6 on the card, uncounted: x2 bf16 [M, K] -> (out bf16 [M, N],
     (xq, xs, w8t, s8)), the prep's outputs kept for checks. One ctypes call
     launches the prep and the GEMM on the current stream; W8^T is scratch
-    of N x K bytes."""
+    of N x K bytes. Given ``xs`` f32 [M] and ``s8`` f32 [N] (a row-parallel
+    shard's, over the whole contraction), the prep reads them and out is
+    the GEMM's int32 sums [M, N], not rescaled."""
     k, n, g = _check(x2, packed, scales, "matmul_int4_prefill")
     m = x2.shape[0]
     if x2.dtype != torch.bfloat16 or scales.dtype != torch.float32:
         raise ValueError("matmul_int4_prefill: K6 takes bf16 x and f32 scales on the card")
+    given = xs is not None
+    if given != (s8 is not None):
+        raise ValueError("matmul_int4_prefill: give both xs and s8, or neither")
+    if given and (xs.shape != (m,) or s8.shape != (n,) or xs.dtype != torch.float32
+                  or s8.dtype != torch.float32):
+        raise ValueError(f"matmul_int4_prefill: xs must be f32 [{m}] and s8 f32 [{n}]")
     x2, packed, scales = _cuda_operands("matmul_int4_prefill", torch.bfloat16, x2, packed,
                                         scales)
     if x2.data_ptr() % 16:  # the prep reads x in 16-byte chunks
@@ -547,13 +608,18 @@ def int4_a8_kernels(x2: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor
     plan = plan_int4_a8(m, k, n)
     dev = x2.device
     xq = torch.empty((m, k), dtype=torch.int8, device=dev)
-    xs = torch.empty((m,), dtype=torch.float32, device=dev)
     w8t = torch.empty((n, k), dtype=torch.int8, device=dev)
-    s8 = torch.empty((n,), dtype=torch.float32, device=dev)
-    out = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
+    if given:
+        xs, s8 = xs.to(dev).contiguous(), s8.to(dev).contiguous()
+        out = torch.empty((m, n), dtype=torch.int32, device=dev)
+    else:
+        xs = torch.empty((m,), dtype=torch.float32, device=dev)
+        s8 = torch.empty((n,), dtype=torch.float32, device=dev)
+        out = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
     # the ints travel as one array: a ctypes call costs ~0.3 us per argument
     ints = array.array("i", (m, k, n, g, plan.tile, plan.smem_bytes, plan.grid_m, plan.grid_n,
-                             plan.prep_row_blocks, plan.prep_ksplit, plan.prep_tiles))
+                             plan.prep_row_blocks, plan.prep_ksplit, plan.prep_tiles,
+                             int(given)))
     fn = kernel_function("int4_matmul", "int4_a8_bf16", [ctypes.c_void_p] * 10)
     rc = fn(x2.data_ptr(), packed.data_ptr(), scales.data_ptr(), xq.data_ptr(), xs.data_ptr(),
             w8t.data_ptr(), s8.data_ptr(), out.data_ptr(), ints.buffer_info()[0],
@@ -562,9 +628,29 @@ def int4_a8_kernels(x2: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor
     return out, (xq, xs, w8t, s8)
 
 
+def matmul_int4_a8_sums(x2: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
+                        xs: torch.Tensor, s8: torch.Tensor) -> torch.Tensor:
+    """K6 on a row-parallel shard, counted: x2 [M, K/tp] (this rank's
+    contraction columns) @ its int4 rows, quantized by the given row
+    scales ``xs`` [M] and per-column ``s8`` [N] of the whole contraction ->
+    the int32 sums [M, N], which the caller all-reduces and rescales
+    (``a8_rescale``). On the CPU the plain prep and GEMM; on the card the
+    kernel (``int4_a8_kernels`` with xs and s8 given)."""
+    k, n, _ = _check(x2, packed, scales, "matmul_int4_prefill")
+    if _device(x2, "matmul_int4_prefill") == "cpu":
+        xq, xs, w8t, s8 = int4_a8_prep_reference(x2, packed, scales, xs, s8)
+        return int8_gemm_tn_reference(xq, xs, w8t, s8, torch.int32)
+    if x2.dtype != torch.bfloat16:
+        raise ValueError("matmul_int4_prefill: the card takes bf16 x")
+    acc, _ = int4_a8_kernels(x2, packed, scales.float(), xs, s8)
+    matmul_int4_prefill.launches[launch_key(k, n, True)] += 1
+    return acc
+
+
 def matmul_int4_prefill(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
                         out_dtype: torch.dtype = torch.bfloat16,
-                        a8: bool = False) -> torch.Tensor:
+                        a8: bool = False, whole: Optional[Tuple[int, int]] = None
+                        ) -> torch.Tensor:
     """x [..., K] @ int4 [K/2, N] -> [..., N] at prefill M (> 128 rows).
 
     a8=False is K5 (W4A16): on the CPU ``int4_prefill_a16_reference``; on
@@ -576,10 +662,12 @@ def matmul_int4_prefill(x: torch.Tensor, packed: torch.Tensor, scales: torch.Ten
     on the card K6's prep kernel prepares them and its GEMM multiplies
     (``int4_a8_kernels``). The card takes bf16 x and writes bf16 only. The
     caller checks ``prefill_applicable``; this function raises where it
-    does not hold."""
+    does not hold, on ``whole`` = (K, N), the unsharded layer's shape, for a
+    column-parallel shard (a row-parallel one takes ``matmul_int4_a8_sums``)."""
     k, n, g = _check(x, packed, scales, "matmul_int4_prefill")
     m = x.numel() // k
-    if not prefill_applicable(m, k, n, g):
+    kw, nw = (k, n) if whole is None else whole
+    if not prefill_applicable(m, kw, nw, g):
         raise ValueError(f"matmul_int4_prefill: shape M={m} K={k} N={n} g={g} "
                          "is not the kernel's")
     x2 = x.reshape(m, k)

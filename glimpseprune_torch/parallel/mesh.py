@@ -54,11 +54,32 @@ decision at a near-tie (the keep sets of one process and of the mesh
 differed). Whole, the (q8) prefill on the mesh is the same arithmetic as
 one process's; the merger holds ~0.5% of the 7B's weights.
 
-Refused: the (q4) tier (its block-halves packing pairs contraction row k
-with row k + K/2 of the whole dimension, so a row-parallel shard would
-need a repack) and LLaVA models; ROADMAP.md queue 1 lists both. LoRA
-adapters are refused, and so are adapters attached to a sharded layer
-(models/layers.py ``attach_lora``).
+The (q4) tier: a column-parallel layer's ``kernel_q4`` [K/2, N] and
+``kernel_scale4`` [K/g, N] are cut by columns. The block-halves packing
+pairs contraction row k with row k + K/2 of the whole dimension, so a
+row-parallel layer's packed rows are not a rank's rows: ``_int4_rows``
+unpacks, keeps rows [r K / tp, (r + 1) K / tp) and packs them again as the
+block-halves of the local K / tp, with the scale rows of the same groups.
+Unit-or-nothing covers it: a unit stays whole where one of its int4
+row-parallel layers would hold a local K that is no multiple of 2 g
+(``_int4_row_fits``). The products route on the whole layer's shape
+(quantization.matmul_int4_auto). A ViT unit with int4 layers stays whole
+too, as the merger does: the ViT's int4 products (K = 1280, whose packed
+rows tile by 128, not 256) route to no kernel but the dequantized bf16
+GEMM, which a shard runs at other GEMM shapes than one process, and the
+ViT's int8 attention and W8A8 round those differences into other int8
+values; on the card that moved the (q4) keep sets (first logits 4.6e-2
+apart, mask logits 7.2e-2). Whole, the (q4) mesh's ViT is one process's
+arithmetic, and its decoder's K4 / K6 products are bit-equal or round
+once from fp32.
+
+LLaVA: its decoder is sharded by the same rows; the CLIP towers and the
+projector match no rule and stay whole on every rank, as in JAX.
+
+LoRA: an adapter is cut with its layer (models/layers.py), whichever of
+``shard_params`` and ``attach_lora`` / ``insert_lora`` comes first.
+``local_part`` and ``whole_part`` take a whole tensor's part along a
+layer's sharded dimension and gather it back (training/lora.py).
 
 Rank layout is row-major, ``rank = d * model + m``, as JAX's
 ``reshape(n // model, model)``. Every rank creates every subgroup, in one
@@ -77,6 +98,7 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
+from glimpseprune_torch.ops.cuda.int4_matmul import unpack_int4
 from glimpseprune_torch.parallel.sequence import SeqShard
 
 # JAX's table (glimpseprune_tpu/parallel/mesh.py:47-78): (regex on the
@@ -165,6 +187,9 @@ class Mesh:
     def model(self) -> SeqShard:
         return SeqShard(self.model_group, self.model_index, self.shape["model"])
 
+    def __deepcopy__(self, memo):  # a copied model stays on this mesh
+        return self
+
     @property
     def capturable(self) -> bool:
         """False where the model axis runs over a process group whose
@@ -210,10 +235,41 @@ def _narrow_heads(t: torch.Tensor, dim: int, heads: int, tp: SeqShard) -> torch.
     return part.reshape(shape[:dim] + (-1,) + shape[dim + 1:])
 
 
+def _int4_rows(kernel_q4: torch.Tensor, kernel_scale4: torch.Tensor, tp: SeqShard):
+    """A row-parallel shard of int4 weights: this rank's contraction rows
+    [r K / tp, (r + 1) K / tp) of the whole layer, repacked as the
+    block-halves of its local K / tp (the packing pairs row k with row
+    k + K/2 of the whole dimension, so a slice of the packed rows is not
+    the rank's rows), and the scale rows of the same groups."""
+    q = unpack_int4(kernel_q4)  # [K, N]
+    q = _narrow(q, 0, tp)
+    half = q.shape[0] // 2
+    packed = (q[:half] & 0x0F) | (q[half:] << 4)
+    return packed.contiguous(), _narrow(kernel_scale4, 0, tp)
+
+
+def _int4_row_fits(lin: nn.Module, world: int) -> bool:
+    """Can an int4 row-parallel layer be cut ``world`` ways? Its local K
+    must be a multiple of 2 g, as ``quantize_int4``'s packing asks of any
+    int4 kernel; where not, its unit stays whole (unit-or-nothing)."""
+    k = lin.in_features
+    g = k // lin.kernel_scale4.shape[0]
+    return k % world == 0 and (k // world) % (2 * g) == 0
+
+
+def _narrow_param(p: Optional[nn.Parameter], cut) -> Optional[nn.Parameter]:
+    if p is None:
+        return None
+    return nn.Parameter(cut(p.data), requires_grad=p.requires_grad)
+
+
 def _shard_linear(lin: nn.Module, mode: str, tp: SeqShard, heads: int) -> None:
-    """Keep lin's slice in place (a Linear's weight [out, in], or a
-    QuantLinear's int8 kernel_q [in, out] with its scale [1, out]) and mark
-    it for its collective; mode "qkv" cuts the columns per head."""
+    """Keep lin's slice in place (a Linear's weight [out, in], a
+    QuantLinear's int8 kernel_q [in, out] with its scale [1, out], or its
+    int4 kernel_q4 [in/2, out] with its scales [in/g, out]; an adapter's
+    ``lora_b`` columns on a column-parallel layer and ``lora_a`` rows on a
+    row-parallel one) and mark it for its collective; mode "qkv" cuts the
+    columns per head."""
     from glimpseprune_torch.models.layers import QuantLinear
 
     quant = isinstance(lin, QuantLinear)
@@ -223,7 +279,15 @@ def _shard_linear(lin: nn.Module, mode: str, tp: SeqShard, heads: int) -> None:
         return _narrow_heads(t, dim, heads, tp) if mode == "qkv" else _narrow(t, dim, tp)
 
     with torch.no_grad():
-        if quant:
+        if quant and lin.mode == "int4":
+            if mode == "row":
+                lin.kernel_q4, lin.kernel_scale4 = _int4_rows(lin.kernel_q4, lin.kernel_scale4,
+                                                              tp)
+            else:
+                lin.kernel_q4 = cut(lin.kernel_q4, 1)
+                lin.kernel_scale4 = cut(lin.kernel_scale4, 1)
+            lin._set_layout()
+        elif quant:
             if mode == "row":
                 lin.kernel_q = _narrow(lin.kernel_q, 0, tp)
             else:
@@ -235,35 +299,57 @@ def _shard_linear(lin: nn.Module, mode: str, tp: SeqShard, heads: int) -> None:
             lin.out_features, lin.in_features = lin.weight.shape
         if lin.bias is not None and mode != "row":
             lin.bias.data = cut(lin.bias.data, 0)
+        if mode == "row":
+            lin.lora_a = _narrow_param(lin.lora_a, lambda t: _narrow(t, 0, tp))
+        else:
+            lin.lora_b = _narrow_param(lin.lora_b, lambda t: cut(t, 1))
     lin.tp, lin.tp_mode = tp, "row" if mode == "row" else "column"
+    lin.tp_heads = heads if mode == "qkv" else None
+
+
+def local_part(lin: nn.Module, t: torch.Tensor, dim: int) -> torch.Tensor:
+    """This rank's part of a whole tensor ``t`` laid along lin's sharded
+    dimension at ``dim`` (a weight's or an adapter's columns on a
+    column-parallel layer, rows on a row-parallel one)."""
+    if lin.tp_heads is not None:
+        return _narrow_heads(t, dim, lin.tp_heads, lin.tp)
+    return _narrow(t, dim, lin.tp)
+
+
+def whole_part(lin: nn.Module, t: torch.Tensor, dim: int) -> torch.Tensor:
+    """The whole of a tensor that lin's ranks hold in parts along ``dim``
+    (``local_part``'s inverse), on every rank. Collective over lin's model
+    axis."""
+    from glimpseprune_torch.parallel.sequence import _all_gather
+
+    if lin.tp_heads is None:
+        return _all_gather(t, dim, lin.tp)
+    shape = t.shape
+    split = shape[:dim] + (3, lin.tp_heads // lin.tp.world, -1) + shape[dim + 1:]
+    whole = _all_gather(t.reshape(split), dim + 1, lin.tp)
+    return whole.reshape(shape[:dim] + (-1,) + shape[dim + 1:])
 
 
 def _refuse(model: nn.Module) -> None:
-    from glimpseprune_torch.models.layers import QuantLinear, adapted_modules
-    from glimpseprune_torch.models.llava.gp_model import Llava_GP
-
-    if isinstance(model, Llava_GP):
-        raise ValueError("shard_params: LLaVA models are not tensor-parallel yet "
-                         "(ROADMAP.md queue 1, 'Llava_GP under TP')")
-    if any(isinstance(m, QuantLinear) and m.mode == "int4" for m in model.modules()):
-        raise ValueError("shard_params: the (q4) tier is not tensor-parallel yet: its "
-                         "block-halves packing spans the whole contraction dim (ROADMAP.md "
-                         "queue 1, '(q4) under TP')")
-    if next(adapted_modules(model), None) is not None:
-        raise ValueError("shard_params: LoRA adapters are not tensor-parallel yet "
-                         "(ROADMAP.md queue 1, 'LoRA under TP')")
     if getattr(model, "mesh", None) is not None:
         raise ValueError("shard_params: the model is already sharded")
 
 
 def shard_params(model: nn.Module, mesh: Mesh) -> nn.Module:
-    """Shard a Qwen2_5_VL_GP's weights over the mesh's model axis, in place
-    (each rank keeps its slice; the rest is freed), and bind the model to
-    the mesh (``model.mesh``). Each Linear / QuantLinear of ``_TP_LAYERS``
-    is sharded in its mode where its unit (a tower's attention, its MLP,
-    the vocab) divides the axis, and stays replicated where not; the
-    embedding goes with the vocab. Returns the model."""
+    """Shard a Qwen2_5_VL_GP's or a Llava_GP's weights over the mesh's
+    model axis, in place (each rank keeps its slice; the rest is freed),
+    and bind the model to the mesh (``model.mesh``). Each Linear /
+    QuantLinear of ``_TP_LAYERS`` (with its adapters, where it carries
+    them) is sharded in its mode where its unit (a tower's attention, its
+    MLP, the vocab) divides the axis, and stays replicated where not; the
+    embedding goes with the vocab. A unit also stays whole where one of
+    its int4 row-parallel layers would hold a local contraction that is no
+    multiple of 2 g (``_int4_row_fits``), and a ViT unit with int4
+    layers stays whole (the module docstring says why). LLaVA's CLIP
+    towers and projector match no rule: they stay whole, as in JAX.
+    Returns the model."""
     from glimpseprune_torch.models.layers import Linear, QuantLinear
+    from glimpseprune_torch.models.qwen2_5_vl.vision import VisionTransformer
     from glimpseprune_torch.quantization import _jax_path
 
     _refuse(model)
@@ -273,19 +359,28 @@ def shard_params(model: nn.Module, mesh: Mesh) -> nn.Module:
         return model
     tp = mesh.model
     text, vis = model.text, model.visual
-    tc, vc = text.cfg, vis.cfg
+    tc, vc = text.cfg, model.cfg.vision
+    vit = isinstance(vis, VisionTransformer)
     divides = {
         "text_attn": tc.num_attention_heads % m == tc.num_key_value_heads % m == 0,
         "text_mlp": tc.intermediate_size % m == 0,
         "vocab": tc.vocab_size % m == 0,
-        "vit_attn": vc.num_heads % m == 0,
-        "vit_mlp": vc.intermediate_size % m == 0,
+        "vit_attn": vit and vc.num_heads % m == 0,
+        "vit_mlp": vit and vc.intermediate_size % m == 0,
     }
+    layers = []
     for name, mod in model.named_modules():
         if not isinstance(mod, (Linear, QuantLinear)):
             continue
         unit, mode = _TP_LAYERS.get(_jax_path(name).removesuffix("/kernel"), (None, None))
-        if unit is not None and divides[unit]:
+        if unit is None:
+            continue
+        layers.append((mod, unit, mode))
+        int4 = isinstance(mod, QuantLinear) and mod.mode == "int4"
+        if int4 and (unit.startswith("vit_") or mode == "row" and not _int4_row_fits(mod, m)):
+            divides[unit] = False
+    for mod, unit, mode in layers:
+        if divides[unit]:
             _shard_linear(mod, mode, tp, vc.num_heads)
     if divides["text_attn"]:
         text.attn_tp = tp

@@ -64,6 +64,9 @@ class SeqShard(NamedTuple):
         n = total // self.world
         return slice(self.rank * n, (self.rank + 1) * n)
 
+    def __deepcopy__(self, memo):  # a copied module shares the process group
+        return self
+
 
 def enable_sequence_parallel(group: Optional[dist.ProcessGroup]) -> None:
     """Shard the prefill over ``group`` (e.g. ``dist.group.WORLD``), or turn

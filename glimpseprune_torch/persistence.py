@@ -21,6 +21,13 @@ format, ``full_params.pt``, beside ``config.json`` (and, for a LLaVA
 model, ``clip_config.json``): every tensor in its own dtype and layout,
 the quantized tiers' int8 / int4 buffers and fp32 scales included, so a
 model converted or quantized once is not converted again at each start.
+
+A model sharded over a mesh's model axis (parallel/mesh.py) holds a rank's
+slices of its towers' weights: ``save_full_params`` refuses it (its state
+dict is one rank's, not the config's model). The GlimpsePrune modules are
+never sharded, so ``save_new_modules`` writes them whole from any rank,
+and ``training.lora.lora_tree`` gathers the adapters' parts, so
+``save_lora(lora_tree(model), ...)`` writes the whole adapters.
 """
 
 from __future__ import annotations
@@ -65,6 +72,11 @@ def save_new_modules(model: nn.Module, cfg: ModelConfig, directory: str) -> str:
     def sd(module):
         return {k: v.detach().float().cpu() for k, v in module.state_dict().items()}
 
+    modules = [model.attn_fuser] + ([model.le_proj, model.le_norm] if model.cfg.gp.has_le
+                                    else [])
+    if any(getattr(m, "tp", None) is not None for mod in modules for m in mod.modules()):
+        raise ValueError("save_new_modules: a GlimpsePrune module is sharded; only the "
+                         "towers' layers of parallel/mesh.py's table may be")
     state = {"attn_fuser": sd(model.attn_fuser)}
     if model.cfg.gp.has_le:
         state["learnable_embeddings"] = model.learnable_embeddings.detach().float().cpu()
@@ -93,7 +105,14 @@ def load_new_modules(model: nn.Module, directory: str) -> Tuple[nn.Module, Model
 
 def save_full_params(model: nn.Module, cfg: ModelConfig, directory: str) -> str:
     """Write model's whole state dict as ``full_params.pt``, and cfg (the
-    config the model is bound to) as ``config.json``, into directory."""
+    config the model is bound to) as ``config.json``, into directory. A
+    model sharded over a model axis of more than one rank is refused: its
+    state dict holds this rank's slices."""
+    mesh = getattr(model, "mesh", None)
+    if mesh is not None and mesh.shape["model"] > 1:
+        raise ValueError("save_full_params: the model is sharded over a model axis of "
+                         f"{mesh.shape['model']} ranks; its state dict holds one rank's "
+                         "slices. Save the unsharded model")
     os.makedirs(directory, exist_ok=True)
     torch.save(model.state_dict(), os.path.join(directory, FULL_PARAMS_FILE))
     cfg.save(directory)

@@ -30,14 +30,17 @@ import torch
 import torch.distributed as dist
 
 from glimpseprune_torch.ops.cuda.int4_matmul import (
+    a8_rescale,
     int4_decode,
     kernel_applicable,
     matmul_int4,
+    matmul_int4_a8_sums,
     matmul_int4_prefill,
     prefill_routable,
     unpack_int4,
 )
 from glimpseprune_torch.ops.kv_cache import quantize_kv
+from glimpseprune_torch.parallel.sequence import reduce_from_model
 
 # the kernels worth quantizing, as JAX parameter paths: the decoder layers,
 # the LM head and the ViT blocks (the GlimpsePrune modules, norms, biases,
@@ -154,7 +157,8 @@ def dequantize_int8(kernel_q: torch.Tensor, kernel_scale: torch.Tensor,
 
 
 def matmul_int4_auto(x: torch.Tensor, kernel_q4: torch.Tensor, kernel_scale4: torch.Tensor,
-                     dtype: torch.dtype, a8: bool = False) -> torch.Tensor:
+                     dtype: torch.dtype, a8: bool = False, tp=None, tp_mode=None,
+                     add=None) -> torch.Tensor:
     """x [..., K] (already in dtype) @ int4 weights -> [..., N], routed by
     the JAX package's shape gates (quantization.py:238-256 with
     ops/pallas/int4_matmul.py:91, :268), so a shape takes the same
@@ -168,20 +172,74 @@ def matmul_int4_auto(x: torch.Tensor, kernel_q4: torch.Tensor, kernel_scale4: to
       ``matmul_int4_prefill(a8=True)``;
     - everything else: dequantize, then one matmul.
 
-    Each kernel wrapper takes its plain version on a CPU tensor."""
+    Each kernel wrapper takes its plain version on a CPU tensor.
+
+    ``tp`` / ``tp_mode`` (a tensor-parallel shard, parallel/mesh.py): the
+    route is the whole layer's (M, K, N, a8), so the mesh computes one
+    process's arithmetic; the kernel takes the shard's shape. A "column"
+    shard's columns are the whole layer's own (K4 sums their groups in the
+    whole layer's K split): bit-equal. On a "row" shard (this rank's
+    contraction rows, repacked by ``shard_params``) the result is the
+    whole product on every rank: K6 quantizes x by the whole row's scale
+    and requantizes by each column's s8 over the whole contraction (both
+    all-reduce MAX) and all-reduces its int32 sums before the rescale,
+    bit-equal to one process's; K4 and the dequant path keep their partial
+    products in fp32 (K4 writes its sums unrounded), which meet in
+    ``reduce_from_model``, after ``add`` (the adapter's partial term,
+    models/layers.py) joins them, and are rounded to dtype once, as one
+    process's sums are: the two differ in the order of fp32 additions
+    alone."""
     k, n = 2 * kernel_q4.shape[0], kernel_q4.shape[1]
     g = k // kernel_scale4.shape[0]
     m = x.numel() // k
-    if kernel_applicable(m, k, n, g):
+    row = tp_mode == "row"
+    kw = k * tp.world if row else k
+    nw = n * tp.world if tp_mode == "column" else n
+    if add is not None and not row:
+        raise ValueError("matmul_int4_auto: ``add`` joins a row-parallel shard's partial sums")
+    if kernel_applicable(m, kw, nw, g):
         if (x.is_cuda and x.dtype == dtype == torch.bfloat16 and x.is_contiguous()
                 and x.data_ptr() % 16 == 0 and kernel_scale4.dtype == torch.float32
                 and kernel_q4.is_contiguous() and kernel_scale4.is_contiguous()
                 and kernel_q4.device == x.device == kernel_scale4.device):
-            return int4_decode(x, kernel_q4, kernel_scale4)
-        return matmul_int4(x, kernel_q4, kernel_scale4, out_dtype=dtype)
-    if prefill_routable(m, k, n, g, a8):
-        return matmul_int4_prefill(x, kernel_q4, kernel_scale4, out_dtype=dtype, a8=True)
-    return x @ dequant_int4(kernel_q4, kernel_scale4, dtype)
+            y = int4_decode(x, kernel_q4, kernel_scale4, None if nw == n else nw, row)
+        else:
+            y = matmul_int4(x, kernel_q4, kernel_scale4, whole=(kw, nw),
+                            out_dtype=torch.float32 if row else dtype)
+    elif prefill_routable(m, kw, nw, g, a8):
+        if row:
+            if add is not None:
+                raise ValueError("matmul_int4_auto: an adapted layer takes no W4A8")
+            return _int4_a8_row(x, kernel_q4, kernel_scale4, dtype, tp)
+        return matmul_int4_prefill(x, kernel_q4, kernel_scale4, out_dtype=dtype, a8=True,
+                                   whole=(kw, nw))
+    elif row:
+        y = x.float() @ dequant_int4(kernel_q4, kernel_scale4, dtype).float()
+    else:
+        y = x @ dequant_int4(kernel_q4, kernel_scale4, dtype)
+    if not row:
+        return y
+    return reduce_from_model(y if add is None else y + add, tp).to(dtype)
+
+
+def _int4_a8_row(x: torch.Tensor, kernel_q4: torch.Tensor, kernel_scale4: torch.Tensor,
+                 dtype: torch.dtype, tp) -> torch.Tensor:
+    """W4A8 on a row-parallel shard: both scales over the whole contraction
+    (the rows' amax and the columns' largest group scale, all-reduce MAX,
+    then ``quantize_kv``'s and ``requant_ratios``' formulas), K6's int32
+    sums all-reduced, then K6's epilogue: bit-equal to the unsharded
+    product on every rank."""
+    lead, k = x.shape[:-1], x.shape[-1]
+    x2 = x.reshape(-1, k)
+    amax = x2.abs().amax(-1).float()
+    cmax = kernel_scale4.float().amax(0)
+    dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=tp.group)
+    dist.all_reduce(cmax, op=dist.ReduceOp.MAX, group=tp.group)
+    xs = amax.clamp(min=1e-8) / 127.0
+    s8 = cmax.clamp(min=1e-12) * (7.0 / 127.0)
+    acc = matmul_int4_a8_sums(x2, kernel_q4, kernel_scale4, xs, s8)
+    dist.all_reduce(acc, group=tp.group)
+    return a8_rescale(acc, xs, s8, dtype).reshape(lead + (kernel_q4.shape[1],))
 
 
 def quantized_bytes(module: torch.nn.Module) -> int:

@@ -16,6 +16,14 @@ copy) and binds the model to ``text.lora_rank = r``; the policy is the
 model, the reference policy is the same model under ``lora_disabled``.
 ``apply_lora`` returns a copy of an unquantized model with W + A B merged
 into its weights, the reference for the in-layer product.
+
+On a model sharded by ``shard_params`` (parallel/mesh.py) the tree is the
+whole model's in every function: ``make_lora_params`` draws the whole
+adapters, ``insert_lora`` and ``apply_lora`` take each sharded layer's
+part (``lora_b``'s columns of a column-parallel layer, ``lora_a``'s rows
+of a row-parallel one), and ``lora_tree`` gathers the parts back, so
+every rank returns (and ``persistence.save_lora`` writes) what one
+process would; it is collective over the model axis there.
 """
 
 from __future__ import annotations
@@ -68,7 +76,7 @@ def _targets(model: nn.Module, targets: str) -> Dict[str, tuple]:
             continue
         key = re.sub(r"_q4?$", "", path)
         layered = name.startswith("text.layers.")
-        fin, fout = mod.in_features, mod.out_features
+        fin, fout = _whole_features(mod)
         shape = (model.cfg.text.num_hidden_layers, fin, fout) if layered else (fin, fout)
         found.setdefault(key, shape)
     return dict(sorted(found.items()))
@@ -86,6 +94,32 @@ def make_lora_params(model: nn.Module, rank: int = 16, targets: str = DEFAULT_TA
                                        dtype=torch.float32),
                      "b": torch.zeros(b_shape, dtype=torch.float32)}
     return out
+
+
+def _whole_features(mod: nn.Module):
+    """(in, out) of a projection's whole layer, sharded or not."""
+    world = 1 if mod.tp is None else mod.tp.world
+    return (mod.in_features * (world if mod.tp_mode == "row" else 1),
+            mod.out_features * (world if mod.tp_mode == "column" else 1))
+
+
+def _part(mod: nn.Module, key: str, t: torch.Tensor) -> torch.Tensor:
+    """The part of a whole adapter leaf ``t`` (``"a"`` [in, r] or ``"b"``
+    [r, out]) that mod holds: all of it unless mod is sharded along it."""
+    if (key, mod.tp_mode) in (("a", "row"), ("b", "column")):
+        from glimpseprune_torch.parallel.mesh import local_part
+
+        return local_part(mod, t, 0 if key == "a" else 1)
+    return t
+
+
+def _whole(mod: nn.Module, key: str, t: torch.Tensor) -> torch.Tensor:
+    """``_part``'s inverse: the whole adapter leaf from every rank's part."""
+    if (key, mod.tp_mode) in (("a", "row"), ("b", "column")):
+        from glimpseprune_torch.parallel.mesh import whole_part
+
+        return whole_part(mod, t, 0 if key == "a" else 1)
+    return t
 
 
 def _modules_of(model: nn.Module, path: str):
@@ -129,8 +163,8 @@ def insert_lora(model: nn.Module, lora: Optional[Mapping], scale: float = 1.0,
             elif mod.lora_a.shape[1] != rank:
                 raise ValueError(f"{path}: the model carries a rank-{mod.lora_a.shape[1]} "
                                  f"adapter there, not rank {rank}")
-            mod.lora_a.copy_(a if l is None else a[l])
-            mod.lora_b.copy_((b if l is None else b[l]).float() * scale)
+            mod.lora_a.copy_(_part(mod, "a", a if l is None else a[l]))
+            mod.lora_b.copy_(_part(mod, "b", (b if l is None else b[l]).float() * scale))
     return model.set_config(cfg if cfg is not None else _with_rank(model.cfg, rank))
 
 
@@ -155,6 +189,7 @@ def apply_lora(model: nn.Module, lora: Optional[Mapping], scale: float = 1.0) ->
             if not isinstance(mod, nn.Linear):
                 raise ValueError(f"{path}: apply_lora merges into unquantized weights only")
             al, bl = (a, b) if l is None else (a[l], b[l])
+            al, bl = _part(mod, "a", al), _part(mod, "b", bl)  # a shard's own
             delta = (al.float() @ bl.float()) * scale  # [in, out]
             w = mod.weight
             w.copy_((w.float() + delta.t().to(w.device)).to(w.dtype))
@@ -179,12 +214,13 @@ def lora_param_count(lora: Mapping) -> int:
 
 
 def lora_tree(model: nn.Module) -> Dict[str, Dict[str, torch.Tensor]]:
-    """model's adapters as the JAX-keyed tree (CPU fp32, layers stacked)."""
+    """model's adapters as the JAX-keyed tree (CPU fp32, layers stacked);
+    the whole adapters on a sharded model (collective there)."""
     tree: Dict[str, Dict[str, list]] = {}
     for name, mod in adapted_modules(model):
         path = _jax_path(re.sub(r"^text\.layers\.\d+\.", "text.layers.", name))
         ent = tree.setdefault(path, {"a": [], "b": []})
-        ent["a"].append(mod.lora_a.detach().float().cpu())
-        ent["b"].append(mod.lora_b.detach().float().cpu())
+        ent["a"].append(_whole(mod, "a", mod.lora_a.detach()).float().cpu())
+        ent["b"].append(_whole(mod, "b", mod.lora_b.detach()).float().cpu())
     return {p: {k: (torch.stack(v) if p.startswith("text/layers/") else v[0])
                 for k, v in ab.items()} for p, ab in sorted(tree.items())}

@@ -190,3 +190,59 @@ def test_a8_tiles_and_smem_formula_match_kernel_source():
                      r"\(bm \+ bn\) \* bk; \}", _source())
     for i, (bm, bn, _, _, bk, stages) in enumerate(tm4.A8_TILES):
         assert tm4.a8_smem_bytes(i) == stages * (bm + bn) * bk
+
+
+@pytest.mark.parametrize("m,k,n", [(129, 256, 128), (160, 1024, 512)])
+def test_a8_given_scales_and_int32_sums_compose(m, k, n):
+    """The prep given the row scales and s8 it would compute gives the same
+    xq and W8^T; the GEMM's int32 sums (``out_dtype=torch.int32``) rescaled
+    by ``a8_rescale`` equal its bf16 output bit for bit."""
+    packed, scales = (torch.as_tensor(a) for a in _packed(m, k, n))
+    x = _x(m, k, m + n)
+    xq, xs, w8t, s8 = tm4.int4_a8_prep_reference(x, packed, scales)
+    gq, gs, gw, g8 = tm4.int4_a8_prep_reference(x, packed, scales, xs, s8)
+    assert torch.equal(gq, xq) and torch.equal(gw, w8t)
+    assert torch.equal(gs, xs) and torch.equal(g8, s8)
+    acc = tm4.int8_gemm_tn_reference(xq, xs, w8t, s8, torch.int32)
+    assert acc.dtype == torch.int32
+    assert torch.equal(tm4.a8_rescale(acc, xs, s8, torch.bfloat16),
+                       tm4.int8_gemm_tn_reference(xq, xs, w8t, s8, torch.bfloat16))
+    with pytest.raises(ValueError, match="both"):
+        tm4.int4_a8_prep_reference(x, packed, scales, xs, None)
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_a8_row_shards_sum_to_the_whole(world):
+    """A row-parallel K6 in one process: each rank's repacked rows
+    (``parallel.mesh._int4_rows``), quantized by the whole contraction's row
+    scales and s8, give int32 sums that add up to the unsharded product's;
+    rescaled, bit-equal to the unsharded plain K6 (``matmul_int4_a8_sums``
+    on the CPU)."""
+    from glimpseprune_torch.parallel.mesh import _int4_rows
+    from glimpseprune_torch.parallel.sequence import SeqShard
+
+    m, k, n = 160, 1024, 512
+    packed, scales = (torch.as_tensor(a) for a in _packed(7, k, n))
+    x = _x(m, k, 3)
+    xq, xs, w8t, s8 = tm4.int4_a8_prep_reference(x, packed, scales)
+    acc = torch.zeros((m, n), dtype=torch.int32)
+    for r in range(world):
+        tp = SeqShard(None, r, world)
+        p_r, s_r = _int4_rows(packed, scales, tp)
+        acc += tm4.matmul_int4_a8_sums(x[:, tp.slice(k)].contiguous(), p_r, s_r, xs, s8)
+    assert torch.equal(tm4.a8_rescale(acc, xs, s8, torch.bfloat16),
+                       tm4.matmul_int4_prefill(x, packed, scales, torch.bfloat16, a8=True))
+
+
+def test_a8_given_flag_matches_kernel_source():
+    """The launcher reads ``given`` as the plan's twelfth int, and the
+    wrapper sends twelve."""
+    src = _source()
+    assert "const int given = p[11];" in src
+    assert re.search(r"given \? nullptr : \(__nv_bfloat16\*\)out,\s+given \? \(int\*\)out : "
+                     r"nullptr", src)
+    body = Path(tm4.__file__).read_text()
+    (ints,) = [a for a in re.findall(r"ints = array\.array\(\"i\", \((.*?)\)\)\n", body, re.S)
+               if "prep_row_blocks" in a]  # K6's (K5's has no row blocks)
+    fields = [f.strip() for f in ints.split(",")]
+    assert len(fields) == 12 and fields[-1] == "int(given)"

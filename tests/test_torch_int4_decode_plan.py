@@ -76,7 +76,8 @@ def test_plan_by_hand(m, k, n, want):
     assert (plan.tile, plan.bn, plan.mpad, plan.warps, plan.ksplit, plan.groups_per_split,
             plan.smem_bytes, plan.grid) == want
     assert tuple(plan.args) == (m, k, n, plan.tile, plan.smem_bytes, plan.ksplit,
-                                plan.groups_per_split, plan.grid)
+                                plan.groups_per_split, plan.grid, 0)
+    assert tuple(tm4.plan_int4_decode(m, k, n, f32=True).args)[-1] == 1
     assert plan.args_ptr == plan.args.buffer_info()[0]
     assert plan.key == tm4.launch_key(k, n)
 
@@ -246,3 +247,16 @@ def test_emulation_matches_pallas(m):
     plan = tm4.plan_int4_decode(m, k, n)
     got = _emulate(torch.as_tensor(x), torch.as_tensor(packed), torch.as_tensor(scales), plan)
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 3584, 18944), (2, 3584, 512), (8, 3584, 3584),
+                                   (64, 3584, 18944)])
+def test_plan_of_a_column_shard_takes_the_whole_layers_split(m, k, n):
+    """A column-parallel shard (n / 2 columns) planned for the whole layer's
+    N takes its tile and K split, so each column sums its groups as the
+    unsharded layer's does; its grid covers the shard's columns."""
+    whole = tm4.plan_int4_decode(m, k, n)
+    shard = tm4.plan_int4_decode(m, k, n // 2, n)
+    assert (shard.tile, shard.ksplit, shard.groups_per_split) == (
+        whole.tile, whole.ksplit, whole.groups_per_split)
+    assert shard.grid == n // 2 // shard.bn * shard.ksplit

@@ -5,7 +5,7 @@ each SP attention entry point against the unsharded port, SP ``generate``
 (pruned and unpruned) against the JAX runner on one device, one SP train
 step (loss, every trainable gradient, the AdamW update) against the JAX
 ``make_train_step``, a runner built outside the SP context and run inside
-it, and the compressors refusing SP.
+it, and the five compressors under SP against JAX ``generate_compressed``.
 
 The ranks run tests/torch_sp_worker.py, which imports torch and the port
 only; the weights reach them as an ``.npz`` of ``params_from_jax``. Each
@@ -21,6 +21,7 @@ import numpy as np
 import optax
 import pytest
 
+import torch_mesh_worker
 import torch_sp_worker
 from glimpseprune_tpu.models.qwen2_5_vl.gp_model import Qwen2_5_VL_GP
 from glimpseprune_tpu.models.qwen2_5_vl.runner import GlimpsePruneRunner as JaxRunner
@@ -167,8 +168,33 @@ def test_sp_runner_built_outside_context(ranks):
 
 
 def test_sp_compressors_refuse(ranks):
+    """The compressors no longer refuse SP: each runs with its ViT sharded
+    (segment attention on a shard: the importance blocks' queries over the
+    gathered keys) and visionzip / vscan / pdrop with their prefill
+    sharded where it divides (K9's q_positions calls)."""
     for r in ranks:
-        assert "not sequence-parallel" in r["generate"]["compressed_refused"]
+        for m in torch_mesh_worker.COMPRESSORS:
+            got = r["generate"][("compressed", m)]
+            assert got["segment_shard_calls"] > 0, m
+            assert got["sequences"].shape == (2, torch_mesh_worker.MAX_NEW), m
+        assert any(r["generate"][("compressed", m)]["k9_calls"] > 0
+                   for m in torch_mesh_worker.COMPRESSORS)
+
+
+@pytest.mark.parametrize("method", torch_mesh_worker.COMPRESSORS)
+def test_sp_compressors_match_jax(ranks, method):
+    """``generate_compressed`` under SP: JAX's one-device tokens, keep sets
+    and prune ratios on every rank."""
+    from test_torch_mesh import jax_compressed
+
+    want = jax_compressed(method)
+    for r in ranks:
+        got = r["generate"][("compressed", method)]
+        np.testing.assert_array_equal(got["sequences"], want.sequences)
+        np.testing.assert_array_equal(got["num_generated"], want.num_generated)
+        np.testing.assert_array_equal(got["prune_ratio"], want.prune_ratio)
+        if method != "pdrop":
+            np.testing.assert_array_equal(got["keep_img"], want.keep_img)
 
 
 def test_sp_train_step_loss_matches_jax(ranks):

@@ -119,8 +119,10 @@ class _CountFlash:
 
 def _generate(cfg, model, prep):
     """The runner built outside the SP context and run inside it, pruned
-    and unpruned, with the sharded flash calls of each run; then the
-    compressors, which must refuse SP."""
+    and unpruned, with the sharded flash calls of each run; then the five
+    compressors under SP, with theirs."""
+    from torch_mesh_worker import COMPRESSORS, compressed_record, compressor_kwargs
+
     from glimpseprune_torch.models.qwen2_5_vl.runner import GlimpsePruneRunner
     from glimpseprune_torch.ops import attention
     from glimpseprune_torch.parallel import sequence_parallel
@@ -137,12 +139,11 @@ def _generate(cfg, model, prep):
                 out[sel] = {"sequences": res.sequences, "num_generated": res.num_generated,
                             "keep_img": res.keep_img, "mask_logits": res.mask_logits,
                             "k9_calls": counter.qpos, "segment_shard_calls": counter.segment}
-            try:
-                runner.generate_compressed(prep, "divprune", max_new_tokens=2,
-                                           visual_token_num=2)
-                out["compressed_refused"] = ""
-            except ValueError as err:
-                out["compressed_refused"] = str(err)
+            for m in COMPRESSORS:
+                counter.qpos = counter.segment = 0
+                res = runner.generate_compressed(prep, m, **compressor_kwargs(m))
+                out[("compressed", m)] = dict(compressed_record(res), k9_calls=counter.qpos,
+                                              segment_shard_calls=counter.segment)
     finally:
         attention.flash_attention = counter.inner
     out["unsharded"] = runner.generate(prep, max_new_tokens=4).sequences
