@@ -286,6 +286,33 @@ Phases, each of which raises on failure (the script then exits non-zero):
      on phase 15's generate and visionzip results: 4 joined rows, every
      page 200 with 4 rows, one ``.npy`` overlay rendered. The kernels line
      carries the phase's launches as ``launches_tools``.
+ (c) the synthetic-boxes training tools (run last, when the card holds no
+     model; ``tools.convergence_run``, ``sweep_reduce_quality``, ``demo``
+     through ``main(argv)``): the base stage on the bench's 7B config
+     (``bench_config("7b")``, not configs/) in the (q8) weight-only tier,
+     100 steps at B = 1 over 64 synthetic 560x560 images (S = 448-512, 400
+     image tokens): every loss finite, the mean loss of the last 20 steps
+     below the first 5's, the mean mask IoU above, the frozen base's
+     checksum unchanged; s/step, the host's share (``prepare_inputs`` and
+     the collate), IoU / precision / recall at steps 1, 50, 100, peak; the
+     saved modules loaded onto a fresh 7B of the same seed in the bench's
+     (q8) serving tier (its frozen bytes equal to the training base's), the
+     modules changed from the seed's draw, pruned ``generate`` (16 tokens,
+     B = 2) on 8 held-out images of another seed: keep count against the
+     cap, precision and recall against the boxes' tokens, prune ratio, and
+     the same with the seed's untrained modules, whose mean precision the
+     trained ones must exceed (the "convergence:" line); the resume from
+     step 100 to 105 (steps continue at 101, the first 100 rows carried)
+     and 100 -> 103 -> 105 equal to it (rtol 1e-6); the GRPO stage at
+     tiny, 30 steps (rewards and losses finite, the adapters moved, the
+     base unchanged, 30 logged rows), then 3 steps under a reward that
+     varies, in which the update must move the adapters' B (a random
+     policy earns precision_match's reward too rarely for that);
+     ``sweep_reduce_quality --layers
+     2,18 --steps 10`` (two rows); ``demo --int8`` at 7B width (20 layers):
+     int8 linears in both towers, ids in the vocabulary, finite mask
+     logits. The kernels line carries the phase's launches as
+     ``launches_conv`` (base, serve, resume, grpo, sweep, demo_int8).
 Every kernel row carries its time (CUDA events over 10 calls) and
 ``device_ms``, the card's own time from torch.profiler, without the
 host's launch cost, its plain version's time, one PyTorch
@@ -3428,7 +3455,8 @@ def check_int4_tp_shards(cfg, gen, decode_m: int, prefill_m: int, world: int = S
       sums bit-equal to its plain version's, and the ranks' sums rescaled
       bit-equal to the unsharded K6.
 
-    -> (kernel rows of rank 0's shards, timed, report)."""
+    -> (kernel rows of rank 0's shards, timed by events and on the device,
+    report)."""
     import torch
 
     from glimpseprune_torch.ops.cuda.int4_matmul import (
@@ -3468,7 +3496,9 @@ def check_int4_tp_shards(cfg, gen, decode_m: int, prefill_m: int, world: int = S
                 raise AssertionError(f"K4[{name}]: the column shards differ from the "
                                      "unsharded K4's columns")
             x0 = x
-            ms = cuda_ms(lambda: int4_decode(x0, p0, s0, n))
+
+            def call():
+                return int4_decode(x0, p0, s0, n)
             rec["k4_columns_bit_equal"] = True
         else:
             xr = [x[:, tp.slice(k)].contiguous() for tp in tps]
@@ -3479,15 +3509,19 @@ def check_int4_tp_shards(cfg, gen, decode_m: int, prefill_m: int, world: int = S
             for g in got[1:]:
                 summed = summed + g
             x0 = xr[0]
-            ms = cuda_ms(lambda: int4_decode(x0, p0, s0, None, True))
+
+            def call():
+                return int4_decode(x0, p0, s0, None, True)
             rec["k4_rows_rounded_once_differ"] = int((summed.bfloat16() != whole).sum())
+        ms, dev_ms = cuda_ms(call), device_ms(call)
         ref = matmul_int4_reference(x0, p0, s0, torch.float32)
         plain_ms = cuda_ms(lambda: matmul_int4_reference(x0, p0, s0, torch.float32))
         out_bytes = (4 if mode == "row" else 2) * decode_m * nl
         row = int4_row("matmul_int4", launch_key(kl, nl), K4_REPLACES, x0, p0, s0,
                        got[0].float(), ref, ms, plain_ms, out_bytes,
                        flops=2.0 * decode_m * kl * nl, extra=(x0,))
-        row.update(tp_mode=mode, note=f"phase (m): rank 0's {mode} shard of {key}")
+        row.update(tp_mode=mode, device_ms=dev_ms,
+                   note=f"phase (m): rank 0's {mode} shard of {key}")
         rows.append(row)
         if name == "head":
             report[name] = rec
@@ -3503,7 +3537,9 @@ def check_int4_tp_shards(cfg, gen, decode_m: int, prefill_m: int, world: int = S
             if not torch.equal(got[0], k6_plain(x, p0, s0)):
                 raise AssertionError(f"K6[{name}]: a column shard differs from its plain version")
             x0 = x
-            ms = cuda_ms(lambda: matmul_int4_prefill(x0, p0, s0, a8=True, whole=(k, n)))
+
+            def call():
+                return matmul_int4_prefill(x0, p0, s0, a8=True, whole=(k, n))
             plain_ms = cuda_ms(lambda: k6_plain(x0, p0, s0))
             got0, ref, out_bytes = got[0], k6_plain(x0, p0, s0), 2 * prefill_m * nl
             rec["k6_columns_bit_equal"] = True
@@ -3528,7 +3564,9 @@ def check_int4_tp_shards(cfg, gen, decode_m: int, prefill_m: int, world: int = S
                 raise AssertionError(f"K6[{name}]: the row shards' sums rescaled differ from "
                                      "the unsharded K6")
             x0 = xr[0]
-            ms = cuda_ms(lambda: matmul_int4_a8_sums(x0, p0, s0, xs, s8))
+
+            def call():
+                return matmul_int4_a8_sums(x0, p0, s0, xs, s8)
             plain_ms = cuda_ms(lambda: int8_gemm_tn_reference(
                 *int4_a8_prep_reference(x0, p0, s0, xs, s8), torch.int32))
             got0 = a8_rescale(matmul_int4_a8_sums(x0, p0, s0, xs, s8), xs, s8, torch.float32)
@@ -3536,10 +3574,14 @@ def check_int4_tp_shards(cfg, gen, decode_m: int, prefill_m: int, world: int = S
                 x0, p0, s0, xs, s8), torch.int32), xs, s8, torch.float32)
             out_bytes = 4 * prefill_m * nl
             rec["k6_rows_bit_equal"] = True
+        ms = cuda_ms(call)
+        prep_ms, gemm_ms = prep_gemm_ms(call)
         row = int4_row("matmul_int4_prefill", launch_key(kl, nl, True), K56_REPLACES, x0, p0,
                        s0, got0, ref, ms, plain_ms, out_bytes,
                        int8_ops=2.0 * prefill_m * kl * nl, extra=(x0,))
         row.update(tp_mode=mode, bit_equal=True,
+                   device_ms=None if None in (prep_ms, gemm_ms) else prep_ms + gemm_ms,
+                   prep_device_ms=prep_ms, gemm_device_ms=gemm_ms,
                    note=f"phase (m): rank 0's {mode} shard of {key}"
                    + (" (given row scales and s8, int32 sums)" if mode == "row" else ""))
         rows.append(row)
@@ -6328,6 +6370,374 @@ def run_tools_phase(cfg, outputs, smi):
     return rec, launches
 
 
+CONV_SCALE, CONV_SIDE = "7b", 560
+CONV_ARGS = ["--scale", CONV_SCALE, "--quant", "int8", "--n-samples", "64", "--img-side",
+             str(CONV_SIDE), "--batch-size", "1", "--save-every", "0", "--log-every", "1"]
+CONV_STEPS = 100
+CONV_RESUME_STEPS = 105
+CONV_SPLIT_STEP = 103  # an interrupted resume: 100 -> 103, then -> 105
+CONV_HELD_OUT = 8  # held-out synthetic images, drawn with CONV_HELD_SEED
+CONV_HELD_SEED = 1
+CONV_NEW_TOKENS = 16
+CONV_GRPO_STEPS = 30
+CONV_GRPO = ["--grpo", "--scale", "tiny", "--steps", str(CONV_GRPO_STEPS), "--grpo-probe-every",
+             "15"]
+CONV_GRPO_VARYING = ["--grpo", "--scale", "tiny", "--steps", "3", "--grpo-probe-every", "3",
+                     "--grpo-score", "conv_char_parity"]
+CONV_SWEEP = ["--layers", "2,18", "--steps", "10"]
+CONV_TRAIN_KERNELS = ["window_attention_fused", "flash_attention[*]"] + [
+    f"{fn}[{k}]" for fn in ("flash_attention_lse", "flash_attention_backward")
+    for k in ("causal", "dqk_ne_dv")]
+CONV_SERVE_KERNELS = ["window_attention_fused", "flash_attention[causal]",
+                      "flash_attention[dqk_ne_dv]"]
+CONV_GRPO_KERNELS = ["window_attention_fused", "flash_attention[causal]",
+                     "flash_attention_lse[causal]", "flash_attention_backward[causal]"]
+
+
+def conv_keep_sets(runner, preps, cap_ratio: float):
+    """Pruned ``generate`` (CONV_NEW_TOKENS tokens) on each held-out batch
+    -> per image: kept tokens, the cap, precision and recall against the
+    box's tokens (``ref_token_masks``), the prune ratio; and the tokens."""
+    rows, toks = [], []
+    for prep in preps:
+        res = runner.generate(prep, max_new_tokens=CONV_NEW_TOKENS)
+        if res.keep_img is None or not np.isfinite(res.mask_logits).all():
+            raise AssertionError("the held-out generate kept no set or gave non-finite logits")
+        toks.append(res.sequences)
+        for b in range(res.keep_img.shape[0]):
+            n = int(prep.n_img_tokens[b])
+            keep, box = res.keep_img[b, :n].astype(bool), prep.ref_token_masks[b, :n].astype(bool)
+            hit = int((keep & box).sum())
+            rows.append({"kept": int(keep.sum()), "cap": cap_ratio * n,
+                         "box_tokens": int(box.sum()),
+                         "precision": hit / max(int(keep.sum()), 1),
+                         "recall": hit / max(int(box.sum()), 1),
+                         "prune_ratio": float(res.prune_ratio[b])})
+    return rows, toks
+
+
+def conv_served(base_run, out_dir: Path, work: Path):
+    """Phase (c) 3: the trained modules on a fresh 7B in the bench's (q8)
+    serving tier, its base byte-equal to the training base, against the
+    same base with the seed's untrained modules, on held-out images."""
+    import dataclasses
+
+    import torch
+
+    from glimpseprune_torch.evalsuite.data import load_image
+    from glimpseprune_torch.models.qwen2_5_vl.inputs import prepare_inputs
+    from glimpseprune_torch.models.qwen2_5_vl.runner import GlimpsePruneRunner
+    from glimpseprune_torch.persistence import load_new_modules
+    from glimpseprune_torch.tools.common import base_checksum, bench_config, tier_config
+    from glimpseprune_torch.tools.convergence_run import make_synth_corpus, scale_inputs
+    from glimpseprune_torch.training.train_step import new_module_filter
+    from glimpseprune_torch.utils.fastinit import device_random_params
+
+    cfg = tier_config(bench_config(CONV_SCALE), "int8")  # W8A8 prefill, int8 KV
+    model = device_random_params(cfg, 0, "cuda", torch.bfloat16).set_config(cfg)
+    checksum = base_checksum(model)
+    if checksum != base_run.summary["base_checksum_after"]:
+        raise AssertionError("the serving 7B's base differs from the training base: "
+                             f"{checksum} vs {base_run.summary['base_checksum_after']}")
+    untrained = {k: v.clone() for k, v in model.state_dict().items() if new_module_filter(k)}
+    trained = {k: v for k, v in base_run.model.state_dict().items() if new_module_filter(k)}
+    moved = sorted(k for k in untrained if not torch.equal(untrained[k].float(),
+                                                           trained[k].float()))
+    if not moved:
+        raise AssertionError("training left every GlimpsePrune module as the seed drew it")
+    data_cfg, img_dir = make_synth_corpus(str(work / "heldout"), CONV_HELD_OUT, CONV_SIDE,
+                                          seed=CONV_HELD_SEED)
+    (seq_mult, patch_mult), tokenize = scale_inputs(CONV_SCALE)
+    with open(data_cfg["datasets"][0]["json_path"]) as f:
+        rows = [json.loads(x) for x in f]
+    prompt = ([cfg.vision_start_token_id, cfg.image_token_id, cfg.vision_end_token_id]
+              + tokenize(rows[0]["question"]))
+    preps = []
+    for i in range(0, len(rows), 2):
+        pair = rows[i:i + 2]
+        preps.append(prepare_inputs(
+            cfg, [prompt] * len(pair),
+            [load_image(str(Path(img_dir) / "cot" / "synth" / r["image"])) for r in pair],
+            normed_bboxes=[[[c / r["width"] if j % 2 == 0 else c / r["height"]
+                             for j, c in enumerate(r["bboxs"][0])]] for r in pair],
+            seq_multiple=seq_mult, patch_multiple=patch_mult))
+    arms = {}
+    reset_launches()
+    for arm in ("trained", "untrained"):
+        if arm == "trained":
+            _, saved = load_new_modules(model, str(out_dir))
+            model.set_config(dataclasses.replace(cfg, gp=saved.gp))
+        else:
+            params = dict(model.named_parameters())
+            with torch.no_grad():
+                for k, v in untrained.items():
+                    params[k].copy_(v)
+            model.set_config(cfg)
+        runner = GlimpsePruneRunner(model.cfg, model)
+        t0 = time.perf_counter()
+        keep, toks = conv_keep_sets(runner, preps, cfg.gp.max_remain_ratio)
+        torch.cuda.synchronize()
+        arms[arm] = {"images": keep, "s": time.perf_counter() - t0,
+                     "mean_precision": float(np.mean([r["precision"] for r in keep])),
+                     "mean_recall": float(np.mean([r["recall"] for r in keep])),
+                     "mean_kept": float(np.mean([r["kept"] for r in keep])),
+                     "tokens_in_vocab": bool(all(((t >= 0) & (t < cfg.text.vocab_size)).all()
+                                                 for t in toks))}
+        del runner
+    launches = read_launches(CONV_SERVE_KERNELS)
+    del model
+    torch.cuda.empty_cache()
+    return {"checksum_equal": True, "modules_moved": len(moved), "modules": len(untrained),
+            **arms}, launches
+
+
+def conv_resume(argv, out: Path, data: Path, base_rows):
+    """Phase (c) 2: resume the step-100 checkpoint to CONV_RESUME_STEPS
+    (steps continue at 101, the first 100 rows carried over), and the same
+    interrupted at CONV_SPLIT_STEP: its last steps equal the uninterrupted
+    resume's (test_trainer_resume_equals_uninterrupted's bound)."""
+    import torch
+
+    from glimpseprune_torch.tools import convergence_run
+
+    def run(steps, src, dst):
+        r = convergence_run.main(argv + ["--steps", str(steps), "--resume-from", str(src),
+                                         "--out", str(dst), "--data-root", str(data)])
+        hist, model = r.history, r.model
+        del r, model
+        torch.cuda.empty_cache()
+        return hist
+
+    keys = ("loss", "loc_loss", "le_loss", "mask_iou")
+    whole = run(CONV_RESUME_STEPS, out / "base", out / "resume")
+    if [h["step"] for h in whole] != list(range(1, CONV_RESUME_STEPS + 1)):
+        raise AssertionError(f"the resumed history's steps: {[h['step'] for h in whole]}")
+    if whole[:CONV_STEPS] != json.loads(json.dumps(base_rows)):
+        raise AssertionError("the resumed history does not carry the first run's rows")
+    run(CONV_SPLIT_STEP, out / "base", out / "split")
+    split = run(CONV_RESUME_STEPS, out / "split", out / "split2")
+    worst = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-30)
+                for a, b in zip(split[CONV_SPLIT_STEP:], whole[CONV_SPLIT_STEP:]) for k in keys)
+    if not worst <= 1e-6:
+        raise AssertionError(f"an interrupted resume differs from the uninterrupted one: {worst}")
+    return {"steps": [h["step"] for h in whole[CONV_STEPS:]], "split_rel_diff": worst,
+            "loss": [h["loss"] for h in whole[CONV_STEPS:]]}
+
+
+def conv_char_parity(queries, answers, completions, **kw):
+    """A reward that varies across a random policy's samples (the first
+    char's code point mod 2), so that the advantages are not all zero."""
+    return [float(ord(c[0]) % 2) if c else 0.0 for c in completions]
+
+
+def conv_grpo_run(argv, out: Path, steps: int):
+    """One GRPO-stage run through ``main(argv)``: rewards and losses finite,
+    the frozen base unchanged, ``steps`` rows logged -> (history, summary,
+    {"a", "b": adapter leaves that moved}, adapter leaves)."""
+    import torch
+
+    from glimpseprune_torch.tools import convergence_run
+    from glimpseprune_torch.training.lora import lora_tree, make_lora_params
+
+    run = convergence_run.main(argv + ["--out", str(out)])
+    hist, s = run.history, run.summary
+    keys = ("mean_score", "reward_loss", "kd_loss", "grpo_total", "loss", "loc_loss",
+            "le_loss")
+    bad = [(h["step"], k) for h in hist for k in keys if not np.isfinite(h[k])]
+    if bad:
+        raise AssertionError(f"GRPO stage: non-finite {bad[:4]}")
+    if s["base_checksum_before"] != s["base_checksum_after"]:
+        raise AssertionError("GRPO stage: the frozen base changed")
+    logged = json.loads((out / "grpo_log.json").read_text())
+    if len(logged) != len(hist) or len(hist) != steps:
+        raise AssertionError(f"GRPO stage: grpo_log.json holds {len(logged)} rows")
+    start = make_lora_params(run.model, rank=4, seed=0)
+    now = lora_tree(run.model)
+    moved = {part: sum(not torch.equal(now[k][part], start[k][part]) for k in start)
+             for part in ("a", "b")}
+    del run
+    torch.cuda.empty_cache()
+    return hist, s, moved, len(start)
+
+
+def conv_grpo(work: Path):
+    """Phase (c) 4: the GRPO stage at tiny on the card, as asked (its reward
+    is JAX's precision_match), then 3 steps under a reward that varies, in
+    which the policy gradient must move the adapters' B."""
+    from glimpseprune_torch.training.grpo import SCORE_FUNCS
+
+    hist, s, moved, n = conv_grpo_run(CONV_GRPO, work / "grpo", CONV_GRPO_STEPS)
+    if not moved["a"] + moved["b"]:
+        raise AssertionError("GRPO stage: the adapters did not move")
+    if "conv_char_parity" not in SCORE_FUNCS:
+        SCORE_FUNCS.register("conv_char_parity")(conv_char_parity)
+    _, ps, pmoved, _ = conv_grpo_run(CONV_GRPO_VARYING, work / "grpo_varying", 3)
+    if not pmoved["b"]:
+        raise AssertionError(f"GRPO stage: a varying reward left B as drawn ({pmoved})")
+    probes = [h for h in hist if "probe_acc_policy" in h]
+    return {"s_per_step": s["s_per_step"], "reward_first": s["first_reward"],
+            "reward_last": s["last_reward"],
+            "rewarded_steps": sum(h["mean_score"] > 0 for h in hist),
+            "adapters_moved": moved, "adapters": n,
+            "probe": [(h["step"], h["probe_acc_policy"], h["probe_acc_frozen"]) for h in probes],
+            "kd_loss_last": hist[-1]["kd_loss"], "varying_reward_moved": pmoved,
+            "varying_reward": [ps["first_reward"], ps["last_reward"]]}
+
+
+def conv_demo_int8(image_path: str):
+    """Phase (c) 6: ``demo --int8`` at 7B width (20 layers): the model's
+    linears hold int8 weights (the model that ``quantize_model`` saw), the
+    answer's ids lie in the vocabulary and the mask logits are finite."""
+    import torch
+
+    from glimpseprune_torch import quantization
+    from glimpseprune_torch.models.qwen2_5_vl.runner import _weight_tier
+    from glimpseprune_torch.tools import demo
+
+    seen = []
+    real = quantization.quantize_model
+
+    def spy(model, mode, *a, **kw):
+        seen.append(model)
+        return real(model, mode, *a, **kw)
+
+    quantization.quantize_model = spy
+    try:
+        t0 = time.perf_counter()
+        res = demo.main(["--image", image_path, "--question", "Where is the bright rectangle?",
+                         "--max-new-tokens", str(CONV_NEW_TOKENS), "--int8", "--model-config",
+                         cut_config_dir(), "--seed", "0"])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        quantization.quantize_model = real
+    [model] = seen
+    tiers = {"text": _weight_tier(model.text), "vision": _weight_tier(model.visual)}
+    vocab = model.cfg.text.vocab_size
+    ok = (tiers == {"text": "int8", "vision": "int8"}
+          and bool(((res.sequences >= 0) & (res.sequences < vocab)).all())
+          and bool(np.isfinite(res.mask_logits).all()))
+    if not ok:
+        raise AssertionError(f"demo --int8: tiers {tiers}, tokens {res.sequences}")
+    del seen, model
+    torch.cuda.empty_cache()
+    return {"s": secs, "tiers": tiers, "tokens": res.sequences[0].tolist(),
+            "kept": int(res.keep_img.sum()), "prune_ratio": float(res.prune_ratio[0])}
+
+
+def run_convergence_phase(smi):
+    """Phase (c): the synthetic-boxes training tools at full width on the
+    card (after phase 16, when the card holds no model) -> (record,
+    {part: launches})."""
+    import tempfile
+
+    import torch
+
+    from glimpseprune_torch.tools import convergence_run, sweep_reduce_quality
+
+    t_phase = time.perf_counter()
+    (ROOT / "build").mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_conv_", dir=ROOT / "build"))
+    data = work / "data"
+    rec, launches, part_s = {}, {}, {}
+    mark = [time.perf_counter()]
+
+    def lap(part):  # the part's seconds, model builds and checks included
+        now = time.perf_counter()
+        part_s[part], mark[0] = now - mark[0], now
+
+    # 1. the base stage: 7B (q8) weights-only, 100 steps
+    reset_launches()
+    base = convergence_run.main(CONV_ARGS + ["--steps", str(CONV_STEPS), "--out",
+                                             str(work / "base"), "--data-root", str(data)])
+    torch.cuda.synchronize()
+    launches["base"] = read_launches(CONV_TRAIN_KERNELS)
+    hist, s = base.history, base.summary
+    if [h["step"] for h in hist] != list(range(1, CONV_STEPS + 1)):
+        raise AssertionError(f"base stage history steps {[h['step'] for h in hist][:8]}...")
+    bad = [(h["step"], k) for h in hist for k in ("loss", "loc_loss", "le_loss")
+           if not np.isfinite(h[k])]
+    if bad:
+        raise AssertionError(f"base stage: non-finite {bad[:4]}")
+    mean = lambda rows, k: float(np.mean([h[k] for h in rows]))  # noqa: E731
+    curve = {"loss_first5": mean(hist[:5], "loss"), "loss_last20": mean(hist[-20:], "loss"),
+             "iou_first5": mean(hist[:5], "mask_iou"), "iou_last20": mean(hist[-20:], "mask_iou")}
+    if not (curve["loss_last20"] < curve["loss_first5"]
+            and curve["iou_last20"] > curve["iou_first5"]):
+        raise AssertionError(f"the base stage did not converge: {curve}")
+    if s["base_checksum_before"] != s["base_checksum_after"]:
+        raise AssertionError("the base stage changed the frozen int8 base")
+    rec["base"] = {**curve, **{k: s[k] for k in ("s_per_step", "host_s", "host_share",
+                                                  "peak_gib", "wall_s")},
+                   "s_per_step_after_first": (hist[-1]["elapsed_s"] - hist[0]["elapsed_s"])
+                   / (len(hist) - 1),
+                   "at": {h["step"]: {k: h[k] for k in ("loss", "mask_iou", "mask_precision",
+                                                        "mask_recall")}
+                          for h in hist if h["step"] in (1, 50, 100)},
+                   "checksum": s["base_checksum_after"]}
+    print(f"phase (c) base stage on {smi}: " + json.dumps(rec["base"]), flush=True)
+    lap("base")
+
+    # 3. the trained modules served (before the resume runs replace the model)
+    base_rows = hist
+    served, launches["serve"] = conv_served(base, work / "base", work)
+    rec["served"] = served
+    base.model = None
+    del base
+    torch.cuda.empty_cache()
+    tr, un = served["trained"], served["untrained"]
+    print(f"convergence: trained modules mean precision {tr['mean_precision']:.4f} recall "
+          f"{tr['mean_recall']:.4f} kept {tr['mean_kept']:.1f}; untrained "
+          f"{un['mean_precision']:.4f} / {un['mean_recall']:.4f} / {un['mean_kept']:.1f} "
+          f"(cap {tr['images'][0]['cap']:.0f}) on {smi}", flush=True)
+    for arm in ("trained", "untrained"):
+        print(f"phase (c) {arm} keep sets: " + json.dumps(served[arm]["images"]))
+    if not tr["mean_precision"] > un["mean_precision"]:
+        raise AssertionError("the trained modules' keep sets are no more precise than the "
+                             f"untrained ones': {tr['mean_precision']} vs {un['mean_precision']}")
+    lap("serve")
+
+    # 2. resume
+    reset_launches()
+    rec["resume"] = conv_resume(CONV_ARGS, work, data, base_rows)
+    launches["resume"] = read_launches(CONV_TRAIN_KERNELS)
+    print(f"phase (c) resume on {smi}: " + json.dumps(rec["resume"]), flush=True)
+    lap("resume")
+
+    # 4. the GRPO stage at tiny
+    reset_launches()
+    rec["grpo"] = conv_grpo(work)
+    launches["grpo"] = read_launches(CONV_GRPO_KERNELS)
+    print(f"phase (c) GRPO stage on {smi}: " + json.dumps(rec["grpo"]), flush=True)
+    lap("grpo")
+
+    # 5. the sweep
+    reset_launches()
+    sweep = sweep_reduce_quality.main(CONV_SWEEP + ["--data-root", str(work / "sweep")])
+    launches["sweep"] = read_launches(["flash_attention_backward[causal]"])
+    written = json.loads((work / "sweep" / "sweep_reduce_layer.json").read_text())
+    if written != sweep or len(written["rows"]) != 2 or not all(
+            np.isfinite(r["iou_tiny8_proxy"]) for r in written["rows"]):
+        raise AssertionError(f"sweep_reduce_quality wrote {written}")
+    rec["sweep"] = written["rows"]
+    lap("sweep")
+
+    # 6. demo --int8
+    img = work / "heldout_0.npy"
+    np.save(img, np.random.default_rng(CONV_HELD_SEED).integers(
+        0, 256, (CONV_SIDE, CONV_SIDE, 3), dtype=np.uint8))
+    reset_launches()
+    rec["demo_int8"] = conv_demo_int8(str(img))
+    launches["demo_int8"] = read_launches(["window_attention_fused", "flash_attention[causal]"])
+    print(f"phase (c) demo --int8 on {smi}: " + json.dumps(rec["demo_int8"]), flush=True)
+    lap("demo_int8")
+    shutil.rmtree(work)
+    rec["phase_s"], rec["part_s"] = time.perf_counter() - t_phase, part_s
+    print(f"phase (c) on {smi}: {rec['phase_s']:.1f} s " + json.dumps(
+        {k: round(v, 1) for k, v in part_s.items()}))
+    return rec, launches
+
+
 def main() -> int:
     smi = find_card()
     import torch
@@ -6481,6 +6891,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     tools, tools_launches = run_tools_phase(cfg, evaluation.pop("outputs"), smi)
     lap("16 tools")
+    # phase (c): the synthetic-boxes training tools (no model held)
+    torch.cuda.empty_cache()
+    convergence, conv_launches = run_convergence_phase(smi)
+    lap("(c) convergence")
 
     for k in kernels:
         path = train_launches if k["name"].startswith(("flash_attention_lse",
@@ -6526,6 +6940,9 @@ def main() -> int:
                               for part, counts in eval_launches.items()}
     for k in kernels:  # phase 16: the profilers, the demo server and the attention maps
         k["launches_tools"] = tools_launches.get(k["name"], 0)
+    for k in kernels:  # phase (c): the training tools' parts
+        k["launches_conv"] = {part: counts.get(k["name"], 0)
+                              for part, counts in conv_launches.items()}
     for k in kernels:  # phase (m): each rank's launches on the mesh
         k["launches_tp"] = [r["tp_launches"].get(k["name"], 0) for r in sp_ranks]
     for k in kernels:
@@ -6578,6 +6995,15 @@ def main() -> int:
           + f"; train step side {ts['img_side']} {ts['train_step_s'] * 1e3:.1f} ms, peak "
           f"{ts['peak_gib']:.2f} GiB; GRPO chunked {gr['step_chunked']}, full logits "
           f"{gr['step_full_logits']}; phase {tools['phase_s']:.1f} s")
+    cb, cs, cg = convergence["base"], convergence["served"], convergence["grpo"]
+    print(f"convergence tools on {smi}: 7B (q8) base stage {cb['s_per_step']:.3f} s/step "
+          f"({cb['s_per_step_after_first']:.3f} after the first), host share "
+          f"{cb['host_share']:.3f}, peak {cb['peak_gib']:.2f} GiB, loss {cb['loss_first5']:.3f} -> "
+          f"{cb['loss_last20']:.3f}, IoU {cb['iou_first5']:.3f} -> {cb['iou_last20']:.3f}; "
+          f"held-out keep-set precision trained {cs['trained']['mean_precision']:.3f} / "
+          f"untrained {cs['untrained']['mean_precision']:.3f}; GRPO {cg['s_per_step']:.3f} "
+          f"s/step, reward {cg['reward_first']:.3f} -> {cg['reward_last']:.3f}; phase "
+          f"{convergence['phase_s']:.1f} s")
     for tier, d in decode_checks.items():
         sv = d["serving"]
         print(f"decode {tier} on {smi}: " + ", ".join(
@@ -6610,7 +7036,8 @@ def main() -> int:
                       "continuous_serving": continuous,
                       "continuous_bf16_s": continuous_s, "glimpse_plus": glimpse_plus,
                       "llava": llava,
-                      "evaluation": evaluation, "tools": tools, "phase_s": laps,
+                      "evaluation": evaluation, "tools": tools, "convergence": convergence,
+                      "phase_s": laps,
                       "total_s": time.perf_counter() - t_start}, default=str))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import hashlib
 import json
 import os
 import statistics
@@ -173,6 +174,53 @@ def add_profile_args(ap: argparse.ArgumentParser, quant_default: str = "") -> No
     ap.add_argument("--json", action="store_true", help="end with one JSON line")
 
 
+def bench_config(scale: str, reduce_layer_override: Optional[int] = None) -> ModelConfig:
+    """The bench's model configs (copy of ``bench.build_cfg``): "1b", "3b"
+    and "7b" with the reference's 3B GlimpsePrune recipe (AttnFuserV1 of
+    256 with a 512 visual condition over ViT layers 31, 23, 15, 7, attention
+    logits harvested, a cap of 0.08, no ori-attention supervision), its
+    harvest layer moved to 18 of 28 (7b) or 15 of 24 (1b); "tiny" is
+    ``tiny_test_config()``. ``reduce_layer_override`` moves the reduce
+    layer (the harvest layer to at most it). Not
+    ``configs/model_qwen2_5_7b_gp``, which keeps the reference 7B recipe."""
+    from glimpseprune_torch.config import GPConfig, TextConfig, VisionConfig, tiny_test_config
+
+    if scale == "tiny":
+        cfg = tiny_test_config()
+        text, vision, gp = cfg.text, cfg.vision, cfg.gp
+    else:
+        gp = GPConfig(selected_layers=(23,), reduce_layer=23, use_attention_logits=True,
+                      attn_fuse_type="AttnFuserV1", attn_fuse_size=256, visual_cond_size=512,
+                      attn_fuse_num_heads=4, selected_visual_layers=(31, 23, 15, 7),
+                      le_layers=tuple(range(36)), le_length=1, max_remain_ratio=0.08,
+                      min_remain_num=1, ori_attn_supervision=False)
+    if scale == "7b":
+        text = TextConfig(vocab_size=152064, hidden_size=3584, intermediate_size=18944,
+                          num_hidden_layers=28, num_attention_heads=28, num_key_value_heads=4)
+        vision = VisionConfig(out_hidden_size=3584)
+        gp = dataclasses.replace(gp, selected_layers=(18,), reduce_layer=18,
+                                 le_layers=tuple(range(28)))
+    elif scale == "3b":
+        text = TextConfig(vocab_size=151936, hidden_size=2048, intermediate_size=11008,
+                          num_hidden_layers=36, num_attention_heads=16, num_key_value_heads=2)
+        vision = VisionConfig(out_hidden_size=2048)
+    elif scale == "1b":
+        text = TextConfig(vocab_size=151936, hidden_size=1536, intermediate_size=8192,
+                          num_hidden_layers=24, num_attention_heads=12, num_key_value_heads=2,
+                          mrope_section=(16, 24, 24), hidden_act="silu")
+        vision = VisionConfig(out_hidden_size=1536)
+        gp = dataclasses.replace(gp, selected_layers=(15,), reduce_layer=15,
+                                 le_layers=tuple(range(24)))
+    elif scale != "tiny":
+        raise ValueError(scale)
+    if reduce_layer_override is not None:
+        gp = dataclasses.replace(gp, reduce_layer=reduce_layer_override,
+                                 selected_layers=(min(gp.selected_layers[0],
+                                                      reduce_layer_override),))
+    base = tiny_test_config() if scale == "tiny" else ModelConfig()
+    return dataclasses.replace(base, vision=vision, text=text, gp=gp)
+
+
 def tier_config(cfg: ModelConfig, quant: str, kv_quant: Optional[str] = None,
                 weights_only: bool = False) -> ModelConfig:
     """cfg in a QUANT_TIERS tier ("" leaves the weights; ``weights_only``:
@@ -272,3 +320,30 @@ def emit(record: Dict[str, Any], as_json: bool) -> Dict[str, Any]:
     if as_json:
         print(json.dumps(record))
     return record
+
+
+def base_checksum(model: torch.nn.Module) -> str:
+    """A checksum of the frozen base's bytes: every state-dict tensor
+    outside the GlimpsePrune modules and the LoRA adapters, each viewed as
+    bytes b_i and summed exactly on its own device as (sum b_i, sum (i mod
+    65521 + 1) b_i) in int64, the pairs hashed in state-dict order. Two
+    models of the same tiers and layout agree iff (up to a collision)
+    their frozen tensors hold the same bytes."""
+    from glimpseprune_torch.training.train_step import new_module_filter
+
+    chunk = 1 << 24
+    sums = []
+    for name, t in model.state_dict().items():
+        if new_module_filter(name) or "lora_" in name.rsplit(".", 1)[-1]:
+            continue
+        b = t.detach().contiguous().reshape(-1).view(torch.uint8)
+        s1 = torch.zeros((), dtype=torch.int64, device=b.device)
+        s2 = torch.zeros((), dtype=torch.int64, device=b.device)
+        for i in range(0, b.numel(), chunk):
+            c = b[i:i + chunk].to(torch.int64)
+            w = torch.arange(i, i + c.numel(), dtype=torch.int64, device=b.device) % 65521 + 1
+            s1 += c.sum()
+            s2 += (c * w).sum()
+        sums.append((name, s1, s2))
+    words = ";".join(f"{name}:{int(s1)}:{int(s2)}" for name, s1, s2 in sums)
+    return hashlib.sha256(words.encode()).hexdigest()[:16]

@@ -3,7 +3,9 @@ counterpart of tools/demo.py.
 
 Loads a model, answers one question about one image, and shows the
 kept-token mask as ASCII (and, with --overlay, a dimmed-overlay PNG, for
-which PIL is imported then). Images may be ``.npy`` arrays.
+which PIL is imported then). Images may be ``.npy`` arrays. ``--int8``
+serves the model's weights in int8, weight-only (``quantize_model`` after
+any ``--new-modules``, as the JAX demo orders it).
 
   python -m glimpseprune_torch.tools.demo --image cat.jpg --question "What is on the table?" \\
       --hf-model /path/Qwen2.5-VL-7B-Instruct --new-modules ckpt/gp --overlay out.png
@@ -29,6 +31,8 @@ def main(argv: Optional[Sequence[str]] = None):
     ap.add_argument("--no-selection", action="store_true")
     ap.add_argument("--max-new-tokens", type=int, default=128)
     ap.add_argument("--overlay", default=None, help="write dimmed-mask PNG here")
+    ap.add_argument("--int8", action="store_true",
+                    help="weight-only int8 serving (the model quantized after --new-modules)")
     ap.add_argument("--stream", action="store_true",
                     help="print tokens as they decode (reference demo_gp.py "
                     "TextIteratorStreamer); implies do_selection")
@@ -46,6 +50,11 @@ def main(argv: Optional[Sequence[str]] = None):
     cfg, model, tok = load_model(args, dict(max_remain_ratio=args.max_remain_ratio,
                                             reduce_threshold=args.reduce_threshold))
     tokenize, detokenize = text_codec(tok)
+    if args.int8:
+        from glimpseprune_torch.quantization import quantize_model, quantized_config
+
+        cfg = quantized_config(cfg, "int8")
+        quantize_model(model, "int8", cfg=cfg)
 
     image = load_image(args.image)
     prompt = ([cfg.vision_start_token_id, cfg.image_token_id, cfg.vision_end_token_id]

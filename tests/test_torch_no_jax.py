@@ -55,7 +55,8 @@ def test_port_imports_no_jax():
                  "tools.profile_prefill", "tools.profile_decode", "tools.profile_train_step",
                  "tools.profile_grpo_step", "tools.demo_server", "tools.save_attn_maps",
                  "tools.compare_results", "tools.compare_server", "parallel.mesh",
-                 "utils.multihost"):
+                 "utils.multihost", "tools.convergence_run", "tools.sweep_reduce_quality",
+                 "tools.judge_loadtest"):
         assert f"glimpseprune_torch.{name}" in out["modules"]
     assert out["jax"] == []
 
