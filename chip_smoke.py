@@ -512,25 +512,11 @@ TRACE_MARK, TRACE_MARK_CYCLES = "spin_kernel", 20000
 WINDOWED_LAST_FULLATT = (7, 15, 23)
 
 
-def depth_cut(cfg, layers: int):
-    """cfg with its decoder cut to ``layers`` layers at full width: the
-    glimpse embeddings of the layers kept, the harvest and reduce layers
-    unchanged (they must lie below the cut). The script's budget of
-    seconds cuts the depth of earlier phases, never their widths or their
-    checks."""
-    import dataclasses
-
-    if not cfg.gp.reduce_layer < layers - 1:
-        raise ValueError(f"a cut to {layers} layers leaves no layer after the reduce layer")
-    gp = dataclasses.replace(cfg.gp, le_layers=tuple(l for l in cfg.gp.le_layers if l < layers))
-    return dataclasses.replace(cfg, gp=gp, text=dataclasses.replace(
-        cfg.text, num_hidden_layers=layers))
-
-
 def cut_config_dir() -> str:
     """The directory of the 7B's config cut to TOOLS_TEXT_LAYERS layers,
     which phase 16's tools load (written once, under build/)."""
     from glimpseprune_torch.config import ModelConfig
+    from glimpseprune_torch.tools.common import depth_cut
 
     out = ROOT / "build" / "chip_smoke_cut_7b"
     if not (out / "config.json").exists():
@@ -4330,6 +4316,7 @@ def sp_rank(rank: int, world: int, cases):
     from glimpseprune_torch.convert import init_random
     from glimpseprune_torch.models.qwen2_5_vl.runner import GlimpsePruneRunner
     from glimpseprune_torch.quantization import quantize_model
+    from glimpseprune_torch.tools.common import depth_cut
 
     from glimpseprune_torch.parallel import make_mesh
 
@@ -5165,6 +5152,7 @@ def llava_inputs():
     cc, images, prompts, prep, the random stream that drew them, for the
     phase's later draws)."""
     from glimpseprune_torch.models.llava.gp_model import load_llava_config
+    from glimpseprune_torch.tools.common import depth_cut
 
     cfg, cc = load_llava_config(str(ROOT / LLAVA_DIR), with_text_tower=True)
     cfg = depth_cut(cfg.replace_gp(max_remain_ratio=LLAVA_REMAIN_RATIO), LLAVA_TEXT_LAYERS)
@@ -6738,6 +6726,172 @@ def run_convergence_phase(smi):
     return rec, launches
 
 
+BENCH_TEXT_LAYERS = 20  # the depth floor: reduce layer 18 + 2
+BENCH_ROWS = 2  # each side's rows in the aggregated protocol
+BENCH_NEW_TOKENS = 32
+# the continuous ladder's first pruned rung: its batcher's cache, and its
+# second rung's (B // 2), exceed the card's memory, so both fail at
+# allocation and the side is served at JAX's last rung, 4
+BENCH_LADDER_ROWS_P = 4096
+BENCH_CONT_ROWS_U = 2
+BENCH_KERNELS = ["window_attention_fused", "flash_attention[causal]",
+                 "flash_attention[dqk_ne_dv]"]
+BENCH_FLAGS = ["--scale", "7b", "--quant", "int8", "--act-quant", "prefill", "--qk-int8", "0",
+               "--pv-int8", "0", "--kv-quant", "int8", "--max-pixels", str(BENCH_MAX_PIXELS),
+               "--serve-chunk", "1", "--serve-inter-steps", "8", "--decode",
+               str(BENCH_NEW_TOKENS), "--text-layers", str(BENCH_TEXT_LAYERS), "--seed", "0"]
+BENCH_LINE_KEYS = {"metric", "value", "unit", "vs_baseline", "detail"}
+
+
+def token_tie(name, got, want, want_logits):
+    """None where the token lists got and want [n] agree; else, at the first
+    token j that differs (token j comes from want_logits[j]), got's token
+    must lie within CROSS_LOGIT_RTOL of max |logit| of the reference's top
+    logit (a near tie the reference's arithmetic could have taken either
+    way), or raise. -> record."""
+    differ = np.nonzero(got != want)[0]
+    if not len(differ):
+        return None
+    j = int(differ[0])
+    lg = want_logits[j].float()
+    gap = ((lg.max() - lg[int(got[j])]) / lg.abs().max()).item()
+    rec = {"first_difference": j, "gap_rel": gap}
+    if not gap <= CROSS_LOGIT_RTOL:
+        raise AssertionError(f"{name}: token {j} differs from the reference's without a near "
+                             f"tie: {rec}")
+    return rec
+
+
+def bench_cache_bytes(cfg, b: int, r: int, n_dec: int, inter: int) -> int:
+    """The bytes of a ContinuousBatcher's int8 caches at capacity b (k and
+    v, int8 with fp32 scales per slot and head; serving.py's T)."""
+    need = -(-n_dec // inter)
+    t = r + (b + need + 1) * inter
+    per_slot = cfg.text.num_key_value_heads * (cfg.text.head_dim + 4)
+    return 2 * cfg.text.num_hidden_layers * b * t * per_slot
+
+
+def run_bench_phase(smi):
+    """Phase (p): bench.py's three serving protocols through
+    ``tools.bench_protocols`` on the 7B (q8) at full width, cut to
+    BENCH_TEXT_LAYERS layers, on the 16k-token image (after phase (c), when
+    the card holds no model): the aggregated protocol at BENCH_ROWS rows a
+    side, e2e with one iteration at the ~1.3k-token point, each side's tokens against the runner's
+    own decode over one row; then ``main`` in continuous mode from a pruned
+    rung whose cache cannot fit on the card, its requests' tokens against
+    the same references. -> (record, {part: launches})."""
+    import gc
+    import tempfile
+
+    import torch
+
+    from glimpseprune_torch.tools import bench_protocols as bp
+
+    t_phase = time.perf_counter()
+    (ROOT / "build").mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_bench_", dir=ROOT / "build"))
+    rows = ["--serve-rows-p", str(BENCH_ROWS), "--serve-rows-u", str(BENCH_ROWS)]
+    args = bp.parse_args(["--mode", "serving"] + BENCH_FLAGS + rows)
+    rec, launches, part_s = {}, {}, {}
+    mark = [time.perf_counter()]
+
+    def lap(part):
+        now = time.perf_counter()
+        part_s[part], mark[0] = now - mark[0], now
+
+    def line(name, result):
+        if set(result) != BENCH_LINE_KEYS or not np.isfinite(result["value"]):
+            raise AssertionError(f"bench_protocols {name}: the line {result}")
+        print(f"phase (p) bench_protocols {name} on {smi}: " + json.dumps(result), flush=True)
+        return result
+
+    s = bp.setup(args)
+    cfg, runner = s.cfg, s.runner
+    lap("setup")
+    # 1. the aggregated protocol
+    reset_launches()
+    serving = bp.run_serving(args, s=s)
+    torch.cuda.synchronize()
+    launches["serving"] = read_launches(BENCH_KERNELS)
+    rec["serving"] = {"line": line("serving", serving.result), "sides": serving.sides}
+    lap("serving")
+    # 2. e2e, one iteration of each timing
+    # at the ~1.3k-token point (BENCH_MAX_PIXELS=0): the phase's budget
+    e2e_args = bp.parse_args(["--mode", "e2e"] + BENCH_FLAGS + [
+        "--max-pixels", "0", "--iters", "1", "--decode-iters", "1"])
+    reset_launches()
+    e2e = bp.run_e2e(e2e_args, model=s.model)
+    torch.cuda.synchronize()
+    launches["e2e"] = read_launches(BENCH_KERNELS)
+    rec["e2e"] = {"line": line("e2e", e2e.result), "sides": e2e.sides}
+    for side, toks in e2e.tokens.items():
+        if toks.shape != (1, BENCH_NEW_TOKENS) or not ((toks >= 0) & (
+                toks < cfg.text.vocab_size)).all():
+            raise AssertionError(f"e2e {side} decode gave {toks}")
+    lap("e2e")
+    # the references: the runner's prefill of one row and its captured
+    # decode step replayed one step at a time
+    refs, checks = {}, {}
+    with torch.inference_mode():
+        for side in ("pruned", "unpruned"):
+            pre = runner.prefill(s.prep, do_selection=side == "pruned")
+            toks, lg = stepwise_decode(runner, one_row(pre), BENCH_NEW_TOKENS)
+            refs[side] = (toks, [x.float().cpu() for x in lg])
+            del pre, lg
+    for side, seqs in serving.tokens.items():
+        checks[f"serving {side}"] = {
+            "rows_identical": bool((seqs == seqs[0]).all()),
+            "ties": [token_tie(f"serving {side} row {i}", row, *refs[side])
+                     for i, row in enumerate(seqs)]}
+        print(f"phase (p) serving {side} tokens against the runner's decode: "
+              + json.dumps(checks[f"serving {side}"]), flush=True)
+    lap("references")
+    del s, runner, e2e
+    gc.collect()
+    torch.cuda.empty_cache()
+    # 3. continuous, each side in its own processes down JAX's ladder
+    r_p = serving.sides["pruned"]["T"] - BENCH_NEW_TOKENS
+    total = torch.cuda.get_device_properties(0).total_memory
+    over = [bench_cache_bytes(cfg, b, r_p, BENCH_NEW_TOKENS, 8)
+            for b in (BENCH_LADDER_ROWS_P, BENCH_LADDER_ROWS_P // 2)]
+    if not min(over) > total:
+        raise AssertionError(f"the failing rungs' caches {over} fit in the card's {total} bytes")
+    cont = bp.main(["--mode", "continuous"] + BENCH_FLAGS + [
+        "--serve-rows-p", str(BENCH_LADDER_ROWS_P), "--serve-rows-u", str(BENCH_CONT_ROWS_U),
+        "--save-tokens", str(work)])
+    line("continuous", cont.result)
+    rungs = {side: cont.sides[side]["rungs"] for side in ("pruned", "unpruned")}
+    want_rungs = {"pruned": [{"B": BENCH_LADDER_ROWS_P, "outcome": "oom"},
+                             {"B": BENCH_LADDER_ROWS_P // 2, "outcome": "oom"},
+                             {"B": 4, "outcome": "served"}],
+                  "unpruned": [{"B": BENCH_CONT_ROWS_U, "outcome": "served"}]}
+    if rungs != want_rungs:
+        raise AssertionError(f"continuous ladder: {rungs}, not {want_rungs}")
+    det = cont.result["detail"]
+    if (det["pruned_batch"], det["unpruned_batch"]) != (4, BENCH_CONT_ROWS_U):
+        raise AssertionError(f"continuous detail names B = {det['pruned_batch']} / "
+                             f"{det['unpruned_batch']}")
+    for side, seqs in cont.tokens.items():
+        checks[f"continuous {side}"] = {
+            "requests": len(seqs),
+            "equal_to_aggregated": int((seqs == serving.tokens[side][0]).all(1).sum()),
+            "ties": [token_tie(f"continuous {side} request {i}", row, *refs[side])
+                     for i, row in enumerate(seqs)]}
+        print(f"phase (p) continuous {side} tokens against the runner's decode: "
+              + json.dumps(checks[f"continuous {side}"]), flush=True)
+    if set(cont.tokens) != {"pruned", "unpruned"}:
+        raise AssertionError(f"continuous tokens for {sorted(cont.tokens)} only")
+    rec["continuous"] = {"line": cont.result, "rungs": rungs, "sides": cont.sides,
+                         "failing_rung_bytes": over, "card_bytes": total}
+    lap("continuous")
+    rec["checks"] = checks
+    shutil.rmtree(work)
+    rec["phase_s"], rec["part_s"] = time.perf_counter() - t_phase, part_s
+    print(f"phase (p) on {smi}: {rec['phase_s']:.1f} s " + json.dumps(
+        {k: round(v, 1) for k, v in part_s.items()}))
+    return rec, launches
+
+
 def main() -> int:
     smi = find_card()
     import torch
@@ -6746,6 +6900,7 @@ def main() -> int:
     from glimpseprune_torch.convert import init_random
     from glimpseprune_torch.models.qwen2_5_vl.inputs import prepare_inputs
     from glimpseprune_torch.models.qwen2_5_vl.runner import GlimpsePruneRunner
+    from glimpseprune_torch.tools.common import depth_cut
 
     t_start = time.perf_counter()
     laps, last = {}, [t_start]
@@ -6895,6 +7050,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     convergence, conv_launches = run_convergence_phase(smi)
     lap("(c) convergence")
+    # phase (p): bench.py's serving protocols through tools.bench_protocols (no model held)
+    torch.cuda.empty_cache()
+    bench_protocols, bench_launches = run_bench_phase(smi)
+    lap("(p) bench protocols")
 
     for k in kernels:
         path = train_launches if k["name"].startswith(("flash_attention_lse",
@@ -6943,6 +7102,9 @@ def main() -> int:
     for k in kernels:  # phase (c): the training tools' parts
         k["launches_conv"] = {part: counts.get(k["name"], 0)
                               for part, counts in conv_launches.items()}
+    for k in kernels:  # phase (p): the aggregated protocol's and e2e's launches in process
+        k["launches_bench"] = {part: counts.get(k["name"], 0)
+                               for part, counts in bench_launches.items()}
     for k in kernels:  # phase (m): each rank's launches on the mesh
         k["launches_tp"] = [r["tp_launches"].get(k["name"], 0) for r in sp_ranks]
     for k in kernels:
@@ -7004,6 +7166,15 @@ def main() -> int:
           f"untrained {cs['untrained']['mean_precision']:.3f}; GRPO {cg['s_per_step']:.3f} "
           f"s/step, reward {cg['reward_first']:.3f} -> {cg['reward_last']:.3f}; phase "
           f"{convergence['phase_s']:.1f} s")
+    bs, be = bench_protocols["serving"], bench_protocols["e2e"]["line"]["detail"]
+    print(f"bench protocols on {smi}: serving " + ", ".join(
+        f"{side} B={d['B']} {d['wall_s']:.2f} s ({d['prefill_share']:.3f} prefill), "
+        f"{d['tok_s']:.1f} tok/s, decode {d['decode_ms_per_step']:.2f} ms/step, peak "
+        f"{d['peak_gib']:.2f} GiB" for side, d in bs["sides"].items())
+        + f"; e2e prefill {be['prefill_pruned_ms']:.1f} / {be['prefill_unpruned_ms']:.1f} ms, "
+        f"decode ratio {be['decode_ratio']}; continuous "
+        + json.dumps(bench_protocols["continuous"]["rungs"]) + f"; phase "
+        f"{bench_protocols['phase_s']:.1f} s")
     for tier, d in decode_checks.items():
         sv = d["serving"]
         print(f"decode {tier} on {smi}: " + ", ".join(
@@ -7037,6 +7208,7 @@ def main() -> int:
                       "continuous_bf16_s": continuous_s, "glimpse_plus": glimpse_plus,
                       "llava": llava,
                       "evaluation": evaluation, "tools": tools, "convergence": convergence,
+                      "bench_protocols": bench_protocols,
                       "phase_s": laps,
                       "total_s": time.perf_counter() - t_start}, default=str))
     print(json.dumps({"kernels": kernels}))

@@ -221,6 +221,18 @@ def bench_config(scale: str, reduce_layer_override: Optional[int] = None) -> Mod
     return dataclasses.replace(base, vision=vision, text=text, gp=gp)
 
 
+def depth_cut(cfg: ModelConfig, layers: int) -> ModelConfig:
+    """cfg with its decoder cut to ``layers`` layers at full width: the
+    glimpse embeddings of the layers kept, the harvest and reduce layers
+    unchanged (they must lie below the cut). A run's budget of seconds cuts
+    the depth, never the widths."""
+    if not cfg.gp.reduce_layer < layers - 1:
+        raise ValueError(f"a cut to {layers} layers leaves no layer after the reduce layer")
+    gp = dataclasses.replace(cfg.gp, le_layers=tuple(l for l in cfg.gp.le_layers if l < layers))
+    return dataclasses.replace(cfg, gp=gp, text=dataclasses.replace(
+        cfg.text, num_hidden_layers=layers))
+
+
 def tier_config(cfg: ModelConfig, quant: str, kv_quant: Optional[str] = None,
                 weights_only: bool = False) -> ModelConfig:
     """cfg in a QUANT_TIERS tier ("" leaves the weights; ``weights_only``:

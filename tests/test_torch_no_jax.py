@@ -56,7 +56,8 @@ def test_port_imports_no_jax():
                  "tools.profile_grpo_step", "tools.demo_server", "tools.save_attn_maps",
                  "tools.compare_results", "tools.compare_server", "parallel.mesh",
                  "utils.multihost", "tools.convergence_run", "tools.sweep_reduce_quality",
-                 "tools.judge_loadtest"):
+                 "tools.judge_loadtest", "tools.bench_protocols", "tools.serving_frontier",
+                 "tools.sweep_reduce_layer"):
         assert f"glimpseprune_torch.{name}" in out["modules"]
     assert out["jax"] == []
 
