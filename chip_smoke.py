@@ -313,6 +313,26 @@ Phases, each of which raises on failure (the script then exits non-zero):
      int8 linears in both towers, ids in the vocabulary, finite mask
      logits. The kernels line carries the phase's launches as
      ``launches_conv`` (base, serve, resume, grpo, sweep, demo_int8).
+ (k) the ViT kernel sweeps (last, after phase (p); ``tools.
+     sweep_vision_attention`` sections 1 and 1b, ``sweep_vit_fullatt``,
+     ``i8attn_microbench --s-vit 65536``, each through ``run``) at the
+     16k-token image's 65,536 patches, SWEEP_ITERS timed calls a row: K1
+     at every heads-per-block count bit-equal to the shipped plan's output
+     and within phase 3's limits of its plain version; the (q8) windowed
+     block taken apart (the W8A8 products with their GEMMs and passes
+     apart, K1, the SwiGLU, the halves, the whole block in (q8) and
+     weight-only int8), K1's output inside the (q8) and the weight-only
+     block within phase 3's limits of its plain version on the qkv the
+     block gave it (each whole block's distance from the block with K1's
+     plain version printed, not held: every rounding after K1, W8A8's
+     int8 and bf16's, falls differently); dense, segmented and causal K2
+     and K7 in both PV flavours against their plain versions on
+     SWEEP_CHECK_ROWS q rows, beside SDPA's backends; one launch a call on
+     each wrapper's counter. Its K1, dense and segmented K2 and K7 rows at
+     65,536 join the kernels line (``"phase": "k"``; their plain ms over
+     the checked rows, ``plain_rows``); every row carries the phase's
+     launches as ``launches_sweeps``. The script's seconds print last,
+     beside its seconds before phase (k).
 Every kernel row carries its time (CUDA events over 10 calls) and
 ``device_ms``, the card's own time from torch.profiler, without the
 host's launch cost, its plain version's time, one PyTorch
@@ -346,6 +366,22 @@ from pathlib import Path
 
 import numpy as np
 
+from glimpseprune_torch.tools.kernel_ab import (
+    K7_MAX_RTOL,
+    K7_RMS_RTOL,
+    KERNEL_ATOL,
+    PEAK_BF16_FLOPS,
+    PEAK_HBM_BYTES,
+    PEAK_INT8_OPS,
+    bound,
+    cuda_ms,
+    device_ms,
+    device_ms_by_kernel,
+    nbytes,
+    rel_errors,
+    rel_within,
+)
+
 ROOT = Path(__file__).resolve().parent
 K1_SRC = "glimpseprune_torch/csrc/window_attention.cu"
 K1_REPLACES = "glimpseprune_tpu/ops/pallas/window_attention.py:133"
@@ -366,11 +402,6 @@ K9_REPLACES = {"flash_attention": "glimpseprune_tpu/ops/pallas/flash_attention.p
                "flash_attention_backward": "glimpseprune_tpu/ops/pallas/flash_attention.py:341",
                "flash_attention_int8": "glimpseprune_tpu/ops/pallas/flash_attention.py:191"}
 KERNEL_LIBS = ("window_attention", "flash_attention", "flash_attention_bwd", "int4_matmul")
-# Kernels run in bf16 and their plain versions in fp32 from the same bf16
-# inputs, so the two differ by the kernel's bf16 output rounding (half an
-# ulp: |x| * 2**-9, under 0.016 for the |x| < 8 these attention outputs
-# stay within) plus fp32 summation order (~1e-6). 2e-2 bounds both.
-KERNEL_ATOL = 2e-2
 # K3's dq, dk and dv are bf16 (rounding 2**-9 of the largest entry) from
 # fp32 sums taken in another order than the plain version's, over up to a
 # GQA group of 7 q heads times ~900 rows: 1e-2 of max |ref| bounds both.
@@ -390,31 +421,10 @@ INT4_RTOL = 4e-3
 # times the H100's 50 MB L2, as decode reads each layer's weights once.
 K4_CHECK_M = (8, 9, 16, 17, 33, 64, 100, 128)
 K4_COLD_BYTES = 150 * 10**6
-# K7 and its plain version run the same int8 arithmetic (exact integer
-# QK^T and, with pv_int8, PV sums) and differ by the kernel's bf16 output
-# rounding and the order of fp32 operations (exp2, the softmax sums, a
-# rint(p * 127) that falls on the other side of a half step). Its outputs
-# are small (~0.03 at the ViT shapes), so it is held relative to their
-# size in two measures: the largest error over max |ref| (bf16 rounding up
-# to 2**-8 of it, plus the fp32 order: 2**-7 bounds both) and the RMS error
-# over the RMS of ref (bf16 rounding ~2**-7 / sqrt(12) = 2.3e-3 at most:
-# 2**-8 bounds it with the fp32 order). The int8 tiers move the output by
-# more (int8 QK^T against bf16 ~8e-3 RMS, the int8 PV product 1.3e-2 to
-# 3e-2), so a kernel that dropped either fails; check_flash_int8 shows it
-# on every run by holding each kernel output against the other references.
-K7_MAX_RTOL = 2 ** -7
-K7_RMS_RTOL = 2 ** -8
-# K1 and K2 at the main path's shapes are held to the same two limits
-# beside KERNEL_ATOL, since their outputs are as small: like Pallas they
-# round P to bf16 before PV (unit roundoff 2**-8 of each probability, ~2.3e-3
-# RMS of the output) and round the output to bf16. Controls that must fail:
+# K1, K2 and K7 are held to kernel_ab's KERNEL_ATOL and its relative
+# limits (K7_MAX_RTOL, K7_RMS_RTOL, rel_within). Controls that must fail:
 # the plain version with P rounded to 4 significant bits (~2.7e-2 RMS off)
 # and, for K2, without key tile 0 (control_attention).
-# H100 SXM published peaks (NVIDIA data sheet, dense): the bf16 and int8
-# tensor rates and HBM bandwidth; bound_ms is stated against them.
-PEAK_BF16_FLOPS = 989e12
-PEAK_INT8_OPS = 1979e12
-PEAK_HBM_BYTES = 3.35e12
 # Each kernel's time as PERF.md's kernel table records it for the kernels
 # that the tensor-core K1, K8, K2 and K3 flavours, the two-pass K6 and the
 # one-launch K4 replace (K3's, K9 backward's and K4's from the last run
@@ -503,10 +513,6 @@ COMPRESSED_NEW_TOKENS = 8
 # the image-token budget of divprune, cdpruner and vscan (the papers' 128
 # setting): under every row's image-token count, so each row really prunes
 VISUAL_TOKEN_NUM = 128
-# device_ms_by_kernel: calls inside a trace before and after the timed ones
-TRACE_PAD_CALLS = 10
-# the kernel that torch.cuda._sleep launches, and its length (~10 us)
-TRACE_MARK, TRACE_MARK_CYCLES = "spin_kernel", 20000
 # full attention at three of the 7B's four blocks: the last one is windowed,
 # so its importance goes through K8 (a config that is not in configs/)
 WINDOWED_LAST_FULLATT = (7, 15, 23)
@@ -555,92 +561,6 @@ def build_kernels():
     secs = time.perf_counter() - t0
     print(f"kernel build: {secs:.1f} s")
     return secs
-
-
-def cuda_ms(fn, warmup: int = 2, iters: int = 10) -> float:
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def device_ms_by_kernel(fn, iters: int = 10, tries: int = 5, per_call=None,
-                        pad_calls: int = TRACE_PAD_CALLS):
-    """{kernel name: mean device ms per call} of the CUDA kernels that one
-    call of ``fn`` launches, from torch.profiler: the card's own time,
-    without the host's launch cost, which cuda_ms includes when the host is
-    slower than the card. A trace in a long-lived process can lose the
-    records of its first and its last kernels, up to several calls' worth,
-    and can hold records left over from an earlier trace, so ``pad_calls``
-    calls run before and after the ``iters`` that count (fewer for a call
-    of thousands of kernels, whose trace takes the host seconds to read),
-    and a marker kernel (``torch.cuda._sleep``, which no path launches)
-    ends each of the first two groups: the kernels that count are those
-    between the trace's last two markers. Each kernel's count there must be
-    a whole number per call (``fn`` launches the same kernels every call),
-    and its total is divided by ``iters``; ``per_call``, a dict, receives
-    each kernel's launches per call. A trace that falls short of that, or
-    recorded no device time, is taken again, up to ``tries`` times; then
-    the result is None (not measured)."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for group, calls in enumerate((pad_calls, iters, pad_calls)):
-                for _ in range(calls):
-                    fn()
-                if group < 2:
-                    torch.cuda._sleep(TRACE_MARK_CYCLES)
-                torch.cuda.synchronize()
-        kernels = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
-                          and e.time_range.elapsed_us() > 0), key=lambda e: e.time_range.start)
-        marks = [i for i, e in enumerate(kernels) if TRACE_MARK in e.name][-2:]
-        total, count = Counter(), Counter()
-        for e in kernels[marks[0] + 1:marks[1]] if len(marks) == 2 else ():
-            total[e.name] += e.time_range.elapsed_us()
-            count[e.name] += 1
-        short = [(k[:60], c) for k, c in count.items() if c % iters]
-        if short:
-            print(f"device_ms: the trace of {iters} calls counted {short} launches; again")
-        elif total:
-            if per_call is not None:
-                per_call.update({k: c // iters for k, c in count.items()})
-            return {k: t / iters / 1e3 for k, t in total.items()}
-        else:
-            print(f"device_ms: {len(marks)} of the 2 markers in a trace of {len(kernels)} "
-                  "kernels; again")
-    return None
-
-
-def device_ms(fn, iters: int = 10, tries: int = 3):
-    """Mean device ms of one call of ``fn`` (device_ms_by_kernel summed), or
-    None where not measured, never 0."""
-    by = device_ms_by_kernel(fn, iters, tries)
-    return None if by is None else sum(by.values())
-
-
-def bound(flops: float, nbytes: float, int8_ops: float = 0.0):
-    """(least ms, what bounds it) from bf16 operations, int8 operations and
-    bytes."""
-    ops_ms = (flops / PEAK_BF16_FLOPS + int8_ops / PEAK_INT8_OPS) * 1e3
-    bytes_ms = nbytes / PEAK_HBM_BYTES * 1e3
-    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
-
-
-def nbytes(*tensors) -> int:
-    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
 def fmt_ms(ms) -> str:
@@ -696,7 +616,7 @@ def check_window_attention(cfg, prep, gen):
     torch.cuda.synchronize()
     ref = window_attention_fused_reference(qkv.float(), cos.float(), sin.float(), valid, wp)
     err = (got.float() - ref).abs().max().item()
-    errs = k7_errors(got, ref)
+    errs = rel_errors(got, ref)
     x, c, s = qkv.float(), cos.float()[:, None], sin.float()[:, None]
     nw = p // wp
 
@@ -707,7 +627,7 @@ def check_window_attention(cfg, prep, gen):
     control = control_attention(windows(x[:, 0] * c + rotate_half(x[:, 0]) * s),
                                 windows(x[:, 1] * c + rotate_half(x[:, 1]) * s),
                                 windows(x[:, 2]), allowed, round_p=True)
-    control_errs = k7_errors(got, control.transpose(1, 2).reshape(got.shape))
+    control_errs = rel_errors(got, control.transpose(1, 2).reshape(got.shape))
     ms = cuda_ms(lambda: window_attention_fused(qkv, cos, sin, valid, wp))
     dev_ms = device_ms(lambda: window_attention_fused(qkv, cos, sin, valid, wp))
     plain_ms = cuda_ms(lambda: window_attention_fused_reference(qkv, cos, sin, valid, wp))
@@ -720,9 +640,9 @@ def check_window_attention(cfg, prep, gen):
           f"rms_rel_err={errs[1]:.3e}; control p_4_bits (max/rms rel) "
           f"{control_errs[0]:.3e}/{control_errs[1]:.3e}; kernel {ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
-    if not (err <= KERNEL_ATOL and k7_within(errs)):
+    if not (err <= KERNEL_ATOL and rel_within(errs)):
         raise AssertionError(f"K1 disagrees with its plain version: {err}, {errs}")
-    if k7_within(control_errs):
+    if rel_within(control_errs):
         raise AssertionError("K1: the check cannot tell the kernel from P in 4 bits")
     # no single PyTorch call applies rope and attends within windows
     return {"name": "window_attention_fused", "route": "cuda", "source": K1_SRC,
@@ -757,8 +677,8 @@ def check_window_attention_tp_heads(cfg, prep, gen):
         got = window_attention_fused(qkv, cos, sin, valid, wp)
         ref = window_attention_fused_reference(qkv.float(), cos.float(), sin.float(), valid, wp)
         err = (got.float() - ref).abs().max().item()
-        out[heads] = (err,) + tuple(k7_errors(got, ref))
-        if not (err <= KERNEL_ATOL and k7_within(out[heads][1:])):
+        out[heads] = (err,) + tuple(rel_errors(got, ref))
+        if not (err <= KERNEL_ATOL and rel_within(out[heads][1:])):
             raise AssertionError(f"K1 at {heads} heads disagrees with its plain version: "
                                  f"{out[heads]}")
     print("K1 at a rank's heads on a model axis of 2 and 4 (max abs, rel, rms rel): "
@@ -790,11 +710,11 @@ def check_window_attention_unfused(cfg, prep, gen):
     got = window_attention(q, k, vv, valid, wp)
     torch.cuda.synchronize()
     ref = window_attention_reference(q.float(), k.float(), vv.float(), valid, wp)
-    errs = k7_errors(got, ref)
+    errs = rel_errors(got, ref)
     cos, sin = vision_rope_cos_sin(torch.as_tensor(prep.vis_pos_ids, device="cuda"), v.head_dim)
     control = window_attention_fused(torch.stack([q, k, vv], 1).contiguous(), cos.bfloat16(),
                                      sin.bfloat16(), valid, wp)
-    control_errs = k7_errors(control, ref)
+    control_errs = rel_errors(control, ref)
     ms = cuda_ms(lambda: window_attention(q, k, vv, valid, wp))
     plain_ms = cuda_ms(lambda: window_attention_reference(q, k, vv, valid, wp))
     nw = p // wp
@@ -817,9 +737,9 @@ def check_window_attention_unfused(cfg, prep, gen):
           f"rms_rel_err={errs[1]:.3e}; K1 control (roped twice, max/rms rel) "
           f"{control_errs[0]:.3e}/{control_errs[1]:.3e}; kernel {ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
-    if not k7_within(errs):
+    if not rel_within(errs):
         raise AssertionError(f"K8 disagrees with its plain version: {errs}")
-    if k7_within(control_errs):
+    if rel_within(control_errs):
         raise AssertionError("K8: the check cannot tell roped from twice-roped q and k")
     return {"name": "window_attention", "route": "cuda", "source": K1_SRC,
             "replaces": K8_REPLACES, "max_abs_err": err, "rel_err": errs[0],
@@ -988,10 +908,10 @@ def flash_cases(cases, gen):
         ref = flash_attention_reference(q.float(), k.float(), vv.float(), segs, segs,
                                         causal=causal, dense=dense)
         err = (got.float() - ref).abs().max().item()
-        errs = k7_errors(got, ref)
+        errs = rel_errors(got, ref)
         control_errs = {
-            "p_4_bits": k7_errors(got, control_attention(q, k, vv, mask, round_p=True)),
-            "k_tile_0_dropped": k7_errors(got, control_attention(q, k, vv, mask, drop_keys=64))}
+            "p_4_bits": rel_errors(got, control_attention(q, k, vv, mask, round_p=True)),
+            "k_tile_0_dropped": rel_errors(got, control_attention(q, k, vv, mask, drop_keys=64))}
         ms = cuda_ms(lambda: flash_attention(q, k, vv, segs, segs, causal=causal, dense=dense))
         plain_ms = cuda_ms(lambda: flash_attention_reference(q, k, vv, segs, segs,
                                                              causal=causal, dense=dense))
@@ -1008,9 +928,9 @@ def flash_cases(cases, gen):
               + ", ".join(f"{c} {e[0]:.3e}/{e[1]:.3e}" for c, e in control_errs.items())
               + f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms} ms, "
               f"bound {bound_ms:.4f} ms ({bound_by})")
-        if not (err <= KERNEL_ATOL and k7_within(errs)):
+        if not (err <= KERNEL_ATOL and rel_within(errs)):
             raise AssertionError(f"K2 {name} disagrees with its plain version: {err}, {errs}")
-        passed = [c for c, e in control_errs.items() if k7_within(e)]
+        passed = [c for c, e in control_errs.items() if rel_within(e)]
         if passed:
             raise AssertionError(f"K2 {name}: the check cannot tell the kernel from {passed}")
         rows.append({"name": f"flash_attention[{fl}]", "route": "cuda", "source": K2_SRC,
@@ -1154,7 +1074,7 @@ def check_backward(name, q, k, v, qseg, kseg, out, lse, dout, causal, dense, q_p
                    with_controls: bool = True):
     """K3 (K9's backward with q_positions) against its plain version on one
     input: each of dq, dk, dv within GRAD_RTOL of max |ref| and within the
-    relative limits K7_MAX_RTOL / K7_RMS_RTOL (k7_errors); with_controls,
+    relative limits K7_MAX_RTOL / K7_RMS_RTOL (rel_errors); with_controls,
     two controls (dS in 4 bits, key tile 0 dropped) must miss both limits
     on the gradients they change; a second call gives bit-identical dq, dk,
     dv.
@@ -1177,20 +1097,20 @@ def check_backward(name, q, k, v, qseg, kseg, out, lse, dout, causal, dense, q_p
             causal, dense, q_positions)
     refs = flash_attention_backward_reference(*args)
     rel = [rel_err(g, r) for g, r in zip(grads, refs)]
-    errs = [k7_errors(g, r) for g, r in zip(grads, refs)]
+    errs = [rel_errors(g, r) for g, r in zip(grads, refs)]
     abs_err = max((g.float() - r).abs().max().item() for g, r in zip(grads, refs))
     del refs
     controls = {}
     for control, kw in ((("ds_4_bits", dict(round_ds=True)),
                          ("k_tile_0_dropped", dict(drop_keys=64))) if with_controls else ()):
         ctrl = control_backward(*args, **kw)
-        e = [k7_errors(g, c) for g, c in zip(grads, ctrl)]
+        e = [rel_errors(g, c) for g, c in zip(grads, ctrl)]
         del ctrl
         controls[control] = (max(x[0] for x in e), max(x[1] for x in e))
     r = {"max_abs_err": abs_err, "rel_err": max(rel), "rel_err_dq_dk_dv": rel,
          "k7_errs_dq_dk_dv": errs, "controls": controls,
          "deterministic": all(torch.equal(a, b) for a, b in zip(grads, again))}
-    if not (max(rel) <= GRAD_RTOL and all(k7_within(e) for e in errs)):
+    if not (max(rel) <= GRAD_RTOL and all(rel_within(e) for e in errs)):
         raise AssertionError(f"{name} disagrees with its plain version: {r}")
     passed = [c for c, e in controls.items() if e[0] <= K7_MAX_RTOL or e[1] <= K7_RMS_RTOL]
     if passed:
@@ -3578,17 +3498,6 @@ def check_int4_tp_shards(cfg, gen, decode_m: int, prefill_m: int, world: int = S
     return rows, report
 
 
-def k7_errors(got, ref):
-    """(max error / max |ref|, RMS error / RMS of ref)."""
-    d = got.float() - ref.float()
-    return ((d.abs().max() / ref.float().abs().max().clamp(min=1e-30)).item(),
-            (d.norm() / ref.float().norm().clamp(min=1e-30)).item())
-
-
-def k7_within(errs) -> bool:
-    return errs[0] <= K7_MAX_RTOL and errs[1] <= K7_RMS_RTOL
-
-
 def k7_split_ms(call, k2_call):
     """K7's device ms of one call, its prep kernel and its attention kernel
     apart, beside K2's (or K9's) device ms at the same shape: {"prep",
@@ -3686,8 +3595,8 @@ def check_flash_int8(cfg, prep_a, prep_b, gen):
             torch.cuda.synchronize()
             ref = refs[pv]
             err = (got.float() - ref).abs().max().item()
-            errs = k7_errors(got, ref)
-            controls = {other: k7_errors(got, refs[other]) for other in (not pv, "bf16")}
+            errs = rel_errors(got, ref)
+            controls = {other: rel_errors(got, refs[other]) for other in (not pv, "bf16")}
             ms = cuda_ms(lambda: flash_attention_int8(q, k, vv, segs, segs, causal=causal,
                                                       dense=dense, pv_int8=pv))
             plain_ms = cuda_ms(lambda: flash_attention_int8_reference(
@@ -3707,9 +3616,9 @@ def check_flash_int8(cfg, prep_a, prep_b, gen):
                               for o, e in controls.items())
                   + f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, "
                   f"bound {bound_ms:.4f} ms ({bound_by})")
-            if not k7_within(errs):
+            if not rel_within(errs):
                 raise AssertionError(f"K7 {key} disagrees with its plain version: {errs}")
-            passed = [names[o] for o, e in controls.items() if k7_within(e)]
+            passed = [names[o] for o, e in controls.items() if rel_within(e)]
             if passed:
                 raise AssertionError(f"K7 {key}: the check cannot tell the kernel from "
                                      f"{passed} attention")
@@ -3814,10 +3723,10 @@ def check_flash_qpos(cfg, prep_a, gen):
         r = {"fwd_err": (got.float() - ref_o).abs().max().item(),
              "lse_rel_err": rel_err(lse, ref_lse, seen),
              "bwd_rel_err": [rel_err(g, rr) for g, rr in zip(grads, ref_grads)],
-             "bwd_k7_errs": [k7_errors(g, rr) for g, rr in zip(grads, ref_grads)],
+             "bwd_k7_errs": [rel_errors(g, rr) for g, rr in zip(grads, ref_grads)],
              "bwd_abs_err": max((g.float() - rr).abs().max().item()
                                 for g, rr in zip(grads, ref_grads)),
-             "int8_errs": {pv: k7_errors(i8[pv], i8_refs[pv]) for pv in (False, True)},
+             "int8_errs": {pv: rel_errors(i8[pv], i8_refs[pv]) for pv in (False, True)},
              "int8_abs_err": (i8[False].float() - i8_refs[False]).abs().max().item(),
              "equal_to_monolithic": {
                  "forward": torch.equal(got, mono[:, :, lo:hi]),
@@ -3832,8 +3741,8 @@ def check_flash_qpos(cfg, prep_a, gen):
         bad = [key for key, ok in r["equal_to_monolithic"].items() if not ok]
         if not (r["fwd_err"] <= KERNEL_ATOL and r["lse_rel_err"] <= LSE_RTOL
                 and torch.equal(lse <= -1e29, ~seen) and max(r["bwd_rel_err"]) <= GRAD_RTOL
-                and all(k7_within(e) for e in r["bwd_k7_errs"])
-                and all(k7_within(e) for e in r["int8_errs"].values()) and not bad):
+                and all(rel_within(e) for e in r["bwd_k7_errs"])
+                and all(rel_within(e) for e in r["int8_errs"].values()) and not bad):
             raise AssertionError(f"K9 shard {name} [{lo}:{hi}] fails: {r}")
     for n, (dk, dv) in dkv_sums.items():
         errs = (rel_err(dk, mono_grads[1]), rel_err(dv, mono_grads[2]))
@@ -6892,6 +6801,98 @@ def run_bench_phase(smi):
     return rec, launches
 
 
+SWEEP_ITERS = 2  # timed calls a row in phase (k)
+SWEEP_CHECK_ROWS = 128  # q rows on which phase (k) holds K2 and K7 to their plain versions
+SWEEP_PATCHES = 65536  # the 16k-token image's ViT (4086 x 4086 capped at 12845056 pixels)
+SWEEP_KERNELS = ["window_attention_fused", "flash_attention[dense]",
+                 "flash_attention[segmented]", "flash_attention[causal]",
+                 "flash_attention_int8[dense]", "flash_attention_int8[dense+pv8]",
+                 "flash_attention_int8[causal]", "flash_attention_int8[causal+pv8]"]
+# the whole script's seconds on an H100 80GB HBM3 at 700 W before phase (k)
+# was added (PERF.md §5), printed beside this run's
+SCRIPT_S_BEFORE_K = 891.1
+
+
+def run_sweeps_phase(smi):
+    """Phase (k): the three ViT kernel sweeps of glimpseprune_torch/tools/
+    in process at the 16k-token image's 65,536 patches, SWEEP_ITERS timed
+    calls a row, after phase (p), when the card holds no model:
+    sweep_vision_attention's sections 1 and 1b, sweep_vit_fullatt (which
+    times dense K2 and SDPA at section 2's shape too) and i8attn_microbench
+    with the ViT at SWEEP_PATCHES. Every check the tools make must hold: K1
+    at each heads-per-block count bit-equal to the shipped plan's output
+    and within phase 3's limits of its plain version; K1's output inside
+    the (q8) and the weight-only windowed block against its plain version
+    on the qkv the block gave it; K2 (dense, segmented, causal) and K7
+    (each PV flavour) against their plain versions on SWEEP_CHECK_ROWS q
+    rows; one launch a call on each wrapper's counter. -> (record,
+    launches, kernel rows at the 65,536 shape: K1, dense and segmented K2,
+    K7 and K7 +pv8)."""
+    import torch
+
+    from glimpseprune_torch.tools import i8attn_microbench, sweep_vision_attention
+    from glimpseprune_torch.tools import sweep_vit_fullatt
+    from glimpseprune_torch.tools.kernel_ab import write_report
+
+    t_phase = time.perf_counter()
+    common = ["--iters", str(SWEEP_ITERS), "--check-rows", str(SWEEP_CHECK_ROWS)]
+    runs = (("sweep_vision_attention", sweep_vision_attention,
+             ["1", "1b", "--patches", str(SWEEP_PATCHES)]),
+            ("sweep_vit_fullatt", sweep_vit_fullatt, ["--seq", str(SWEEP_PATCHES)]),
+            ("i8attn_microbench", i8attn_microbench, ["--s-vit", str(SWEEP_PATCHES)]))
+    reset_launches()
+    rec, part_s = {}, {}
+    for name, tool, argv in runs:
+        t0 = time.perf_counter()
+        rec[name] = tool.run(tool.parse_args(argv + common))
+        torch.cuda.synchronize()
+        part_s[name] = time.perf_counter() - t0
+        write_report(name, rec[name], str(ROOT / "build" / "chip_smoke_sweeps" / f"{name}.json"))
+        if rec[name]["failures"]:
+            raise AssertionError(f"phase (k) {name}: {rec[name]['failures']}")
+        torch.cuda.empty_cache()
+    launches = read_launches(SWEEP_KERNELS)
+    vis, full, i8 = (rec[n] for n, _, _ in runs)
+    k1 = next(r for r in vis["sections"]["1"]["rows"] if r["shipped"])
+    full_rows = {r["name"]: r for r in full["rows"]}
+    library = full_rows[full["best_sdpa"]] if full["best_sdpa"] else None
+    vit = {r["name"]: r for r in i8["shapes"]["vit"]}
+
+    def kernel_row(name, r, replaces, plain_ms, library_ms):
+        return {"name": name, "route": "cuda", "source": K1_SRC if name.startswith("window")
+                else K2_SRC, "replaces": replaces, "launches": launches[name],
+                "max_abs_err": r["max_abs_err"], "rel_err": r["rel_err"],
+                "rms_rel_err": r["rms_rel_err"], "ms": r["ms"], "device_ms": r["device_ms"],
+                "plain_ms": plain_ms, "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                "library_ms": library_ms, "shape": r["shape"], "phase": "k"}
+
+    rows = [kernel_row("window_attention_fused", k1, K1_REPLACES, vis["sections"]["1"]["plain_ms"],
+                       None)]
+    for fl in ("dense", "segmented"):
+        r = full_rows[f"flash_attention[{fl}]"]
+        rows.append(kernel_row(f"flash_attention[{fl}]", r, K2_REPLACES, r["plain_ms"],
+                               None if library is None else library["ms"]))
+        rows[-1]["library"] = None if library is None else library["name"]
+    for variant, key in (("qk8", "dense"), ("all8", "dense+pv8")):
+        r = vit[variant]
+        rows.append(kernel_row(f"flash_attention_int8[{key}]", r, K7_REPLACES["dense"],
+                               r["plain_ms"], vit["sdpa"]["ms"]))
+        rows[-1].update(prep_device_ms=r["prep_device_ms"],
+                        attention_device_ms=r["attention_device_ms"],
+                        library="bf16 SDPA, not K7's function")
+    for r in rows:
+        r["plain_rows"] = None if r["name"].startswith("window") else SWEEP_CHECK_ROWS
+    b1 = vis["sections"]["1b"]
+    rec["phase_s"], rec["part_s"] = time.perf_counter() - t_phase, part_s
+    print(f"phase (k) on {smi}: {rec['phase_s']:.1f} s " + json.dumps(
+        {k: round(v, 1) for k, v in part_s.items()}) + "; K1 by heads a block " + json.dumps(
+        {r["heads_per_block"]: r["device_ms"] for r in vis["sections"]["1"]["rows"]})
+        + "; the windowed block (w8a8 / weight-only) " + json.dumps(b1["sums"], default=str)
+        + "; K1 in the block against its plain version " + json.dumps(b1["block_checks"]),
+        flush=True)
+    return rec, launches, rows
+
+
 def main() -> int:
     smi = find_card()
     import torch
@@ -7054,6 +7055,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     bench_protocols, bench_launches = run_bench_phase(smi)
     lap("(p) bench protocols")
+    # phase (k): the ViT kernel sweeps at the 16k image's 65,536 patches (no model held)
+    torch.cuda.empty_cache()
+    sweeps, sweep_launches, sweep_rows = run_sweeps_phase(smi)
+    lap("(k) kernel sweeps")
 
     for k in kernels:
         path = train_launches if k["name"].startswith(("flash_attention_lse",
@@ -7105,6 +7110,11 @@ def main() -> int:
     for k in kernels:  # phase (p): the aggregated protocol's and e2e's launches in process
         k["launches_bench"] = {part: counts.get(k["name"], 0)
                                for part, counts in bench_launches.items()}
+    for k in kernels:  # phase (k): the three kernel sweeps at 65,536 patches
+        k["launches_sweeps"] = sweep_launches.get(k["name"], 0)
+    for k in sweep_rows:
+        k["launches_sweeps"] = k["launches"]
+    kernels += sweep_rows
     for k in kernels:  # phase (m): each rank's launches on the mesh
         k["launches_tp"] = [r["tp_launches"].get(k["name"], 0) for r in sp_ranks]
     for k in kernels:
@@ -7208,9 +7218,11 @@ def main() -> int:
                       "continuous_bf16_s": continuous_s, "glimpse_plus": glimpse_plus,
                       "llava": llava,
                       "evaluation": evaluation, "tools": tools, "convergence": convergence,
-                      "bench_protocols": bench_protocols,
+                      "bench_protocols": bench_protocols, "kernel_sweeps": sweeps,
                       "phase_s": laps,
                       "total_s": time.perf_counter() - t_start}, default=str))
+    total_s = time.perf_counter() - t_start
+    print(f"script time: {total_s:.1f} s ({SCRIPT_S_BEFORE_K} s before phase (k))")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -57,7 +57,8 @@ def test_port_imports_no_jax():
                  "tools.compare_results", "tools.compare_server", "parallel.mesh",
                  "utils.multihost", "tools.convergence_run", "tools.sweep_reduce_quality",
                  "tools.judge_loadtest", "tools.bench_protocols", "tools.serving_frontier",
-                 "tools.sweep_reduce_layer"):
+                 "tools.sweep_reduce_layer", "tools.kernel_ab", "tools.sweep_vision_attention",
+                 "tools.sweep_vit_fullatt", "tools.i8attn_microbench"):
         assert f"glimpseprune_torch.{name}" in out["modules"]
     assert out["jax"] == []
 
