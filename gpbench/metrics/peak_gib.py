@@ -1,0 +1,6 @@
+"""torch.cuda.max_memory_allocated over the window (reset at its start)."""
+KIND, UNIT = "end_to_end", "GiB"
+
+
+def read(run):
+    return None if run.peak_bytes is None else run.peak_bytes / 2 ** 30
